@@ -1,0 +1,16 @@
+"""rtwc_tpu_torch: the PyTorch / CUDA port of the console ray tracer.
+
+A second package beside `rtwc_tpu` (the JAX reference, which stays as it
+is). It runs the interactive display path end to end on an NVIDIA Hopper
+card: scene physics, the hard closest-hit render (a CUDA kernel written by
+hand, csrc/hard_render.cu), the anti-aliasing downsample, the mode heads,
+the ANSI encoder and the presenter. It imports torch and numpy and never
+jax; the one module it shares with the JAX package is `rtwc_tpu.config`.
+
+Counterpart: rtwc_tpu/__init__.py:1-14.
+"""
+from rtwc_tpu_torch.config import RenderConfig, EngineConfig, RenderMode
+
+__version__ = "0.1.0"
+
+__all__ = ["RenderConfig", "EngineConfig", "RenderMode", "__version__"]

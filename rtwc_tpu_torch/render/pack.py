@@ -1,0 +1,72 @@
+"""Dense scene / camera packing for the kernel.
+
+Counterpart: rtwc_tpu/render/pack.py:20-83, same layouts: spheres
+[8, NS] f32, planes [12, NP] f32, counts [2] i32, camera [1, 16] f32, with
+the same row / slot constants. Live objects are compacted to the front by
+a *stable* sort: the kernel's primary loop reads sphere indices from the
+broad-phase lists, while its shadow loop runs k = 0..counts[0]-1 straight
+over the table, and both are right only because the live spheres fill the
+first counts[0] columns in creation order (the closest-hit tie order).
+"""
+from __future__ import annotations
+
+import torch
+
+from rtwc_tpu_torch.camera import Camera, basis
+
+SPH_ROWS = 8
+S_CX, S_CY, S_CZ, S_R, S_COLR, S_COLG, S_COLB, S_ACTIVE = range(8)
+PL_ROWS = 12
+P_CX, P_CY, P_CZ, P_NX, P_NY, P_NZ, P_HW, P_HH, P_COLR, P_COLG, P_COLB, P_ACTIVE = range(12)
+CAM_LEN = 16
+(C_POSX, C_POSY, C_POSZ,
+ C_RX, C_RY, C_RZ,
+ C_UX, C_UY, C_UZ,
+ C_FX, C_FY, C_FZ) = range(12)
+# Spare camera slots (rtwc_tpu/render/pallas_soft.py:76): live counts as f32
+# on the soft paths, and the band's first image row.
+C_NSPH, C_NPL, C_ROW0 = 12, 13, 14
+
+
+def _compact(active: torch.Tensor) -> torch.Tensor:
+    """Permutation putting active slots before inactive ones, stable."""
+    key = torch.where(active > 0.5, 0, 1)
+    return torch.argsort(key, stable=True)
+
+
+def pack_scene(scene):
+    """Scene -> (sph [8, NS] f32, pl [12, NP] f32, counts [2] i32) on the
+    scene's device."""
+    sp = scene.spheres
+    perm = _compact(sp.active)
+    sph = torch.stack([
+        sp.center[perm, 0], sp.center[perm, 1], sp.center[perm, 2],
+        sp.radius[perm],
+        sp.color[perm, 0], sp.color[perm, 1], sp.color[perm, 2],
+        sp.active[perm],
+    ])
+    pln = scene.planes
+    pperm = _compact(pln.active)
+    pl = torch.stack([
+        pln.center[pperm, 0], pln.center[pperm, 1], pln.center[pperm, 2],
+        pln.normal[pperm, 0], pln.normal[pperm, 1], pln.normal[pperm, 2],
+        pln.width[pperm] * 0.5, pln.height[pperm] * 0.5,
+        pln.color[pperm, 0], pln.color[pperm, 1], pln.color[pperm, 2],
+        pln.active[pperm],
+    ])
+    counts = torch.stack([
+        (sp.active > 0.5).sum().to(torch.int32),
+        (pln.active > 0.5).sum().to(torch.int32),
+    ])
+    return sph.float().contiguous(), pl.float().contiguous(), counts
+
+
+def pack_camera(camera: Camera, device: torch.device | str | None = None) -> torch.Tensor:
+    """Camera -> [1, 16] f32: position + basis (right, up, forward) + 4
+    spare zeros. Built where the camera lives (the host) and then moved to
+    `device` in one copy."""
+    pos = camera.pos.to(torch.float32)
+    right, up, forward = basis(camera.rot.to(torch.float32))
+    vec = torch.cat([pos, right, up, forward, torch.zeros(4, dtype=torch.float32,
+                                                          device=pos.device)])
+    return vec[None, :].to(device if device is not None else pos.device)
