@@ -2,6 +2,7 @@ from rtwc_tpu_torch.camera.camera import (
     Camera,
     basis,
     camera_from_numpy,
+    camera_grads_to_numpy,
     camera_rays,
     default_camera,
     projection_elements,
@@ -13,6 +14,7 @@ __all__ = [
     "Camera",
     "default_camera",
     "camera_from_numpy",
+    "camera_grads_to_numpy",
     "basis",
     "static_basis",
     "projection_elements",

@@ -8,6 +8,7 @@ package's formulas term for term.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -30,13 +31,32 @@ def default_camera() -> Camera:
     )
 
 
-def camera_from_numpy(cam, device: torch.device | str | None = None) -> Camera:
+def camera_from_numpy(cam, device: torch.device | str | None = None,
+                      requires_grad=()) -> Camera:
     """Build the port's Camera from a JAX-package Camera (or any object with
-    `pos` / `rot` leaves that convert with np.asarray)."""
-    def t(a):
-        return torch.from_numpy(np.array(np.asarray(a), np.float32)).to(device or "cpu")
+    `pos` / `rot` leaves that convert with np.asarray). `requires_grad`
+    names the leaves ("pos", "rot", or "all") that become autograd leaves."""
+    want = set(requires_grad)
 
-    return Camera(pos=t(cam.pos), rot=t(cam.rot))
+    def t(name):
+        out = torch.from_numpy(np.array(np.asarray(getattr(cam, name)), np.float32))
+        out = out.to(device or "cpu")
+        if "all" in want or name in want:
+            out.requires_grad_(True)
+        return out
+
+    return Camera(pos=t("pos"), rot=t("rot"))
+
+
+def camera_grads_to_numpy(camera: Camera) -> SimpleNamespace:
+    """Gradients of the camera's leaves as f32 NumPy arrays under the JAX
+    Camera's field names (zeros where a leaf has no gradient)."""
+    def g(x):
+        if x.grad is None:
+            return np.zeros(tuple(x.shape), np.float32)
+        return np.array(x.grad.detach().cpu().numpy(), np.float32)
+
+    return SimpleNamespace(pos=g(camera.pos), rot=g(camera.rot))
 
 
 def basis(rot: torch.Tensor):

@@ -3,6 +3,7 @@ from rtwc_tpu_torch.heads.ansi256 import (
     ANSI_PALETTE,
     GREY_LUT,
     ansi256_from_rgb,
+    quantize_rgb_ste,
     rgb_from_ansi256,
 )
 from rtwc_tpu_torch.heads.encode import encode_frame, encode_frame_numpy
@@ -14,6 +15,7 @@ __all__ = [
     "NUM_ASCII",
     "ansi256_from_rgb",
     "rgb_from_ansi256",
+    "quantize_rgb_ste",
     "ANSI_PALETTE",
     "GREY_LUT",
     "framebuffer_to_cells",

@@ -6,7 +6,8 @@ shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
          -shared -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>.so csrc/<name>.cu
 
-It is rebuilt when the source is newer than the library, and written
+It is rebuilt when the source, or any header in csrc/ (the .cu files
+include them), is newer than the library, and written
 atomically (temp file + rename, as rtwc_tpu/io/native/__init__.py:33-53
 does), so concurrent processes never load a half-written file. nvcc's
 output (the -Xptxas -v register / spill report) is kept beside the library
@@ -16,6 +17,7 @@ modules needs no nvcc.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -56,12 +58,22 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def stale(name: str) -> bool:
+    """True when lib<name>.so is missing or older than csrc/<name>.cu or
+    any csrc/*.cuh header."""
+    so = library_path(name)
+    if not os.path.exists(so):
+        return True
+    inputs = [os.path.join(SRC_DIR, f"{name}.cu")] + glob.glob(os.path.join(SRC_DIR, "*.cuh"))
+    return os.path.getmtime(so) < max(os.path.getmtime(f) for f in inputs)
+
+
 def build(name: str) -> str:
     """Compile csrc/<name>.cu if the library is missing or stale; returns
     the library path. Raises RuntimeError with nvcc's output on failure."""
     src = os.path.join(SRC_DIR, f"{name}.cu")
     so = library_path(name)
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    if not stale(name):
         build_seconds.setdefault(name, 0.0)
         return so
     nvcc = find_nvcc()

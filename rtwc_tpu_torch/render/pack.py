@@ -70,3 +70,12 @@ def pack_camera(camera: Camera, device: torch.device | str | None = None) -> tor
     vec = torch.cat([pos, right, up, forward, torch.zeros(4, dtype=torch.float32,
                                                           device=pos.device)])
     return vec[None, :].to(device if device is not None else pos.device)
+
+
+def with_counts(cam: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """cam [1, 16] with the live counts written as f32 into cam[0, C_NSPH]
+    and cam[0, C_NPL] (pallas_soft.py:2702-2705). Built out of place with
+    torch.cat, so autograd still reaches the position and basis slots; the
+    count slots take no gradient."""
+    c = counts.reshape(-1).to(device=cam.device, dtype=cam.dtype)
+    return torch.cat([cam[:, :C_NSPH], c[None, :2], cam[:, C_NPL + 1:]], dim=1)

@@ -9,6 +9,7 @@ from rtwc_tpu_torch.scene.scene import (
     grow_scene,
     random_scene,
     scene_from_numpy,
+    scene_grads_to_numpy,
     spawn_random_sphere,
     update_scene,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "spawn_random_sphere",
     "update_scene",
     "scene_from_numpy",
+    "scene_grads_to_numpy",
     "save_scene",
     "load_scene",
 ]

@@ -9,9 +9,12 @@ leaves to the host, writes the slot and pushes them back to the same
 device (the engine does so at most once a second, on spawn).
 
 `update_scene` is the per-frame physics tick and runs on the scene's
-device. `scene_from_numpy` is the bridge from the JAX package's Scene.
+device. `scene_from_numpy` is the bridge from the JAX package's Scene,
+and `scene_grads_to_numpy` brings gradients back in its layout.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -264,14 +267,37 @@ def update_scene(scene: Scene, dt: float, bob_min_y: float = -10.0,
     return scene.replace(spheres=sp.replace(center=center, mover=mover))
 
 
-def scene_from_numpy(tree, device: torch.device | str | None = None) -> Scene:
+def scene_from_numpy(tree, device: torch.device | str | None = None,
+                     requires_grad=()) -> Scene:
     """Build the port's Scene from a JAX-package Scene (or any object with
     `spheres` / `planes` attributes whose leaves convert with np.asarray)
-    under the same field names."""
-    def grab(node, cls, fields):
-        return cls(**{f: torch.from_numpy(np.array(np.asarray(getattr(node, f)),
-                                                   np.float32)).to(device or "cpu")
-                      for f in fields})
+    under the same field names. `requires_grad` names the leaves that become
+    autograd leaves, as "spheres.center", "planes.normal", ...; "all" marks
+    every leaf."""
+    want = set(requires_grad)
 
-    return Scene(spheres=grab(tree.spheres, Spheres, _SPHERE_FIELDS),
-                 planes=grab(tree.planes, Planes, _PLANE_FIELDS))
+    def grab(node, group, cls, fields):
+        out = {}
+        for f in fields:
+            t = torch.from_numpy(np.array(np.asarray(getattr(node, f)), np.float32))
+            t = t.to(device or "cpu")
+            if "all" in want or f"{group}.{f}" in want:
+                t.requires_grad_(True)
+            out[f] = t
+        return cls(**out)
+
+    return Scene(spheres=grab(tree.spheres, "spheres", Spheres, _SPHERE_FIELDS),
+                 planes=grab(tree.planes, "planes", Planes, _PLANE_FIELDS))
+
+
+def scene_grads_to_numpy(scene: Scene) -> SimpleNamespace:
+    """The inverse direction for gradients: each leaf's `.grad` as an f32
+    NumPy array under the JAX Scene's field names and shapes (zeros where a
+    leaf has no gradient), so tests compare gradient trees leaf by leaf."""
+    def grads(node, fields):
+        return SimpleNamespace(**{
+            f: (np.zeros(tuple(getattr(node, f).shape), np.float32) if getattr(node, f).grad is None
+                else _host(getattr(node, f).grad)) for f in fields})
+
+    return SimpleNamespace(spheres=grads(scene.spheres, _SPHERE_FIELDS),
+                           planes=grads(scene.planes, _PLANE_FIELDS))
