@@ -5,9 +5,9 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   0  card name and power limit (nvidia-smi), torch and CUDA versions
-  1  build csrc/hard_render.cu and csrc/soft_render.cu with nvcc for
-     sm_90a, both at once; print build times and each kernel's ptxas
-     registers and spills
+  1  build csrc/hard_render.cu, csrc/soft_render.cu and csrc/soft_shadow.cu
+     with nvcc for sm_90a, one nvcc each, all at once; print build times and
+     each kernel's ptxas registers and spills
   2  the K7 kernel against its plain torch version on the card, on the
      same packed tables and broad-phase lists, in seven cases; then one
      frame of the whole step (kernel path) against the plain reference
@@ -18,6 +18,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      cotangents, the reduction against a float64 sum, and two launches
      giving bit-equal tables; then the kernel path end to end (forward and
      gradients) against the torch soft renderer at 400x150
+  2c the shadowed kernels against their plain versions on the card: K4's
+     14 planes and gates, K4-stats' counts, K5's tables under seeded random
+     cotangents, K6's loss and tables, K6 against K4 + K5 with the MSE
+     cotangents and two launches bit-equal, in eight cases (96x32; 400x150
+     pitched; the bench headline 1920x1080 random_scene(20); a saturating
+     light; a cache overflow past NC; full darkness, where the early-out
+     fires; culling off; an empty scene); then the shadowed kernel path
+     against the torch soft renderer at bench.py's grad_cam_rot_rel config
+     (640x360, 20 spheres): camera-rotation relative error <= 1.5e-2; and
+     its rotation gradient against a float64 render on independently built
+     rays: no farther than the farthest of five independent float32
+     renders there, within 1.5e-2 at 400x150 with a posed camera
   3  the display path, counted: the engine with a FramebufferSink on the
      card, 400x150 in all five modes, a forced spawn with a capacity
      doubling, 1920x500 with 100 spheres and 2x supersampling; K7's launch
@@ -28,13 +40,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      reduction); a fused-MSE training loop at the same size (K3, the
      reduction); and the entry point in subprocesses at 192x96, plain and
      --quantized, which must converge sub-pixel (exit 0)
+  3c the shadowed train path, counted (every launch count set to 0 first):
+     the generic step (K4, K5, the reduction) and the fused step (K6, the
+     reduction) at the bench headline config, soft_tile_diagnostics
+     (K4-stats), and `python -m rtwc_tpu_torch.examples.fit_from_shadow` at
+     its defaults in process; each new kernel must have launched; then the
+     entry point in a subprocess, which must print FIT OK and exit 0
   4  `python -m rtwc_tpu_torch` in a subprocess
   5  timings (CUDA events, host clock, profiler): K7 vs plain, broad phase,
      engine frames/s and rays/s, a per-frame host breakdown; K1, K2, K3 and
      the reduction vs plain at 1920x1080 with 20 spheres, the generic and
      fused train steps vs the same steps on the plain versions, and the
      device's busy share over 20 steps
-Then a JSON line describing the kernels, and as the last line
+  5b with shadows: K4, K5, K6, K4-stats and the reduction vs plain at the
+     bench headline config; the generic and fused steps and the device's
+     busy share; the fused step at 3840x2160 with 200 spheres and its peak
+     memory; the cache-fallback share of tiles at both sizes
+Then a JSON line describing the kernels (each with its bound: the larger of
+its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
+from this run's lists and gate tables), and as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX. TF32 is off.
 Longer tables go to chip_smoke_out/.
 """
@@ -59,6 +83,23 @@ SOFT_PLANES = ((slice(0, 3), 2e-3, 1e-4, "rgb"), (slice(3, 4), 1e-3, 1e-4, "dept
                (slice(4, 7), 1e-4, 1e-4, "normal"), (slice(7, 10), 1e-5, 1e-5, "alpha/m/s"))
 TABLE_REL, LOSS_RTOL, TF_REL = 1e-4, 1e-6, 1e-10
 SOFT_KW = dict(soft_miss_penalty=300.0, soft_mask_k=10.0)
+# The shadowed kernels' 14 planes: K1's ten, vis, d(rgb)/d(vis).
+SHADOW_PLANES = SOFT_PLANES + ((slice(10, 11), 1e-5, 1e-5, "vis"),
+                               (slice(11, 14), 2e-3, 1e-4, "d(rgb)/d(vis)"))
+ROT_REL, GRAD_RTOL, GRAD_ATOL = 1.5e-2, 2e-2, 5e-6  # ROADMAP queue 3's carve-out
+# One H100 SXM at 700 W (NVIDIA's data sheet): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the
+# float32 rate outside the tensor cores.
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# float32 operations per pixel, counted from csrc/soft_common.cuh,
+# csrc/soft_block.cuh and csrc/hard_render.cu: one per add, multiply,
+# compare-select, exp, log1p, sqrt, rsqrt or divide, the smaller count where
+# a branch could go either way.
+OPS = dict(raygen=20, lb_sphere=37, lb_plane=43, geo_sphere=40, geo_plane=47, shade=78,
+           acc7=31, acc10=40, final=20, light_ray=20, pre_a=23, pre_b=12, pre_plane=35,
+           trans=23, corr=62, blend=18, cot=28, vjp_sphere=330, vjp_plane=360,
+           sh_vjp_sphere=260, sh_vjp_plane=300, block_sum=5, tf_slot=40, loss=12,
+           hard_sphere=30, hard_plane=25, hard_shade=70, hard_shadow=30)
 
 
 def _card_line() -> str:
@@ -117,7 +158,8 @@ def _time_ms(fn, reps=20, warm=3):
 
 def _kernel_device_ms(fn, reps=20, name="hard_render_kernel"):
     """Mean device time of the kernel `name` over `reps` calls of fn, from
-    the profiler's CUDA kernel records (None if it records none)."""
+    the profiler's CUDA kernel records whose name contains `name` (None if
+    it records none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,7 +171,7 @@ def _kernel_device_ms(fn, reps=20, name="hard_render_kernel"):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and e.name.startswith(name)]
+          if e.device_type == DeviceType.CUDA and name in e.name]
     return sum(us) / len(us) / 1e3 if us else None
 
 
@@ -303,6 +345,303 @@ def _plain_autograd(SK):
     return PlainRender, PlainMSE
 
 
+def _step_ms(step, reps: int) -> float:
+    """Host ms per call of step() over `reps` calls, after two warm-up calls,
+    between device synchronisations."""
+    import torch
+
+    step()
+    step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def _profile_steps(step, out_name: str, label: str, tag: str, reps: int = 20):
+    """Device busy share of `reps` calls of step() under the profiler, with
+    the per-kernel device time written to chip_smoke_out/<out_name>.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kern)
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
+    with open(os.path.join(OUT_DIR, f"{out_name}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="cpu_time_total", row_limit=60))
+        f.write("\n".join(f"{us / reps:10.1f} us/step  {nm}" for nm, us in top))
+    print(f"phase 5: profile {label}, {reps} steps: device busy {busy_us / wall_us!r} of "
+          f"{wall_us / reps / 1e3!r} ms per step (profiler on) {tag}")
+    print("phase 5: top device time: " + "; ".join(
+        f"{nm[:40]} {us / reps:.1f} us/step" for nm, us in top[:6]))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes: float, ops: float):
+    """(least ms, what bounds it) for the work: bytes over 3.35 TB/s or
+    float32 operations over 67 TFLOP/s, whichever takes longer."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _soft_work(lists, gates, npl: int, px: int, shl=None, counts=None, nc: int = 8):
+    """Per-kernel float32 operations of one soft launch, from the lists and
+    the gate tables it ran with (and, for the shadowed kernels, the shadow
+    lists and K4-stats' counts): the forward sweep, the backward sweep, the
+    shadowed forward and the shadowed backward, each summed over pixels."""
+    import torch
+
+    ns = lists.shape[2] - 1
+    L = lists[:, 0, 0].double()
+    gs = gates[:, 0, :ns].sum(1).double()
+    gp = gates[:, 0, ns:].sum(1).double()
+    o = OPS
+    fwd = (o["raygen"] + L * o["lb_sphere"] + npl * o["lb_plane"]
+           + gs * (o["geo_sphere"] + o["shade"] + o["acc7"])
+           + gp * (o["geo_plane"] + o["shade"] + o["acc7"]) + o["final"])
+    bwd = (o["raygen"] + 2 * o["final"] + 12 * o["tf_slot"]
+           + gs * (o["lb_sphere"] + o["geo_sphere"] + o["shade"] + o["cot"] + o["vjp_sphere"]
+                   + 7 * o["block_sum"])
+           + gp * (o["lb_plane"] + o["geo_plane"] + o["shade"] + o["cot"] + o["vjp_plane"]
+                   + 11 * o["block_sum"]))
+    work = {"fwd": float(fwd.sum()) * px, "bwd": float(bwd.sum()) * px}
+    if shl is not None:
+        sgs = gates[:, 1, :ns].sum(1).double()
+        sgp = gates[:, 1, ns:].sum(1).double()
+        count, applied = counts[:, 0].double(), counts[:, 1].double()
+        blend = torch.where(count <= nc, count * o["corr"], fwd)  # overflow: the re-walk
+        sh_fwd = (fwd + (gs + gp) * (o["acc10"] - o["acc7"]) + o["light_ray"]
+                  + shl[:, 0, 0].double() * o["pre_a"] + sgs * o["pre_b"] + npl * o["pre_plane"]
+                  + applied * o["trans"] + blend + o["blend"])
+        sh_bwd = (bwd + o["light_ray"] + sgs * (o["sh_vjp_sphere"] + 4 * o["block_sum"])
+                  + sgp * (o["sh_vjp_plane"] + 8 * o["block_sum"]))
+        work.update(sh_fwd=float(sh_fwd.sum()) * px, sh_bwd=float(sh_bwd.sum()) * px)
+    return work
+
+
+def _shadow_scene_96(n_spheres=4, n_planes=2):
+    """tests/test_pallas_soft.py:112-115: the 96x32 scene with an occluder
+    between the light and the others."""
+    from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
+
+    s = empty_scene(n_spheres, n_planes)
+    s = add_sphere(s, 5.0, (0.0, 1.0, 20.0), (200.0, 40.0, 40.0), speed=1.0)
+    s = add_sphere(s, 3.0, (-4.0, -1.0, 28.0), (40.0, 200.0, 40.0), speed=1.0)
+    s = add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 60.0, 60.0)
+    return add_sphere(s, 3.0, (-2.0, 8.0, 22.0), (40.0, 40.0, 200.0), speed=1.0)
+
+
+def _crowd_scene(n=14, seed=3):
+    """n overlapping spheres in frame over the floor: some 16x16 tiles gate
+    in more objects than the NC cache slots."""
+    import numpy as np
+    from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
+
+    rng = np.random.default_rng(seed)
+    s = empty_scene(16, 2)
+    for _ in range(n):
+        s = add_sphere(s, float(rng.uniform(2.0, 4.0)),
+                       (float(rng.uniform(-4, 4)), float(rng.uniform(-2, 2)),
+                        float(rng.uniform(18, 30))),
+                       tuple(float(c) for c in rng.uniform(30, 220, 3)), speed=1.0)
+    return add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 60.0, 60.0)
+
+
+def _dark_scene():
+    """The 96x32 shadow scene under a ceiling slab that blocks the light:
+    every floor and sphere pixel is in full shadow."""
+    from rtwc_tpu_torch.scene import add_plane
+
+    return add_plane(_shadow_scene_96(4, 3), (0.0, 20.0, 20.0), (0.0, -1.0, 0.0),
+                     (80.0, 80.0, 80.0), 400.0, 400.0)
+
+
+def _cast_scene(scene, dtype):
+    """The scene with its float tables in `dtype`."""
+    def cast(group):
+        return group.replace(**{f.name: getattr(group, f.name).to(dtype)
+                                for f in dataclasses.fields(group)
+                                if getattr(group, f.name).is_floating_point()})
+    return scene.replace(spheres=cast(scene.spheres), planes=cast(scene.planes))
+
+
+def _rot_loss(fb_rgb, fb_depth, cfg):
+    """bench.py's grad_cam_rot_rel loss (bench.py:377-382), zero target."""
+    import torch
+
+    return torch.mean((fb_rgb / 255.0) ** 2) + 0.01 * torch.mean(fb_depth) / cfg.far
+
+
+def _rot_grad_kernel(scene, camera, cfg):
+    """d loss / d camera.rot through the soft kernel path."""
+    from rtwc_tpu_torch.camera import Camera
+    from rtwc_tpu_torch.render import render_frame_soft_kernel
+
+    rot = camera.rot.clone().requires_grad_(True)
+    fb = render_frame_soft_kernel(scene, Camera(pos=camera.pos.clone(), rot=rot), cfg, tau=0.5)
+    _rot_loss(fb.rgb, fb.depth, cfg).backward()
+    return rot.grad.double()
+
+
+def _rot_grad_arbiter(scene, camera, cfg):
+    """Camera-rotation gradients of the same loss that share no rounding
+    with the kernels: the torch soft renderer (`trace_soft`) on rays built
+    here from camera_rays's formula, d = (right.v, up.v, fwd.v) normalised,
+    v = (cx e1, cy e2, 1), not from the kernels' ray generation. Returns the
+    float64 gradient and the float32 ones of: camera_rays itself; the
+    float64 rays rounded to float32; and those rays with each component
+    moved one ulp up or down at random (three seeds)."""
+    import torch
+
+    from rtwc_tpu_torch.camera import Camera, basis, camera_rays, projection_elements
+    from rtwc_tpu_torch.render import trace_soft
+
+    dev = scene.device
+    W, H = cfg.width, cfg.height
+    e1, e2 = projection_elements(cfg)
+
+    def rays64(cam):
+        right, up, fwd = basis(cam.rot.double())
+        col = torch.arange(W, dtype=torch.float64, device=dev)
+        row = torch.arange(H, dtype=torch.float64, device=dev)
+        vx = ((2.0 * col - W) / W * e1)[None, :].expand(H, W)
+        vy = ((H - 2.0 * row) / H * e2)[:, None].expand(H, W)
+        d = torch.stack([vx * b[0] + vy * b[1] + b[2] for b in (right, up, fwd)], dim=-1)
+        return d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+
+    def perturbed(seed):
+        def rays(cam):
+            d = rays64(cam).float()
+            u = torch.randint(-1, 2, d.shape, generator=torch.Generator().manual_seed(seed))
+            u = u.to(dev)
+            up, down = (torch.nextafter(d, torch.full_like(d, s * float("inf"))) for s in (1, -1))
+            moved = torch.where(u > 0, up, torch.where(u < 0, down, d))
+            return d + (moved - d).detach()
+        return rays
+
+    def grad(dtype, rays):
+        rot = camera.rot.to(dev, dtype).clone().requires_grad_(True)
+        cam = Camera(pos=camera.pos.to(dev, dtype), rot=rot)
+        rgb, depth, _, _ = trace_soft(_cast_scene(scene, dtype), cam.pos, rays(cam), cfg, tau=0.5)
+        _rot_loss(rgb, depth, cfg).backward()
+        return rot.grad.double()
+
+    g64 = grad(torch.float64, rays64)
+    family = [grad(torch.float32, lambda cam: camera_rays(cam, W, H, e1, e2, device=dev)[1]),
+              grad(torch.float32, lambda cam: rays64(cam).float())]
+    family += [grad(torch.float32, perturbed(seed)) for seed in (1, 2, 3)]
+    return g64, family
+
+
+def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
+    """Phase 2c for one case: K4, K4-stats, K5, K6 and the reduction against
+    their plain versions on the same inputs, K6 against K4 + K5, two
+    launches bit-equal. Returns (K4's planes, gates, K4-stats' counts)."""
+    import torch
+
+    spec = SK.SoftSpec(cfg, tau, cull=cull, bwd_cull=cull)
+    sph, pl, camv = SK._packed(scene.to(dev), cam)
+    lists, shl = SH.build_lists(sph, pl, camv, spec, cull)
+    offsets, pidx = SK.list_entries(lists)
+    sh_offsets, pshidx = SK.list_entries(shl)
+    n, nsh, ns = pidx.shape[0], pshidx.shape[0], sph.shape[1]
+    sizes = dict(n_entries=n, n_sh_entries=nsh)
+
+    def red(parts):
+        return SK.soft_grad_reduce(parts[0], pidx, parts[2], parts[3], ns, psh=parts[1],
+                                   pshidx=pshidx)
+
+    def red_plain(parts):
+        return SK.soft_grad_reduce_plain(parts[0][:n], pidx, parts[2], parts[3], ns,
+                                         parts[1][:nsh], pshidx)
+
+    out_k, gates_k = SH.soft_sh_fwd(sph, pl, camv, lists, shl, spec=spec)
+    out_p, gates_p = SH.soft_sh_fwd_plain(sph, pl, camv, lists, shl, spec=spec)
+    out_s, gates_s, cnt_k = SH.soft_sh_stats(sph, pl, camv, lists, shl, spec=spec)
+    cnt_p = SH.soft_sh_stats_plain(sph, pl, camv, lists, shl, spec=spec)[2]
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out_k).all() and out_k.shape == out_p.shape):
+        raise AssertionError(f"{label}: K4 output non-finite or misshapen")
+    k4 = 0.0
+    for sl, atol, rtol, name in SHADOW_PLANES:
+        d = (out_k[sl] - out_p[sl]).abs().max().item()
+        k4 = max(k4, d)
+        if not torch.allclose(out_k[sl], out_p[sl], atol=atol, rtol=rtol):
+            raise AssertionError(f"{label}: K4 {name} outside atol {atol} rtol {rtol}: max {d!r}")
+    if not (torch.equal(gates_k, gates_p) and torch.equal(cnt_k, cnt_p)
+            and torch.equal(out_s, out_k) and torch.equal(gates_s, gates_k)):
+        raise AssertionError(f"{label}: K4 gates or K4-stats counts differ from the plain "
+                             f"version's, or K4-stats' planes from K4's")
+
+    gen = torch.Generator().manual_seed(1234)
+    g = torch.randn(out_p.shape, generator=gen).to(dev)
+    bwd_args = (sph, pl, camv, lists, shl, offsets, sh_offsets, gates_p, out_p, g)
+    r5k = red(SH.soft_sh_bwd(*bwd_args, spec=spec, **sizes))
+    r5p = red_plain(SH.soft_sh_bwd_plain(*bwd_args, spec=spec, **sizes))
+    k5 = _close_tables(_tables(r5k), _tables(r5p), f"{label}: K5 + reduction")
+
+    Hp, Wp = spec.extent
+    H, W = cfg.height, cfg.width
+    tgt = (torch.rand((3, Hp, Wp), generator=gen) * 255.0).to(dev)
+    mse_args = (sph, pl, camv, lists, shl, offsets, sh_offsets, tgt)
+    r6k = red(SH.soft_sh_mse(*mse_args, spec=spec, **sizes))
+    r6p = red_plain(SH.soft_sh_mse_plain(*mse_args, spec=spec, **sizes))
+    k6 = _close_tables(_tables(r6k), _tables(r6p), f"{label}: K6 + reduction")
+    loss_k = (r6k[2][12, 0].double() + r6k[2][12, 1].double()).item()
+    loss_p = (r6p[2][12, 0].double() + r6p[2][12, 1].double()).item()
+    truth = ((out_k[:3, :H, :W].double() - tgt[:, :H, :W].double()) ** 2).sum().item()
+    for what, v in (("plain K6", loss_p), ("float64 sum over K4's rgb", truth)):
+        if abs(loss_k - v) > LOSS_RTOL * abs(v):
+            raise AssertionError(f"{label}: K6 loss {loss_k!r} vs {what} {v!r}")
+
+    g_mse = torch.zeros_like(out_k)
+    scale = 2.0 / (255.0 * 255.0 * 3.0 * H * W)
+    g_mse[:3, :H, :W] = torch.tensor(scale, dtype=torch.float32, device=dev) * (
+        out_k[:3, :H, :W] - tgt[:, :H, :W])
+    r45 = red(SH.soft_sh_bwd(sph, pl, camv, lists, shl, offsets, sh_offsets, gates_k, out_k,
+                             g_mse, spec=spec, **sizes))
+    k6_vs = _close_tables(_tables(r6k), _tables(r45), f"{label}: K6 vs K4 + K5")
+
+    again = (SH.soft_sh_fwd(sph, pl, camv, lists, shl, spec=spec),
+             red(SH.soft_sh_bwd(*bwd_args, spec=spec, **sizes)),
+             red(SH.soft_sh_mse(*mse_args, spec=spec, **sizes)),
+             SH.soft_sh_stats(sph, pl, camv, lists, shl, spec=spec)[2])
+    same = (torch.equal(again[0][0], out_k) and torch.equal(again[0][1], gates_k)
+            and all(torch.equal(a, b) for a, b in zip(again[1], r5k))
+            and all(torch.equal(a, b) for a, b in zip(again[2], r6k))
+            and torch.equal(again[3], cnt_k))
+    if not same:
+        raise AssertionError(f"{label}: two launches gave different tables")
+    errs["K4"] = max(errs["K4"], k4)
+    errs["K5"] = max(errs["K5"], k5)
+    errs["K6"] = max(errs["K6"], k6)
+    print(f"phase 2c: {label} (tau {tau}{'' if cull else ', culling off'}): max abs diff K4 "
+          f"{k4!r}, K5 tables {k5!r}, K6 tables {k6!r}, K6 vs K4+K5 {k6_vs!r}; K6 loss rel diff "
+          f"{abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)!r}; K4-stats counts equal (max "
+          f"culled-in {int(cnt_k[:, 0].max())}, tiles over NC={SH.NC}: "
+          f"{int((cnt_k[:, 0] > SH.NC).sum())} of {cnt_k.shape[0]}); list entries {n}, shadow "
+          f"entries {nsh}; two launches bit-equal")
+    return out_k, gates_k, cnt_k
+
+
 def main() -> int:
     import torch
 
@@ -338,15 +677,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1 ---------------------------------------------------------------
+    from rtwc_tpu_torch.render import shadow_kernel as SH
+    from rtwc_tpu_torch.render import soft_core as C
     from rtwc_tpu_torch.render import soft_kernel as SK
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc for each source, at once
-        libs = dict(zip(("hard_render", "soft_render"),
-                        pool.map(_cuda.build, ("hard_render", "soft_render"))))
+    names = ("hard_render", "soft_render", "soft_shadow")
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:  # one nvcc for each source, at once
+        libs = dict(zip(names, pool.map(_cuda.build, names)))
     hard_kernel._kernel_fn()
-    for fn_name in ("rtwc_soft_fwd", "rtwc_soft_bwd", "rtwc_soft_mse", "rtwc_soft_grad_reduce"):
-        SK._fn(fn_name)
+    for fn_name in C._ENTRIES:
+        C._fn(fn_name)
     print(f"phase 1: built {', '.join(os.path.relpath(v, ROOT) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_cuda.build_seconds[k]:.2f} s" for k in libs)
@@ -533,6 +874,115 @@ def main() -> int:
           f"camera, tau 0.5: gradients of 7 leaf groups within rtol 2e-2 / atol 1e-6 "
           f"(largest relative diff {worst!r})")
 
+    # -- phase 2c: the shadowed kernels against their plain versions --------------
+    from rtwc_tpu_torch.examples import fit_from_shadow as FS
+
+    cfg96s = cfg96.replace(shadows=True)
+    cfg_hl = RenderConfig(width=1920, height=1080, max_spheres=20, max_planes=4, shadows=True,
+                          **SOFT_KW)  # bench.py's headline step
+    scene_hl = random_scene(20, max_spheres=20, max_planes=4, seed=0)
+    shadow_cases = [
+        ("CFG_SH 96x32", _shadow_scene_96(), default_camera(), cfg96s, 0.5, True),
+        ("default 400x150 posed camera shadows", default_scene(base), posed,
+         base.replace(shadows=True), 0.5, True),
+        ("bench headline 1920x1080 random_scene(20)", scene_hl, default_camera(), cfg_hl, 0.5,
+         True),
+        ("saturating light 96x32", _shadow_scene_96(), default_camera(),
+         cfg96s.replace(light_specular_power=3e5, light_diffuse_power=2e4), 0.5, True),
+        ("cache overflow 96x32, 14 spheres", _crowd_scene(), default_camera(),
+         cfg96s.replace(max_spheres=16), 0.5, True),
+        ("full darkness 96x32", _dark_scene(), default_camera(), cfg96s.replace(max_planes=3), 0.5,
+         True),
+        ("random 24 400x150 posed camera shadows", random_scene(24, max_spheres=24, max_planes=4,
+                                                                seed=7), posed,
+         RenderConfig(width=400, height=150, max_spheres=24, shadows=True, **SOFT_KW), 0.5, False),
+        ("empty 400x150 shadows", empty_scene(8, 2), default_camera(), base.replace(shadows=True),
+         0.5, True),
+    ]
+    errs.update(K4=0.0, K5=0.0, K6=0.0)
+    for label, scene, cam, cfg, tau, cull in shadow_cases:
+        out, gates, cnt = _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=cull)
+        if label.startswith("saturating") and not (out[:3] >= 254.5).any():
+            raise AssertionError("the saturating light never clamps")
+        if label.startswith("cache overflow") and not int(cnt[:, 0].max()) > SH.NC:
+            raise AssertionError(f"no tile overflows the {SH.NC} cache slots")
+        if label.startswith("full darkness"):
+            dark = (SK.tile_view(out[SH.SO_VIS], 16, 16) <= SH.VIS_EARLY_OUT).all(dim=1)
+            skipped = dark & (cnt[:, 1] < gates[:, 1].sum(dim=1))
+            print(f"phase 2c: full darkness: {int(dark.sum())} dark tiles, the early-out skipped "
+                  f"occluders in {int(skipped.sum())}")
+            if not skipped.any():
+                raise AssertionError("the all-dark early-out never fired")
+        if label.startswith("empty") and (out[SK.SO_ALPHA] != 0).any():
+            raise AssertionError("the empty scene must render all background")
+
+    # the shadowed kernel path against the torch soft renderer on the card, at
+    # bench.py's grad_cam_rot_rel config and loss (bench.py:366-388)
+    from rtwc_tpu_torch.render import render_frame_soft
+
+    cfg_g = RenderConfig(width=640, height=360, max_spheres=24, max_planes=4, shadows=True,
+                         **SOFT_KW)
+    grads = {}
+    for which, render in (("kernel", render_frame_soft_kernel), ("oracle", render_frame_soft)):
+        sc = random_scene(20, max_spheres=24, max_planes=4, seed=0, device=dev)
+        leaves = {"sphere centers": sc.spheres.center, "sphere radii": sc.spheres.radius,
+                  "sphere colours": sc.spheres.color, "plane centres": sc.planes.center,
+                  "plane normals": sc.planes.normal}
+        for t in leaves.values():
+            t.requires_grad_(True)
+        cam_g = Camera(pos=default_camera().pos.clone().to(dev).requires_grad_(True),
+                       rot=default_camera().rot.clone().to(dev).requires_grad_(True))
+        fb = render(sc, cam_g, cfg_g, tau=0.5)
+        loss = torch.mean((fb.rgb / 255.0) ** 2) + 0.01 * torch.mean(fb.depth) / cfg_g.far
+        loss.backward()
+        grads[which] = {**{k: v.grad for k, v in leaves.items()}, "camera pos": cam_g.pos.grad,
+                        "camera rot": cam_g.rot.grad}
+    gk, go = grads["kernel"], grads["oracle"]
+    a, b = gk["camera rot"].double(), go["camera rot"].double()
+    rot_rel = ((a - b).abs().max() / torch.maximum(a.abs().max(), b.abs().max())).item()
+    worst = 0.0
+    for k in gk:
+        a, b = gk[k].double().cpu(), go[k].double().cpu()
+        if k != "camera rot":
+            bad = (a - b).abs() > GRAD_ATOL + GRAD_RTOL * torch.maximum(a.abs(), b.abs())
+            worst = max(worst, ((a - b).abs() / (b.abs() + 1e-12)).max().item())
+            if bad.any():
+                raise AssertionError(f"shadowed kernel path vs torch soft renderer: {k} gradients "
+                                     f"{a[bad][:4].tolist()} vs {b[bad][:4].tolist()}")
+    print(f"phase 2c: shadowed kernel path vs the torch soft renderer, 640x360 random_scene(20), "
+          f"tau 0.5 (bench.py grad_cam_rot_rel): camera-rotation relative error {rot_rel!r} "
+          f"(limit {ROT_REL}); 6 other leaf groups within rtol {GRAD_RTOL} / atol {GRAD_ATOL} "
+          f"(largest relative diff {worst!r})")
+    if not rot_rel <= ROT_REL:
+        raise AssertionError(f"camera-rotation gradient {rot_rel} off the torch renderer's")
+    # That torch renderer builds its rays and each sphere's c in the kernels'
+    # op order (render/softmin.py), so the comparison above shares their
+    # rounding. The arbiter shares none: the kernel path's rotation gradient
+    # against a float64 render on independently built rays. At
+    # grad_cam_rot_rel no float32 render comes within ROT_REL of float64, so
+    # the kernel path must be no farther from it than the farthest of five
+    # independent float32 renders; at a well conditioned config (400x150,
+    # posed camera, shadows) it must come within ROT_REL of float64.
+    arb_cases = (("640x360 random_scene(20) (grad_cam_rot_rel)",
+                  random_scene(20, max_spheres=24, max_planes=4, seed=0, device=dev),
+                  default_camera().to(dev), cfg_g, gk["camera rot"].double(), False),
+                 ("400x150 default scene, posed camera", default_scene(base).to(dev),
+                  posed.to(dev), base.replace(shadows=True), None, True))
+    for label, sc, cam_a, cfg_a, g_k, strict in arb_cases:
+        if g_k is None:
+            g_k = _rot_grad_kernel(sc, cam_a, cfg_a)
+        g64, family = _rot_grad_arbiter(sc, cam_a, cfg_a)
+        scale = g64.abs().max()
+        err_k = ((g_k - g64).abs().max() / scale).item()
+        errs_f32 = [((g - g64).abs().max() / scale).item() for g in family]
+        limit = ROT_REL if strict else max(errs_f32)
+        print(f"phase 2c: camera-rotation gradient against float64, {label}: kernel path "
+              f"{err_k!r} (limit {limit!r}); independent float32 renders {errs_f32!r}; "
+              f"float64 {g64.tolist()!r}, kernel path {g_k.tolist()!r}")
+        if not err_k <= limit:
+            raise AssertionError(f"{label}: the kernel path's rotation gradient is {err_k} off "
+                                 f"float64, beyond {limit}")
+
     # -- phase 3: the main path, counted ----------------------------------------
     hard_kernel.LAUNCHES = 0
     frames = 0
@@ -663,6 +1113,67 @@ def main() -> int:
         if proc.returncode != 0:
             raise AssertionError(f"inverse_render {extra} did not converge: "
                                  f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+
+    # -- phase 3c: the shadowed train path, counted -------------------------------
+    scene_hld, cam_hl = scene_hl.to(dev), default_camera().to(dev)
+    tgt_hl = torch.zeros((1080, 1920, 3), device=dev)  # bench.py's target
+    steps_hl = 5
+
+    def adam_loop(kind, n):
+        c = scene_hld.spheres.center.clone().requires_grad_(True)
+        opt = torch.optim.Adam([c], lr=1e-3)
+        losses = []
+        for _ in range(n):
+            sc = scene_hld.replace(spheres=scene_hld.spheres.replace(center=c))
+            if kind == "generic":
+                rgb = render_frame_soft_kernel(sc, cam_hl, cfg_hl, tau=0.5).rgb
+                loss = torch.mean(((rgb - tgt_hl) / 255.0) ** 2)
+            else:
+                loss = render_soft_mse_loss(sc, cam_hl, tgt_hl, cfg_hl, tau=0.5)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        return losses
+
+    reset_soft()
+    gl = adam_loop("generic", steps_hl)
+    fl = adam_loop("fused", steps_hl)
+    diag = SH.soft_tile_diagnostics(scene_hld, cam_hl, cfg_hl, tau=0.5)
+    torch.cuda.synchronize()
+    hl_launches = dict(SK.LAUNCHES)
+    print(f"phase 3c: bench headline 1920x1080 random_scene(20) shadows, {steps_hl} generic and "
+          f"{steps_hl} fused steps and soft_tile_diagnostics: losses {gl[0]!r} -> {gl[-1]!r} "
+          f"(generic), {fl[0]!r} -> {fl[-1]!r} (fused); launches {hl_launches}")
+    want = dict(soft_fwd=0, soft_bwd=0, soft_mse=0, soft_sh_fwd=steps_hl, soft_sh_bwd=steps_hl,
+                soft_sh_mse=steps_hl, soft_sh_stats=1, soft_grad_reduce=2 * steps_hl)
+    if hl_launches != want or not all(np.isfinite(gl + fl)) or abs(gl[0] - fl[0]) > 1e-5 * gl[0]:
+        raise AssertionError(f"shadowed train path: launches {hl_launches} (want {want}), "
+                             f"losses {gl}, {fl}")
+    print(f"phase 3c: soft_tile_diagnostics: {len(diag['list_len'])} tiles, culled-in objects "
+          f"per tile max {int(diag['main_applied'].max())}, applied occluders max "
+          f"{int(diag['shadow_applied'].max())}, list length max {int(diag['list_len'].max())}, "
+          f"shadow list length max {int(diag['shadow_list_len'].max())}")
+
+    reset_soft()
+    t = time.perf_counter()
+    rc = FS.main([])
+    torch.cuda.synchronize()
+    fit_launches = dict(SK.LAUNCHES)
+    print(f"phase 3c: fit_from_shadow in process at its defaults (320x96, 300 steps): exit {rc} "
+          f"in {time.perf_counter() - t:.1f} s; launches {fit_launches}")
+    want = dict(soft_fwd=2, soft_bwd=0, soft_mse=0, soft_sh_fwd=302, soft_sh_bwd=300,
+                soft_sh_mse=0, soft_sh_stats=0, soft_grad_reduce=300)
+    if rc != 0 or fit_launches != want:
+        raise AssertionError(f"fit_from_shadow: exit {rc}, launches {fit_launches} (want {want})")
+    cmd = [sys.executable, "-m", "rtwc_tpu_torch.examples.fit_from_shadow"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-3:]
+    print(f"phase 3c: {' '.join(cmd[1:])}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t:.1f} s: {' | '.join(tail)}")
+    if proc.returncode != 0 or not tail or tail[-1] != "FIT OK":
+        raise AssertionError(f"fit_from_shadow failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
     # -- phase 4 -----------------------------------------------------------------
     cmd = [sys.executable, "-m", "rtwc_tpu_torch", "--frames", "8", "--width", "400",
@@ -852,74 +1363,218 @@ def main() -> int:
     step_rates = {}
     for kind, reps in (("generic plain", 3), ("generic", 20), ("fused", 20), ("fused plain", 3),
                        ("generic", 20), ("fused", 20)):
-        step = make_step(kind)
-        step()
-        step()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) / reps * 1e3
+        ms = _step_ms(make_step(kind), reps)
         step_rates.setdefault(kind, []).append(ms)
         print(f"phase 5: {kind} train step 1920x1080 --spheres 20 tau 0.5 (fwd + bwd + Adam): "
               f"{ms!r} ms, {rays / ms * 1e3!r} rays/s {tag}")
 
     for kind in ("generic", "fused"):
-        step = make_step(kind)
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                step()
-            torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kern)
-        by_name = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)
-        with open(os.path.join(OUT_DIR, f"profile_train_{kind}.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by="cpu_time_total", row_limit=60))
-            f.write("\n".join(f"{us / 20:10.1f} us/step  {nm}" for nm, us in top))
-        print(f"phase 5: profile {kind} train step, 20 steps: device busy {busy_us / wall_us!r} "
-              f"of {wall_us / 20 / 1e3!r} ms per step (profiler on) {tag}")
-        print("phase 5: top device time: " + "; ".join(
-            f"{nm[:40]} {us / 20:.1f} us/step" for nm, us in top[:6]))
+        _profile_steps(make_step(kind), f"profile_train_{kind}", f"{kind} train step", tag)
 
-    kc, pc, _, kdev = timing["c random 20 1920x1080 shadows"]
-    soft_shape = "1920x1080, --spheres 20 layout + 1 plane, tau 0.5, unshadowed, 16x16 tiles"
-    entries = [{
-        "name": "hard_render (K7, hard display forward)",
-        "route": "cuda",
-        "source": "rtwc_tpu_torch/csrc/hard_render.cu",
-        "replaces": "rtwc_tpu/render/pallas_kernel.py:290",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kc,
-        "plain_ms": pc,
-        "device_ms": kdev,
-        "shape": "1920x1080, random_scene(20), shadows, 16x16 tiles",
-    }]
-    for key, kname, replaces, count in (
-            ("K1", "soft_fwd (K1, soft forward, unshadowed)", "rtwc_tpu/render/pallas_soft.py:2434",
-             generic_launches["soft_fwd"]),
-            ("K2", "soft_bwd (K2, soft backward, unshadowed)", "rtwc_tpu/render/pallas_soft.py:2476",
-             generic_launches["soft_bwd"]),
-            ("K3", "soft_mse (K3, fused MSE step, unshadowed)",
-             "rtwc_tpu/render/pallas_soft.py:2526", fused_launches["soft_mse"]),
-            ("reduce", "soft_grad_reduce (D3, deterministic two-float cross-block reduction)",
-             "tests/test_pallas_soft.py:283",
-             generic_launches["soft_grad_reduce"] + fused_launches["soft_grad_reduce"])):
+    # -- phase 5b: the shadowed kernels and train steps ---------------------------
+    spec_hl = SK.SoftSpec(cfg_hl, 0.5)
+    sph_h, pl_h, cam_h = SK._packed(scene_hld, cam_hl)
+    lists_h, shl_h = SH.build_lists(sph_h, pl_h, cam_h, spec_hl, True)
+    offsets_h, pidx_h = SK.list_entries(lists_h)
+    sh_offsets_h, pshidx_h = SK.list_entries(shl_h)
+    sizes_h = dict(n_entries=pidx_h.shape[0], n_sh_entries=pshidx_h.shape[0])
+    Hp, Wp = spec_hl.extent
+    out_h, gates_h, cnt_h = SH.soft_sh_stats(sph_h, pl_h, cam_h, lists_h, shl_h, spec=spec_hl)
+    tgt_h = torch.zeros((3, Hp, Wp), device=dev)
+    g_h = torch.zeros_like(out_h)
+    g_h[:3] = (2.0 / (255.0 ** 2 * 3 * 1920 * 1080)) * (out_h[:3] - tgt_h)
+    bwd_h = (sph_h, pl_h, cam_h, lists_h, shl_h, offsets_h, sh_offsets_h, gates_h, out_h, g_h)
+    mse_h = (sph_h, pl_h, cam_h, lists_h, shl_h, offsets_h, sh_offsets_h, tgt_h)
+    parts_h = SH.soft_sh_bwd(*bwd_h, spec=spec_hl, **sizes_h)
+    n_h, nsh_h = pidx_h.shape[0], pshidx_h.shape[0]
+    fwd4 = (sph_h, pl_h, cam_h, lists_h, shl_h)
+    sh_calls = {
+        "K4": ("soft_sh_fwd_kernel", lambda: SH.soft_sh_fwd(*fwd4, spec=spec_hl),
+               lambda: SH.soft_sh_fwd_plain(*fwd4, spec=spec_hl)),
+        "K4-stats": ("soft_sh_fwd_kernel", lambda: SH.soft_sh_stats(*fwd4, spec=spec_hl),
+                     lambda: SH.soft_sh_stats_plain(*fwd4, spec=spec_hl)),
+        "K5": ("soft_sh_bwd_kernel", lambda: SH.soft_sh_bwd(*bwd_h, spec=spec_hl, **sizes_h),
+               lambda: SH.soft_sh_bwd_plain(*bwd_h, spec=spec_hl, **sizes_h)),
+        "K6": ("soft_sh_mse_kernel", lambda: SH.soft_sh_mse(*mse_h, spec=spec_hl, **sizes_h),
+               lambda: SH.soft_sh_mse_plain(*mse_h, spec=spec_hl, **sizes_h)),
+        "reduce sh": ("soft_grad_reduce_kernel",
+                      lambda: SK.soft_grad_reduce(parts_h[0], pidx_h, parts_h[2], parts_h[3], 20,
+                                                  psh=parts_h[1], pshidx=pshidx_h),
+                      lambda: SK.soft_grad_reduce_plain(parts_h[0][:n_h], pidx_h, parts_h[2],
+                                                        parts_h[3], 20, parts_h[1][:nsh_h],
+                                                        pshidx_h)),
+    }
+    for key, (kname, kfn, pfn) in sh_calls.items():
+        k_ms = _time_ms(kfn)
+        p_ms = _time_ms(pfn, reps=1, warm=0)  # the plain versions are timed once
+        d_ms = _kernel_device_ms(kfn, name=kname)
+        soft_timing[key] = (k_ms, p_ms, d_ms)
+        print(f"phase 5b: {key} ({kname}) bench headline 1920x1080 random_scene(20) shadows tau "
+              f"0.5: {k_ms!r} ms a call (device time alone {d_ms!r} ms), plain {p_ms!r} ms; "
+              f"{n_h} list entries, {nsh_h} shadow entries {tag}")
+    print(f"phase 5b: bench headline: cache-fallback share of tiles {float((cnt_h[:, 0] > SH.NC).float().mean())!r} "
+          f"(culled-in objects per tile max {int(cnt_h[:, 0].max())}, NC {SH.NC})")
+
+    def sh_step(kind, scene, cam, cfg, tgt):
+        c = scene.spheres.center.clone().requires_grad_(True)
+        opt = torch.optim.Adam([c], lr=1e-3)
+
+        def step():
+            sc = scene.replace(spheres=scene.spheres.replace(center=c))
+            if kind == "generic":
+                rgb = render_frame_soft_kernel(sc, cam, cfg, tau=0.5).rgb
+                loss = torch.mean(((rgb - tgt) / 255.0) ** 2)
+            else:
+                loss = render_soft_mse_loss(sc, cam, tgt, cfg, tau=0.5)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+        return step
+
+    sh_rates = {}
+    for kind in ("generic", "fused", "generic", "fused"):
+        ms = _step_ms(sh_step(kind, scene_hld, cam_hl, cfg_hl, tgt_hl), 20)
+        sh_rates.setdefault(kind, []).append(ms)
+        print(f"phase 5b: shadowed {kind} train step, bench headline 1920x1080 random_scene(20) "
+              f"tau 0.5 (fwd + bwd + Adam): {ms!r} ms, {rays / ms * 1e3!r} rays/s {tag}")
+    for kind in ("generic", "fused"):
+        _profile_steps(sh_step(kind, scene_hld, cam_hl, cfg_hl, tgt_hl),
+                       f"profile_train_shadowed_{kind}", f"shadowed {kind} train step", tag)
+
+    # 4K with 200 spheres: the fused step, its peak memory, the cache demand
+    cfg_4k = RenderConfig(width=3840, height=2160, max_spheres=200, max_planes=4, shadows=True,
+                          **SOFT_KW)
+    scene_4k = random_scene(200, max_spheres=200, max_planes=4, seed=0, device=dev)
+    tgt_4k = torch.zeros((2160, 3840, 3), device=dev)
+    step_4k = sh_step("fused", scene_4k, cam_hl, cfg_4k, tgt_4k)
+    step_4k()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    step_4k()
+    torch.cuda.synchronize()
+    peak_4k = torch.cuda.max_memory_allocated(dev)
+    ms_4k = _step_ms(step_4k, 5)
+    spec_4k = SK.SoftSpec(cfg_4k, 0.5)
+    sph_4, pl_4, cam_4 = SK._packed(scene_4k, cam_hl)
+    lists_4, shl_4 = SH.build_lists(sph_4, pl_4, cam_4, spec_4k, True)
+    _, _, cnt_4 = SH.soft_sh_stats(sph_4, pl_4, cam_4, lists_4, shl_4, spec=spec_4k)
+    offsets_4, pidx_4 = SK.list_entries(lists_4)
+    sh_offsets_4, pshidx_4 = SK.list_entries(shl_4)
+    sizes_4 = dict(n_entries=pidx_4.shape[0], n_sh_entries=pshidx_4.shape[0])
+    out_4, gates_4 = SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4, spec=spec_4k)
+    k4_4k = _kernel_device_ms(lambda: SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4,
+                                                     spec=spec_4k), reps=5,
+                              name="soft_sh_fwd_kernel")
+    k5_4k = _kernel_device_ms(lambda: SH.soft_sh_bwd(
+        sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4, gates_4, out_4,
+        torch.zeros_like(out_4), spec=spec_4k, **sizes_4), reps=5, name="soft_sh_bwd_kernel")
+    k6_4k = _kernel_device_ms(lambda: SH.soft_sh_mse(
+        sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
+        torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k, **sizes_4), reps=5,
+        name="soft_sh_mse_kernel")
+    ms_4k_generic = _step_ms(sh_step("generic", scene_4k, cam_hl, cfg_4k, tgt_4k), 5)
+    print(f"phase 5b: shadowed generic train step 3840x2160 random_scene(200): "
+          f"{ms_4k_generic!r} ms, {3840 * 2160 / ms_4k_generic * 1e3!r} rays/s; device time K4 "
+          f"{k4_4k!r} ms, K5 {k5_4k!r} ms {tag}")
+    print(f"phase 5b: shadowed fused train step 3840x2160 random_scene(200): {ms_4k!r} ms, "
+          f"{3840 * 2160 / ms_4k * 1e3!r} rays/s; K6 device time {k6_4k!r} ms; peak memory "
+          f"{peak_4k / 2**20:.1f} MiB ({(peak_4k - base_mem) / 2**20:.1f} MiB above the "
+          f"{base_mem / 2**20:.1f} MiB held before the step); cache-fallback share of tiles "
+          f"{float((cnt_4[:, 0] > SH.NC).float().mean())!r} (culled-in per tile max "
+          f"{int(cnt_4[:, 0].max())}); list entries {pidx_4.shape[0]}, shadow entries "
+          f"{pshidx_4.shape[0]} {tag}")
+
+    # -- the kernels line: every kernel with its bound ---------------------------
+    px = 16 * 16
+    args_c, cfg_c = packed["c random 20 1920x1080 shadows"]
+    sph_c, pl_c, counts_c, cam_c, lists_c = args_c
+    n_obj = int(counts_c.sum())
+    hard_ops = px * float((OPS["raygen"] + lists_c[:, 0, 0].double() * OPS["hard_sphere"]
+                           + int(counts_c[0, 1]) * OPS["hard_plane"] + OPS["hard_shade"]
+                           + n_obj * OPS["hard_shadow"]).sum())
+    hard_out = hard_kernel.hard_render_packed(*args_c, config=cfg_c, bh=bh, bw=bw)
+    w20 = _soft_work(lists, gates, int(camv[0, P.C_NPL]), px)
+    wsh = _soft_work(lists_h, gates_h, int(cam_h[0, P.C_NPL]), px, shl_h, cnt_h, SH.NC)
+    red20 = soft_calls["reduce"][1]()
+    red_h = sh_calls["reduce sh"][1]()
+    k3_parts = SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
+    k6_parts = SH.soft_sh_mse(*mse_h, spec=spec_hl, **sizes_h)
+    ins_h = (sph_h, pl_h, cam_h, lists_h, shl_h)
+    # key: (bytes read once + written once, float32 operations). Only the
+    # planes a kernel loads count: K1 writes gate row 0; K2 reads gate row 0,
+    # the saved planes but alpha (0-6, m, s) and the cotangents of rgb,
+    # depth, normal and alpha (0-7); K5 reads both gate rows, the saved
+    # planes but alpha (0-6, 8-13) and the same eight cotangent planes.
+    work = {
+        "K7": (_nbytes(*args_c, hard_out), hard_ops),
+        "K1": (_nbytes(sph, pl, camv, lists, out, gates[:, 0]), w20["fwd"]),
+        "K2": (_nbytes(sph, pl, camv, lists, offsets, gates[:, 0], out[:7], out[8:10],
+                       g_mse[:8], *parts), w20["bwd"]),
+        "K3": (_nbytes(sph, pl, camv, lists, offsets, tgt, *k3_parts),
+               w20["fwd"] + w20["bwd"] + px * OPS["loss"] * lists.shape[0]),
+        "reduce": (_nbytes(*parts, pidx, *red20), 8.0 * float(parts[0].numel())),
+        "K4": (_nbytes(*ins_h, out_h, gates_h), wsh["sh_fwd"]),
+        "K4-stats": (_nbytes(*ins_h, out_h, gates_h, cnt_h), wsh["sh_fwd"]),
+        "K5": (_nbytes(*bwd_h[:8], out_h[:7], out_h[8:], g_h[:8], *parts_h), wsh["sh_bwd"]),
+        "K6": (_nbytes(*mse_h, *k6_parts), wsh["sh_fwd"] + wsh["sh_bwd"]
+               + px * OPS["loss"] * lists_h.shape[0]),
+        "reduce sh": (_nbytes(*parts_h, pidx_h, pshidx_h, *red_h),
+                      8.0 * float(parts_h[0].numel() + parts_h[1].numel())),
+    }
+    soft_timing["K7"] = (timing["c random 20 1920x1080 shadows"][0],
+                         timing["c random 20 1920x1080 shadows"][1],
+                         timing["c random 20 1920x1080 shadows"][3])
+    errs["K7"], errs["K4-stats"], errs["reduce sh"] = max_err, errs["K4"], errs["reduce"]
+    shape_20 = "1920x1080, --spheres 20 layout + 1 plane, tau 0.5, unshadowed, 16x16 tiles"
+    shape_hl = "1920x1080, random_scene(20, max_spheres=20, max_planes=4), shadows, tau 0.5, 16x16 tiles"
+    sh_launch = {k: hl_launches[k] + fit_launches[k] for k in hl_launches}
+    rows = (
+        ("K7", "hard_render (K7, hard display forward)", "hard_render.cu",
+         "rtwc_tpu/render/pallas_kernel.py:290", launches,
+         "1920x1080, random_scene(20), shadows, 16x16 tiles"),
+        ("K1", "soft_fwd (K1, soft forward, unshadowed)", "soft_render.cu",
+         "rtwc_tpu/render/pallas_soft.py:2434", generic_launches["soft_fwd"], shape_20),
+        ("K2", "soft_bwd (K2, soft backward, unshadowed)", "soft_render.cu",
+         "rtwc_tpu/render/pallas_soft.py:2476", generic_launches["soft_bwd"], shape_20),
+        ("K3", "soft_mse (K3, fused MSE step, unshadowed)", "soft_render.cu",
+         "rtwc_tpu/render/pallas_soft.py:2526", fused_launches["soft_mse"], shape_20),
+        ("reduce", "soft_grad_reduce (D3, deterministic two-float cross-block reduction)",
+         "soft_render.cu", "tests/test_pallas_soft.py:283",
+         generic_launches["soft_grad_reduce"] + fused_launches["soft_grad_reduce"]
+         + sh_launch["soft_grad_reduce"], shape_20 + "; shadowed: see reduce_shadowed"),
+        ("K4", "soft_sh_fwd (K4, soft forward, shadowed)", "soft_shadow.cu",
+         "rtwc_tpu/render/pallas_soft.py:2434", sh_launch["soft_sh_fwd"], shape_hl),
+        ("K5", "soft_sh_bwd (K5, soft backward, shadowed)", "soft_shadow.cu",
+         "rtwc_tpu/render/pallas_soft.py:2476", sh_launch["soft_sh_bwd"], shape_hl),
+        ("K6", "soft_sh_mse (K6, fused MSE step, shadowed)", "soft_shadow.cu",
+         "rtwc_tpu/render/pallas_soft.py:2526", sh_launch["soft_sh_mse"], shape_hl),
+        ("K4-stats", "soft_sh_stats (K4-stats, cache diagnostics)", "soft_shadow.cu",
+         "rtwc_tpu/render/pallas_soft.py:2822", sh_launch["soft_sh_stats"], shape_hl),
+    )
+    entries = []
+    for key, kname, src, replaces, count, shape in rows:
         k_ms, p_ms, d_ms = soft_timing[key]
-        entries.append({"name": kname, "route": "cuda", "source": "rtwc_tpu_torch/csrc/soft_render.cu",
-                        "replaces": replaces, "launches": count, "max_abs_err": errs[key],
-                        "ms": k_ms, "plain_ms": p_ms, "device_ms": d_ms, "shape": soft_shape})
+        b_ms, b_by = _bound(*work[key])
+        entry = {"name": kname, "route": "cuda", "source": f"rtwc_tpu_torch/csrc/{src}",
+                 "replaces": replaces, "launches": count, "max_abs_err": errs[key], "ms": k_ms,
+                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "device_ms": d_ms, "shape": shape}
+        if key == "reduce":
+            r_ms, r_p, r_d = soft_timing["reduce sh"]
+            rb_ms, rb_by = _bound(*work["reduce sh"])
+            entry["reduce_shadowed"] = {"ms": r_ms, "plain_ms": r_p, "device_ms": r_d,
+                                        "bound_ms": rb_ms, "bound_by": rb_by, "shape": shape_hl}
+        entries.append(entry)
+        print(f"phase 5b: {key}: bound {b_ms!r} ms ({b_by}; {work[key][0] / 1e6:.1f} MB, "
+              f"{work[key][1] / 1e9:.2f} GFLOP), device {d_ms!r} ms, launches {count}")
+    for e in entries:
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']} was not launched on its path")
     with open(os.path.join(OUT_DIR, "train_steps.json"), "w") as f:
-        json.dump({k: v for k, v in step_rates.items()}, f)
+        json.dump({"unshadowed": step_rates, "shadowed": sh_rates, "shadowed_4k_fused_ms": ms_4k,
+                   "shadowed_4k_generic_ms": ms_4k_generic, "shadowed_4k_peak_bytes": peak_4k},
+                  f)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,460 @@
+// K4, K5, K6 and K4-stats (the shadowed soft train path), for Hopper (sm_90a).
+//
+// Replaces the config.shadows branches of rtwc_tpu/render/pallas_soft.py:
+//   K4 `_soft_sh_fwd_body` (:1727-1921, pl.pallas_call at :2434): sweep 1
+//      (online softmin with the vis-independent ambient / direct shading
+//      parts A, B and a per-pixel object cache), the shadow sweep at the
+//      blended hit point (`_shadow_vis_sweep`, :1001-1111: planes first,
+//      then the tile's shadow list, split stage A / stage B sphere gate,
+//      block-uniform all-dark early-out), and the clamp-corrected colour
+//      blend (`_clamp_blend_from_cache`, :1114, or the exact re-walk
+//      `_clamp_blend_fallback`, :1145). Writes 14 planes and both gate rows;
+//   K4-stats `_build_cache_stats` (:2796, launched at :2822): K4 as a
+//      compile-time variant that also writes, per tile, the culled-in main
+//      count (the cache demand) and the applied occluder count;
+//   K5 `_soft_sh_bwd_body` (:1496-1725, launched at :2476): the value path
+//      through vis from the saved d(rgb)/d(vis) planes, the shadow sweep's
+//      adjoint at the blended hit point (occluder, camera and blended-depth
+//      cotangents), and the softmax VJP with rgb_k = min(255, A_k + vis B_k);
+//   K6 the shadowed branch of `_soft_mse_fused_body` (:1923-2347, launched
+//      at :2526): K4's forward and K5's backward in one pass at loss
+//      cotangent 1, the MSE cotangents derived in registers.
+// The plain torch versions are in render/shadow_kernel.py; the device
+// functions and hand-written adjoints in soft_common.cuh; the block sums and
+// the forward and main backward sweeps in soft_block.cuh.
+//
+// Design. As K1-K3: one thread per pixel, one block per broad-phase tile,
+// object gates decided for the whole block with __syncthreads_or /
+// __syncthreads_and, so every branch below is block-uniform. The TPU kernel
+// keeps its object cache in VMEM (29 / 21 slots of 3 planes, sized from its
+// 16 MB); here a cache slot is 3 floats per thread (t_eff, dterm, sterm) in
+// local memory, NC = 8 slots, and the 3 colour scalars of a slot in shared
+// memory. The cache is filled in sweep-1 order; a block whose culled-in
+// count exceeds NC takes the exact re-walk (a block-uniform decision: the
+// count is). Shadow-occluder gradients are keyed by the shadow list, so
+// K5 / K6 write them to a second compact table ([E_sh, 4], row = shadow-list
+// slot at sh_offsets[tile] + slot), beside K2's [E, 8] sphere table;
+// soft_grad_reduce (soft_render.cu) sums both in a fixed order. Plane rows
+// hold the shadow sweep's partial plus the main sweep's. No float atomics.
+//
+// What bounds it. Per pixel, K4 does K1's work plus, per listed occluder,
+// a quadratic (stage A) and for the survivors a root, four exps and one
+// division; per gated object it caches 3 floats (at most 96 B of local
+// memory per thread) and replays 45 flops in the correction. K5 adds to
+// K2's work a transmittance adjoint (about 120 flops) and a 4- or 8-value
+// block sum per gated occluder. Stores are 56 B per pixel (K4); K5 loads
+// 84 B (13 saved planes, alpha unread, and 8 cotangent planes): 117 / 175
+// MB at 1080p, 35 / 52 us at 3.35 TB/s. Like K1-K3 these
+// kernels are compute- and latency-bound; a simple design that is right
+// comes first.
+//
+// Float semantics follow the plain versions op for op; compiled with
+// -fmad=false (see soft_common.cuh).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "soft_block.cuh"
+
+using namespace soft;
+
+namespace {
+
+constexpr int NC = 8;  // clamp-correction cache slots per pixel
+
+// What the shadowed forward leaves for the blend, the outputs and the
+// backward, per pixel.
+struct ShFwd {
+  float m, s, inv_s, depth, n[3], rgb[3], dv[3], vis;
+  int count, napp;  // culled-in main objects, applied occluders (block-uniform)
+};
+
+struct Cache {
+  float t[NC], dterm[NC], sterm[NC];
+};
+
+// One step of sweep 1 (pallas_soft.py:1790-1818): the online softmin over
+// t_eff with the depth, normal and A / B accumulators, and the cache store.
+__device__ __forceinline__ void fused_accumulate(const SoftParams& p, const Geo& g,
+                                                 const float col[3], Vec3 sn, Vec3 d, float* m,
+                                                 float* s, float acc[10], int* count, Cache* c,
+                                                 float* s_ccol) {
+  float dterm, sterm, A[3], B[3];
+  shade_terms(p, g.pt, sn, d, &dterm, &sterm);
+  parts_from_terms(p, dterm, sterm, col, A, B);
+  const float logit = -g.t_eff * p.inv_tau;
+  const float m_new = fmaxf(*m, logit);
+  const float e = expf(-fabsf(logit - *m));
+  const bool up = logit > *m;
+  const float alpha = up ? e : 1.0f;
+  const float pw = up ? 1.0f : e;
+  *s = *s * alpha + pw;
+  const float vals[10] = {g.t_clip, g.n.x, g.n.y, g.n.z, A[0], A[1], A[2], B[0], B[1], B[2]};
+#pragma unroll
+  for (int i = 0; i < 10; ++i) acc[i] = acc[i] * alpha + pw * vals[i];
+  if (*count < NC) {
+    c->t[*count] = g.t_eff;
+    c->dterm[*count] = dterm;
+    c->sterm[*count] = sterm;
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+      for (int k = 0; k < 3; ++k) s_ccol[*count * 3 + k] = col[k];
+  }
+  *count += 1;
+  *m = m_new;
+}
+
+// One object of the exact re-walk (pallas_soft.py:1151-1161).
+__device__ __forceinline__ void shade_accumulate(const SoftParams& p, const Geo& g,
+                                                 const float col[3], Vec3 sn, Vec3 d, float m,
+                                                 float inv_s, float vis, float out[6]) {
+  const float w = expf(-g.t_eff * p.inv_tau - m) * inv_s;
+  float dterm, sterm, A[3], B[3];
+  shade_terms(p, g.pt, sn, d, &dterm, &sterm);
+  parts_from_terms(p, dterm, sterm, col, A, B);
+  for (int c = 0; c < 3; ++c) {
+    const float val = A[c] + vis * B[c];
+    const float gate = val < 255.0f ? 1.0f : 0.0f;
+    out[c] = out[c] + w * fminf(val, 255.0f);
+    out[3 + c] = out[3 + c] + w * B[c] * gate;
+  }
+}
+
+// K4's forward (also K6's): gate0 / gate1 get the block's main-sweep and
+// shadow-sweep decisions (thread 0 writes them).
+__device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
+                           const float* __restrict__ sph, const float* s_pl,
+                           const int* __restrict__ lst, const int* __restrict__ shl, int* gate0,
+                           int* gate1, float* s_ccol, Vec3 d, Vec3 o, ShFwd* f) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  // ---- sweep 1
+  float m = p.bg_logit, s = 1.0f;
+  float acc[10] = {p.far, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  Cache cache;
+  int count = 0;
+  forward_sweep(p, cam, sph, s_pl, lst, gate0, d, o, &m,
+                [&](const Geo& g, const float* col, Vec3 sn) {
+                  fused_accumulate(p, g, col, sn, d, &m, &s, acc, &count, &cache, s_ccol);
+                });
+  const float inv_s = 1.0f / s;
+  const float depth = acc[0] * inv_s;
+
+  // ---- the shadow sweep at the blended hit point: planes first, then the
+  // shadow list; `dark` (every pixel's vis <= 1e-7) skips the heavy branch
+  const int n_pl = (int)__ldg(cam + C_NPL);
+  const LightRay l = light_ray(p, Vec3{o.x + d.x * depth, o.y + d.y * depth, o.z + d.z * depth});
+  float vis = 1.0f;
+  bool dark = false;
+  int napp = 0;
+  for (int k = 0; k < n_pl; ++k) {
+    const Plane q = load_plane(s_pl, p.np, k);
+    float args[5];
+    const float min_arg = shadow_plane_pre(p, q, l, args);
+    bool rel = true;
+    if (p.cull) {
+      const int rel_geo = __syncthreads_or(min_arg > p.sh_floor);
+      if (tid == 0) gate1[p.ns + k] = rel_geo ? 1 : 0;
+      rel = rel_geo && !dark;
+    } else if (tid == 0) {
+      gate1[p.ns + k] = 1;
+    }
+    if (rel) {
+      vis = vis * transmittance<5>(p, args);
+      if (p.cull) dark = __syncthreads_and(vis <= VIS_EARLY_OUT);
+      ++napp;
+    }
+  }
+  const int n_sh = __ldg(shl);
+  for (int jj = 0; jj < n_sh; ++jj) {
+    const int k = __ldg(shl + 1 + jj);
+    const Sphere sp = load_sphere(sph, p.ns, k);
+    float args[4];
+    if (!p.cull) {
+      if (tid == 0) gate1[k] = 1;
+      shadow_sphere_pre(p, sp, l, args);
+      vis = vis * transmittance<4>(p, args);
+      ++napp;
+      continue;
+    }
+    float disc, dss, b;
+    shadow_sphere_preA(p, sp, l, &disc, &dss, &b);
+    if (__syncthreads_or(dss > p.sh_floor)) {  // stage A passed: the root and the rest
+      const float min_arg = shadow_sphere_preB(disc, dss, b, l.dist, args);
+      const int rel_geo = __syncthreads_or(min_arg > p.sh_floor);
+      if (tid == 0) gate1[k] = rel_geo ? 1 : 0;
+      if (rel_geo && !dark) {
+        vis = vis * transmittance<4>(p, args);
+        dark = __syncthreads_and(vis <= VIS_EARLY_OUT);
+        ++napp;
+      }
+    } else if (tid == 0) {
+      gate1[k] = 0;
+    }
+  }
+  __syncthreads();  // the cache colours and the gates, written by thread 0
+
+  // ---- the clamp-corrected colour blend
+  if (count <= NC) {
+    float corr[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < count; ++j) {
+      float A[3], B[3];
+      parts_from_terms(p, cache.dterm[j], cache.sterm[j], s_ccol + 3 * j, A, B);
+      const float w = expf(-cache.t[j] * p.inv_tau - m) * inv_s;
+      for (int c = 0; c < 3; ++c) {
+        const float val = A[c] + vis * B[c];
+        const bool over = val >= 255.0f;
+        corr[c] = corr[c] + w * (over ? val - 255.0f : 0.0f);
+        corr[3 + c] = corr[3 + c] + w * (over ? B[c] : 0.0f);
+      }
+    }
+    for (int c = 0; c < 3; ++c) {
+      const float a = acc[4 + c] * inv_s, bb = acc[7 + c] * inv_s;
+      f->rgb[c] = a + vis * bb - corr[c];
+      f->dv[c] = bb - corr[3 + c];
+    }
+  } else {  // more culled-in objects than slots: the exact re-walk, gated on the final m
+    float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    forward_sweep(p, cam, sph, s_pl, lst, nullptr, d, o, &m,
+                  [&](const Geo& g, const float* col, Vec3 sn) {
+                    shade_accumulate(p, g, col, sn, d, m, inv_s, vis, out);
+                  });
+    for (int c = 0; c < 3; ++c) {
+      f->rgb[c] = out[c];
+      f->dv[c] = out[3 + c];
+    }
+  }
+  f->m = m;
+  f->s = s;
+  f->inv_s = inv_s;
+  f->depth = depth;
+  for (int c = 0; c < 3; ++c) f->n[c] = acc[1 + c] * inv_s;
+  f->vis = vis;
+  f->count = count;
+  f->napp = napp;
+}
+
+// K5's sweeps (also K6's backward): the shadow sweep's adjoint at the
+// blended hit point, then the main backward sweep seeded with its ray
+// cotangents and with the depth cotangent raised by ct_D = ctP . d.
+template <int NTFB>
+__device__ void sh_backward(const SoftParams& p, const float* __restrict__ cam,
+                            const float* __restrict__ sph, const float* s_pl,
+                            const int* __restrict__ lst, const int* __restrict__ shl,
+                            const int* gate0, const int* gate1, int tile, int offset,
+                            int sh_offset, const Ray& r, Vec3 o, float m, float inv_s, float vis,
+                            float depth, const float out_rgb[3], const float out_n[3],
+                            const float g_rgb[3], const float g_n[3], float g_depth0,
+                            float g_alpha, float w_bg, float g_vis, float loss_px, Reduce* sm,
+                            float* __restrict__ pvals, float* __restrict__ psh,
+                            float* __restrict__ ppl, float* __restrict__ ptf) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const Vec3 pb = {o.x + r.d.x * depth, o.y + r.d.y * depth, o.z + r.d.z * depth};
+  const float ct_vis = g_vis * vis;  // d vis / d f_j = vis / f_j
+  Vec3 ctp = {0.0f, 0.0f, 0.0f};
+  const int n_sh = __ldg(shl);
+  for (int jj = 0; jj < n_sh; ++jj) {
+    const int k = __ldg(shl + 1 + jj);
+    if (p.cull && gate1[k] != 1) continue;  // block-uniform
+    const Sphere sp = load_sphere(sph, p.ns, k);
+    float g[4], tot[4];
+    Vec3 c;
+    shadow_sphere_f_vjp(p, sp, pb, ct_vis / shadow_sphere_f(p, sp, pb), g, &c);
+    ctp.x = ctp.x + c.x;
+    ctp.y = ctp.y + c.y;
+    ctp.z = ctp.z + c.z;
+    block_sum<4>(g, sm->red, tot);
+    if (tid == 0)
+      for (int i = 0; i < 4; ++i) psh[(size_t)(sh_offset + jj) * 4 + i] = tot[i];
+  }
+  const int n_pl = (int)__ldg(cam + C_NPL);
+  for (int k = 0; k < n_pl; ++k) {
+    if (p.cull && gate1[p.ns + k] != 1) continue;
+    const Plane q = load_plane(s_pl, p.np, k);
+    float g[8], tot[8];
+    Vec3 c;
+    shadow_plane_f_vjp(p, q, pb, ct_vis / shadow_plane_f(p, q, pb), g, &c);
+    ctp.x = ctp.x + c.x;
+    ctp.y = ctp.y + c.y;
+    ctp.z = ctp.z + c.z;
+    block_sum<8>(g, sm->red, tot);
+    if (tid == 0)
+      for (int i = 0; i < 8; ++i) ppl[((size_t)tile * p.np + k) * PL_ROWS + i] = tot[i];
+  }
+  const float g_depth = g_depth0 + (ctp.x * r.d.x + ctp.y * r.d.y + ctp.z * r.d.z);
+  float S = g_rgb[0] * out_rgb[0];
+  S = S + g_rgb[1] * out_rgb[1];
+  S = S + g_rgb[2] * out_rgb[2];
+  S = S + g_depth * depth;
+  S = S + g_n[0] * out_n[0];
+  S = S + g_n[1] * out_n[1];
+  S = S + g_n[2] * out_n[2];
+  S = S - g_alpha * w_bg;
+  const float gv[7] = {g_rgb[0], g_rgb[1], g_rgb[2], g_depth, g_n[0], g_n[1], g_n[2]};
+  backward_sweep<NTFB, true>(p, cam, sph, s_pl, lst, gate0, tile, offset, r, o, m, inv_s, gv, S,
+                             loss_px, sm, pvals, ppl, ptf, vis,
+                             Vec3{ctp.x * depth, ctp.y * depth, ctp.z * depth}, ctp);
+}
+
+__device__ __forceinline__ int tile_index(const SoftParams& p) {
+  return blockIdx.y * (p.wp / p.bw) + blockIdx.x;
+}
+
+__device__ __forceinline__ size_t pixel_index(const SoftParams& p) {
+  return (size_t)(blockIdx.y * p.bh + threadIdx.y) * p.wp + blockIdx.x * p.bw + threadIdx.x;
+}
+
+}  // namespace
+
+template <bool STATS>
+__global__ void __launch_bounds__(MAX_THREADS)
+soft_sh_fwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
+                   const float* __restrict__ pl_g, const int* __restrict__ lists,
+                   const int* __restrict__ shlists, float* __restrict__ out,
+                   int* __restrict__ gates, int* __restrict__ counts) {
+  extern __shared__ float s_pl[];  // [12, NP] planes, then [NC, 3] cache colours
+  stage_planes(p, pl_g, s_pl);
+  const int tile = tile_index(p);
+  const Ray r = block_ray(p, cam);
+  const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
+  int* gate0 = gates + (size_t)tile * 2 * (p.ns + p.np);
+  ShFwd f;
+  sh_forward(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
+             shlists + (size_t)tile * p.list_stride, gate0, gate0 + p.ns + p.np,
+             s_pl + PL_ROWS * p.np, r.d, o, &f);
+  const size_t plane = (size_t)p.hp * p.wp;
+  const size_t pix = pixel_index(p);
+  const float vals[N_PLANES_SH] = {f.rgb[0], f.rgb[1], f.rgb[2], f.depth, f.n[0], f.n[1], f.n[2],
+                                   1.0f - expf(p.bg_logit - f.m) * f.inv_s, f.m, f.s, f.vis,
+                                   f.dv[0], f.dv[1], f.dv[2]};
+  for (int i = 0; i < N_PLANES_SH; ++i) out[i * plane + pix] = vals[i];
+  if (STATS && threadIdx.x == 0 && threadIdx.y == 0) {
+    counts[tile * 2] = f.count;
+    counts[tile * 2 + 1] = f.napp;
+  }
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+soft_sh_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
+                   const float* __restrict__ pl_g, const int* __restrict__ lists,
+                   const int* __restrict__ shlists, const int* __restrict__ offsets,
+                   const int* __restrict__ sh_offsets, const int* __restrict__ gates,
+                   const float* __restrict__ sav, const float* __restrict__ g,
+                   float* __restrict__ pvals, float* __restrict__ psh, float* __restrict__ ppl,
+                   float* __restrict__ ptf) {
+  extern __shared__ float s_pl[];
+  __shared__ Reduce sm;
+  stage_planes(p, pl_g, s_pl);
+  const int tile = tile_index(p);
+  const Ray r = block_ray(p, cam);
+  const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
+  const size_t plane = (size_t)p.hp * p.wp;
+  const size_t pix = pixel_index(p);
+  const float m = sav[SO_M * plane + pix];
+  const float inv_s = 1.0f / sav[SO_S * plane + pix];
+  const float w_bg = expf(p.bg_logit - m) * inv_s;
+  const float out_rgb[3] = {sav[pix], sav[plane + pix], sav[2 * plane + pix]};
+  const float out_n[3] = {sav[SO_NX * plane + pix], sav[SO_NY * plane + pix],
+                          sav[SO_NZ * plane + pix]};
+  const float g_rgb[3] = {g[pix], g[plane + pix], g[2 * plane + pix]};
+  const float g_n[3] = {g[SO_NX * plane + pix], g[SO_NY * plane + pix], g[SO_NZ * plane + pix]};
+  const float g_vis = g_rgb[0] * sav[SO_DVR * plane + pix] + g_rgb[1] * sav[(SO_DVR + 1) * plane + pix] +
+                      g_rgb[2] * sav[(SO_DVR + 2) * plane + pix];
+  const int* gate0 = gates + (size_t)tile * 2 * (p.ns + p.np);
+  sh_backward<12>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
+                  shlists + (size_t)tile * p.list_stride, gate0, gate0 + p.ns + p.np, tile,
+                  __ldg(offsets + tile), __ldg(sh_offsets + tile), r, o, m, inv_s,
+                  sav[SO_VIS * plane + pix], sav[SO_DEPTH * plane + pix], out_rgb, out_n, g_rgb, g_n,
+                  g[SO_DEPTH * plane + pix], g[SO_ALPHA * plane + pix], w_bg, g_vis, 0.0f, &sm,
+                  pvals, psh, ppl, ptf);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
+                   const float* __restrict__ pl_g, const int* __restrict__ lists,
+                   const int* __restrict__ shlists, const int* __restrict__ offsets,
+                   const int* __restrict__ sh_offsets, const float* __restrict__ tgt,
+                   float* __restrict__ pvals, float* __restrict__ psh, float* __restrict__ ppl,
+                   float* __restrict__ ptf) {
+  // [12, NP] planes, [NC, 3] cache colours, then 2 (NS + NP) gate ints
+  extern __shared__ float s_pl[];
+  __shared__ Reduce sm;
+  float* s_ccol = s_pl + PL_ROWS * p.np;
+  int* s_gate = reinterpret_cast<int*>(s_ccol + 3 * NC);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int e = tid; e < 2 * (p.ns + p.np); e += blockDim.x * blockDim.y) s_gate[e] = 0;
+  stage_planes(p, pl_g, s_pl);
+  const int tile = tile_index(p);
+  const int* lst = lists + (size_t)tile * p.list_stride;
+  const int* shl = shlists + (size_t)tile * p.list_stride;
+  const Ray r = block_ray(p, cam);
+  const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
+  ShFwd f;
+  // sh_forward ends with a __syncthreads after its last gate write
+  sh_forward(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, s_ccol, r.d, o, &f);
+  const size_t plane = (size_t)p.hp * p.wp;
+  const int row = blockIdx.y * p.bh + threadIdx.y, col = blockIdx.x * p.bw + threadIdx.x;
+  const size_t pix = (size_t)row * p.wp + col;
+  const float mask = (row < p.loss_h && col < p.loss_w) ? 1.0f : 0.0f;
+  float diff[3], g_rgb[3];
+  for (int c = 0; c < 3; ++c) {
+    diff[c] = (f.rgb[c] - tgt[c * plane + pix]) * mask;
+    g_rgb[c] = p.loss_scale * diff[c];
+  }
+  const float loss_px = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
+  const float g_vis = g_rgb[0] * f.dv[0] + g_rgb[1] * f.dv[1] + g_rgb[2] * f.dv[2];
+  const float zero3[3] = {0.0f, 0.0f, 0.0f};
+  sh_backward<13>(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, tile,
+                  __ldg(offsets + tile), __ldg(sh_offsets + tile), r, o, f.m, f.inv_s, f.vis,
+                  f.depth, f.rgb, f.n, g_rgb, zero3, 0.0f, 0.0f, 0.0f, g_vis, loss_px, &sm, pvals,
+                  psh, ppl, ptf);
+}
+
+// C entries for ctypes, as in soft_render.cu: device pointers of contiguous
+// tensors the wrapper (render/shadow_kernel.py) has checked and allocated,
+// PyTorch's current stream; each returns the launch's cudaError_t and does
+// not synchronise. rtwc_soft_sh_fwd launches the K4-stats variant when
+// `counts` is not null.
+extern "C" int rtwc_soft_sh_fwd(const float* cam, const float* sph, const float* pl,
+                                const int* lists, const int* shlists, float* out, int* gates,
+                                int* counts, const SoftParams* params, void* stream) {
+  const SoftParams p = *params;
+  const size_t smem = sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC);
+  const dim3 grid(p.wp / p.bw, p.hp / p.bh), block(p.bw, p.bh);
+  if (counts) {
+    if (int rc = prepare(soft_sh_fwd_kernel<true>, p, smem)) return rc;
+    soft_sh_fwd_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
+        p, cam, sph, pl, lists, shlists, out, gates, counts);
+  } else {
+    if (int rc = prepare(soft_sh_fwd_kernel<false>, p, smem)) return rc;
+    soft_sh_fwd_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(
+        p, cam, sph, pl, lists, shlists, out, gates, counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtwc_soft_sh_bwd(const float* cam, const float* sph, const float* pl,
+                                const int* lists, const int* shlists, const int* offsets,
+                                const int* sh_offsets, const int* gates, const float* sav,
+                                const float* g, float* pvals, float* psh, float* ppl, float* ptf,
+                                const SoftParams* params, void* stream) {
+  const SoftParams p = *params;
+  const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np;
+  if (int rc = prepare(soft_sh_bwd_kernel, p, smem)) return rc;
+  soft_sh_bwd_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
+                       (cudaStream_t)stream>>>(p, cam, sph, pl, lists, shlists, offsets,
+                                               sh_offsets, gates, sav, g, pvals, psh, ppl, ptf);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rtwc_soft_sh_mse(const float* cam, const float* sph, const float* pl,
+                                const int* lists, const int* shlists, const int* offsets,
+                                const int* sh_offsets, const float* tgt, float* pvals, float* psh,
+                                float* ppl, float* ptf, const SoftParams* params, void* stream) {
+  const SoftParams p = *params;
+  const size_t smem =
+      sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC) + sizeof(int) * 2 * (size_t)(p.ns + p.np);
+  if (int rc = prepare(soft_sh_mse_kernel, p, smem)) return rc;
+  soft_sh_mse_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
+                       (cudaStream_t)stream>>>(p, cam, sph, pl, lists, shlists, offsets,
+                                               sh_offsets, tgt, pvals, psh, ppl, ptf);
+  return (int)cudaGetLastError();
+}

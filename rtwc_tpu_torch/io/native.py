@@ -1,11 +1,11 @@
 """ctypes loader for the native C++ ANSI encoder and print machine.
 
-Counterpart: rtwc_tpu/io/native/__init__.py:19-146. No C++ is duplicated:
-the JAX package's sources (rtwc_tpu/io/native/ansi_encoder.cpp and
-print_machine.cpp) are compiled by path, with g++, into this package's own
-build directory (rtwc_tpu_torch/io/_build/). Importing `rtwc_tpu` itself
-loads only its config (rtwc_tpu/__init__.py:10), never JAX. The build is
-atomic (temp file + rename) and redone when a source is newer.
+Counterpart: rtwc_tpu/io/native/__init__.py:19-146. The C++ sources are
+the port's own copies, rtwc_tpu_torch/io/native/ansi_encoder.cpp and
+print_machine.cpp, of rtwc_tpu/io/native/*.cpp; the two copies are
+identical, and a fix to either goes to both. They are compiled with g++
+into rtwc_tpu_torch/io/_build/, atomically (temp file + rename), and
+rebuilt when a source is newer than its library.
 """
 from __future__ import annotations
 
@@ -16,9 +16,7 @@ import tempfile
 
 import numpy as np
 
-import rtwc_tpu
-
-_NATIVE_SRC = os.path.join(os.path.dirname(os.path.abspath(rtwc_tpu.__file__)), "io", "native")
+_NATIVE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 _SRC = os.path.join(_NATIVE_SRC, "ansi_encoder.cpp")
 _PRINT_SRC = os.path.join(_NATIVE_SRC, "print_machine.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")

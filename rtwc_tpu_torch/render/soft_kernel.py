@@ -33,198 +33,38 @@ the plain versions below reproduce both orders.
 
 Wrappers (`soft_fwd`, `soft_bwd`, `soft_mse`, `soft_grad_reduce`) run the
 plain version for CPU tensors only; for CUDA tensors they launch the kernel
-or raise. `LAUNCHES` counts kernel launches by name, never plain runs.
+or raise. `LAUNCHES` (render/soft_core.py) counts kernel launches by name,
+never plain runs, the shadowed kernels' too.
+
+The autograd Functions `SoftRender` / `SoftMSE` and the entry points
+`render_frame_soft_kernel` / `render_soft_mse_loss` are here, and only here
+does `config.shadows` choose: K1 + K2 or K3 without shadows, the shadowed
+kernels of render/shadow_kernel.py (K4 + K5 or K6) with them, and the
+reduction after either.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
 from rtwc_tpu_torch.config import RenderConfig
-from rtwc_tpu_torch.render import _cuda
 from rtwc_tpu_torch.render import pack as P
+from rtwc_tpu_torch.render import shadow_kernel as SH
 from rtwc_tpu_torch.render import soft_objects as O
-from rtwc_tpu_torch.render.broad_phase import round_up, sphere_tile_lists, tile_grid
+from rtwc_tpu_torch.render.broad_phase import sphere_tile_lists
 from rtwc_tpu_torch.render.reference import Framebuffer
+from rtwc_tpu_torch.render.soft_core import (  # noqa: F401 (LAUNCHES, NTF: shared names)
+    LAUNCHES, NTF, SLOT_LOSS, SO_ALPHA, SO_B, SO_DEPTH, SO_M, SO_NX, SO_NZ, SO_R, SO_S,
+    ReduceParams, SoftSpec, _accumulate, _backward_sweep, _check, _device_index, _launch,
+    _packed, _params, _partials, _ray_planes, _spec, block_tf_sum_plain, list_entries,
+    object_sweep, tile_view)
 
-(SO_R, SO_G, SO_B, SO_DEPTH, SO_NX, SO_NY, SO_NZ, SO_ALPHA, SO_M, SO_S) = range(10)
 N_PLANES = 10
-NTF = 13          # two-float partial slots: camera 0-11, loss 12
-SLOT_LOSS = 12
 RED_THREADS = 256  # threads of one soft_grad_reduce block
-CULL_LOG_EPS = -16.0
-MAX_PLANES = 1024
-MAX_THREADS = 256
-
-LAUNCHES = {"soft_fwd": 0, "soft_bwd": 0, "soft_mse": 0, "soft_grad_reduce": 0}
 
 
-@dataclasses.dataclass(frozen=True)
-class SoftSpec:
-    """What one soft launch is built for (the static arguments of JAX's
-    `_build_soft_packed`)."""
-
-    config: RenderConfig
-    tau: float
-    bh: int = 16
-    bw: int = 16
-    cull: bool = True
-    bwd_cull: bool = True
-
-    @property
-    def extent(self):
-        return (round_up(self.config.height, self.bh), round_up(self.config.width, self.bw))
-
-    @property
-    def grid(self):
-        return tile_grid(self.config.height, self.config.width, self.bh, self.bw)
-
-    @property
-    def consts(self) -> O.SoftConsts:
-        return O.SoftConsts.make(self.config, self.tau)
-
-
-# -- ctypes binding -------------------------------------------------------------
-
-class SoftParams(ctypes.Structure):
-    """Mirror of `struct SoftParams` in csrc/soft_common.cuh."""
-
-    _fields_ = [
-        ("width", ctypes.c_int), ("height", ctypes.c_int),
-        ("hp", ctypes.c_int), ("wp", ctypes.c_int),
-        ("bh", ctypes.c_int), ("bw", ctypes.c_int),
-        ("ns", ctypes.c_int), ("np", ctypes.c_int),
-        ("list_stride", ctypes.c_int), ("cull", ctypes.c_int),
-        ("hardness", ctypes.c_int), ("device", ctypes.c_int),
-        ("loss_h", ctypes.c_int), ("loss_w", ctypes.c_int),
-        ("e1", ctypes.c_float), ("e2", ctypes.c_float),
-        ("far", ctypes.c_float), ("k", ctypes.c_float), ("mp", ctypes.c_float),
-        ("inv_tau", ctypes.c_float), ("bg_logit", ctypes.c_float),
-        ("light", ctypes.c_float * 3), ("ldc", ctypes.c_float * 3),
-        ("lsc", ctypes.c_float * 3), ("osc", ctypes.c_float * 3),
-        ("dpow", ctypes.c_float), ("spow", ctypes.c_float), ("amb", ctypes.c_float),
-        ("loss_scale", ctypes.c_float),
-    ]
-
-
-class ReduceParams(ctypes.Structure):
-    """Mirror of `struct ReduceParams` in csrc/soft_render.cu."""
-
-    _fields_ = [("ns", ctypes.c_int), ("np", ctypes.c_int), ("n_entries", ctypes.c_int),
-                ("n_tiles", ctypes.c_int), ("ntf", ctypes.c_int), ("device", ctypes.c_int)]
-
-
-_ARGC = {"rtwc_soft_fwd": 6, "rtwc_soft_bwd": 11, "rtwc_soft_mse": 9,
-         "rtwc_soft_grad_reduce": 7}
-
-
-def _fn(name: str):
-    lib = _cuda.load("soft_render")
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        params = ReduceParams if name == "rtwc_soft_grad_reduce" else SoftParams
-        fn.argtypes = [ctypes.c_void_p] * _ARGC[name] + [ctypes.POINTER(params), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _device_index(t: torch.Tensor) -> int:
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
-
-
-def _params(spec: SoftSpec, sph, pl, lists) -> SoftParams:
-    c = spec.consts
-    Hp, Wp = spec.extent
-    H, W = spec.config.height, spec.config.width
-    return SoftParams(
-        width=W, height=H, hp=Hp, wp=Wp, bh=spec.bh, bw=spec.bw,
-        ns=sph.shape[1], np=pl.shape[1], list_stride=lists.shape[2], cull=0,
-        hardness=c.hard, device=_device_index(sph), loss_h=H, loss_w=W,
-        e1=c.e1, e2=c.e2, far=c.far, k=c.k, mp=c.mp, inv_tau=c.inv_tau,
-        bg_logit=c.bg_logit, light=(ctypes.c_float * 3)(*c.light),
-        ldc=(ctypes.c_float * 3)(*c.ldc), lsc=(ctypes.c_float * 3)(*c.lsc),
-        osc=(ctypes.c_float * 3)(*c.osc), dpow=c.dpow, spow=c.spow, amb=c.amb,
-        loss_scale=O.f32(2.0 / (255.0 * 255.0 * 3.0 * H * W)))
-
-
-def _launch(name: str, key: str, tensors, prm, dev_t: torch.Tensor):
-    stream = torch.cuda.current_stream(dev_t.device).cuda_stream
-    rc = _fn(name)(*(t.data_ptr() for t in tensors), ctypes.byref(prm), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[key] += 1
-
-
-def _check(spec: SoftSpec, sph, pl, cam, lists, **extra):
-    dev = sph.device
-    named = dict(sph=(sph, torch.float32, 2), pl=(pl, torch.float32, 2),
-                 cam=(cam, torch.float32, 2), lists=(lists, torch.int32, 3))
-    named.update(extra)
-    for name, (t, dtype, ndim) in named.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, sph on {dev}")
-        if t.dtype != dtype or t.dim() != ndim:
-            raise ValueError(f"{name} must be {dtype} with {ndim} dims, "
-                             f"got {t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if sph.shape[0] != P.SPH_ROWS or pl.shape[0] != P.PL_ROWS or tuple(cam.shape) != (1, P.CAM_LEN):
-        raise ValueError(f"tables must be [8, NS], [12, NP], [1, 16]; got {tuple(sph.shape)}, "
-                         f"{tuple(pl.shape)}, {tuple(cam.shape)}")
-    Ti, Tj = spec.grid
-    if tuple(lists.shape) != (Ti * Tj, 1, sph.shape[1] + 1):
-        raise ValueError(f"lists must be [{Ti * Tj}, 1, {sph.shape[1] + 1}] for "
-                         f"({spec.bh}, {spec.bw}) tiles, got {tuple(lists.shape)}")
-    n = spec.bh * spec.bw
-    if n > MAX_THREADS or n % 32:
-        raise ValueError(f"tile ({spec.bh}, {spec.bw}) must hold a multiple of 32 pixels, "
-                         f"at most {MAX_THREADS} (one thread each)")
-    if pl.shape[1] > MAX_PLANES:
-        raise ValueError(f"the kernels stage at most {MAX_PLANES} planes, got {pl.shape[1]}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the soft kernels run on cuda or cpu, not {dev}")
-
-
-# -- the plain versions' building blocks ------------------------------------------
-
-def tile_view(x: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
-    """[Hp, Wp] -> [T, bh*bw], each row a block's pixels in thread order
-    (tid = ty * bw + tx), tiles row-major."""
-    Hp, Wp = x.shape
-    return x.reshape(Hp // bh, bh, Wp // bw, bw).permute(0, 2, 1, 3).reshape(-1, bh * bw)
-
-
-def block_sum_plain(x: torch.Tensor) -> torch.Tensor:
-    """[T, n] -> [T]: the kernels' block sum (warp butterflies of
-    __shfl_down_sync at 16, 8, 4, 2, 1, then the warps' sums in warp order)."""
-    v = x.reshape(x.shape[0], -1, 32)
-    for off in (16, 8, 4, 2, 1):
-        v = v[..., :off] + v[..., off:2 * off]
-    w = v[..., 0]
-    s = w[:, 0]
-    for i in range(1, w.shape[1]):
-        s = s + w[:, i]
-    return s
-
-
-def block_tf_sum_plain(x: torch.Tensor):
-    """[T, n] -> ([T], [T]): the two-float (hi, lo) block sum, with the
-    same butterfly and warp order as block_sum_plain and every combine an
-    error-free two_sum."""
-    s = x.reshape(x.shape[0], -1, 32)
-    e = torch.zeros_like(s)
-    for off in (16, 8, 4, 2, 1):
-        s, e = O.tf_combine(s[..., :off], e[..., :off], s[..., off:2 * off], e[..., off:2 * off])
-    hs, he = s[..., 0], e[..., 0]
-    s, e = hs[:, 0], he[:, 0]
-    for i in range(1, hs.shape[1]):
-        s, e = O.tf_combine(s, e, hs[:, i], he[:, i])
-    return s, e
-
+# -- the reduction's plain version ------------------------------------------------
 
 def _chunked(x: torch.Tensor, fill):
     """[n, ...] -> [RED_THREADS, chunk, ...]: thread j takes items
@@ -251,9 +91,11 @@ def _tree(acc: torch.Tensor, combine=None, err=None):
     return acc[0] if combine is None else (acc[0], err[0])
 
 
-def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int):
+def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
     """The reduction kernel's sums in its order: returns dsph [8, NS],
-    dpl [12, NP] and the two-float pairs [NTF, 2]."""
+    dpl [12, NP] and the two-float pairs [NTF, 2]. psh [E_sh, 4] / pshidx:
+    the shadowed kernels' occluder partials, added to rows 0-3 after each
+    thread's main entries."""
     dev = pvals.device
     vals = _chunked(pvals, 0.0)                                  # [R, C, 8]
     idx = _chunked(pidx, -1)                                     # [R, C]
@@ -262,6 +104,12 @@ def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int):
     for j in range(vals.shape[1]):
         hit = (idx[:, j, None] == objs[None, :])[..., None]     # [R, NS, 1]
         acc = acc + torch.where(hit, vals[:, j, None, :], 0.0)
+    if pshidx is not None and pshidx.shape[0]:
+        svals = _chunked(psh, 0.0)                               # [R, C2, 4]
+        sidx = _chunked(pshidx, -1)
+        for j in range(svals.shape[1]):
+            hit = (sidx[:, j, None] == objs[None, :])[..., None]
+            acc[..., :4] = acc[..., :4] + torch.where(hit, svals[:, j, None, :], 0.0)
     dsph = _tree(acc).T.contiguous()                             # [8, NS]
     dsph[P.S_ACTIVE] = 0.0                                       # takes no gradient
 
@@ -281,151 +129,24 @@ def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int):
     return dsph, dpl, torch.stack([hi, lo], dim=-1)
 
 
-def _ray_planes(c: O.SoftConsts, cam, Hp: int, Wp: int, bh: int, bw: int):
-    dev = cam.device
-    rows = torch.arange(Hp, device=dev)
-    cols = torch.arange(Wp, device=dev)
-    rowf = (cam[0, P.C_ROW0] + (rows // bh * bh).float() + (rows % bh).float())[:, None]
-    colf = ((cols // bw * bw).float() + (cols % bw).float())[None, :]
-    rowf, colf = rowf.expand(Hp, Wp), colf.expand(Hp, Wp)
-    cam9 = tuple(cam[0, i] for i in range(P.C_RX, P.C_FZ + 1))
-    tile = (rows // bh)[:, None] * (Wp // bw) + (cols // bw)[None, :]
-    return O.raygen(c, rowf, colf, cam9), tile
-
-
-def _accumulate(c: O.SoftConsts, state, vals, upd):
-    """One online-softmin step (pallas_soft.py:1236-1252) where `upd`."""
-    m, s, acc = state
-    t_eff = vals[0]
-    logit = -t_eff * c.inv_tau
-    m_new = torch.maximum(m, logit)
-    e = torch.exp(-(logit - m).abs())
-    up = logit > m
-    alpha = torch.where(up, e, 1.0)
-    p = torch.where(up, 1.0, e)
-    s_new = s * alpha + p
-    acc_new = tuple(a * alpha + p * v for a, v in zip(acc, vals[1:]))
-    return (torch.where(upd, m_new, m), torch.where(upd, s_new, s),
-            tuple(torch.where(upd, an, a) for an, a in zip(acc_new, acc)))
-
-
-def _sphere_args(sph, k):
-    return tuple(sph[row][k] for row in (P.S_CX, P.S_CY, P.S_CZ, P.S_R,
-                                         P.S_COLR, P.S_COLG, P.S_COLB))
-
-
-def _plane_args(pl, k: int):
-    return tuple(pl[row, k] for row in range(P.P_COLB + 1))
-
-
 def _forward_sweep(c, spec: SoftSpec, sph, pl, cam, lists, ray, tile, acc0, gates):
-    """K1's sweep: the list's spheres, then every live plane. Fills
-    `gates` and returns (m, s, acc)."""
+    """K1's sweep (also K3's): the online softmin over the objects of
+    `object_sweep`, accumulating acc0 (the first len(acc0) of rgb, t_clip,
+    normal). Fills gate row 0 and returns (m, s, acc)."""
     dx, dy, dz = ray[:3]
-    ox, oy, oz = cam[0, 0], cam[0, 1], cam[0, 2]
-    bh, bw = spec.bh, spec.bw
-    ns = sph.shape[1]
-    Hp, Wp = tile.shape
-    m = torch.full((Hp, Wp), c.bg_logit, dtype=torch.float32, device=cam.device)
+    m = torch.full(tile.shape, c.bg_logit, dtype=torch.float32, device=cam.device)
     state = (m, torch.ones_like(m), acc0)
-    tab = lists[:, 0, :]
-    cnt = tab[:, 0]
-    tiles = torch.arange(tab.shape[0], device=cam.device)
     n_acc = len(acc0)
 
-    def gate(pred, live):
-        if not spec.cull:
-            return live
-        return live & tile_view(pred, bh, bw).any(dim=1)
+    def visit(rel, geo, col, col_t, sn):
+        nonlocal state
+        t_eff, t_clip, nx, ny, nz, px, py, pz = geo
+        rgb = O.shade(c, *col, px, py, pz, *sn, dx, dy, dz)
+        vals = (t_eff,) + rgb + (t_clip, nx, ny, nz)
+        state = _accumulate(c, state, vals[:1 + n_acc], rel[tile])
 
-    for kk in range(int(cnt.max().item()) if tab.shape[0] else 0):
-        kt = tab[:, 1 + kk].long()
-        live = kk < cnt
-        args = _sphere_args(sph, kt[tile])
-        if spec.cull:
-            lb, t2, dss = O.sphere_lb_ex(c, *args[:4], dx, dy, dz, ox, oy, oz)
-            rel = gate((-lb * c.inv_tau - state[0]) > CULL_LOG_EPS, live)
-            vals = O.sphere_f_post(c, *args[:3], t2, dss, *args[4:], dx, dy, dz, ox, oy, oz)
-        else:
-            rel = live
-            vals = O.sphere_f(c, *args, dx, dy, dz, ox, oy, oz)
-        gates[tiles[live], 0, kt[live]] = rel[live].to(torch.int32)
-        state = _accumulate(c, state, vals[:1 + n_acc], rel[tile])
-    for k in range(int(cam[0, P.C_NPL].item())):
-        args = _plane_args(pl, k)
-        live = torch.ones_like(cnt, dtype=torch.bool)
-        if spec.cull:
-            lb, t, denom, px, pz = O.plane_lb_ex(c, *args[:8], dx, dy, dz, ox, oy, oz)
-            rel = gate((-lb * c.inv_tau - state[0]) > CULL_LOG_EPS, live)
-            vals = O.plane_f_post(c, *args[:8], t, denom, px, pz, *args[8:],
-                                  dx, dy, dz, ox, oy, oz)
-        else:
-            rel = live
-            vals = O.plane_f(c, *args, dx, dy, dz, ox, oy, oz)
-        gates[:, 0, ns + k] = rel.to(torch.int32)
-        state = _accumulate(c, state, vals[:1 + n_acc], rel[tile])
+    object_sweep(c, spec, sph, pl, cam, lists, ray, tile, lambda: state[0], visit, gates)
     return state
-
-
-def _backward_sweep(c, spec: SoftSpec, sph, pl, cam, lists, offsets, gates, ray, tile,
-                    m, inv_s, gv, S, n_entries: int):
-    """K2's sweep against the saved statistics (pallas_soft.py:1381-1493),
-    shared by K3. gv: the seven output cotangent planes (r, g, b, depth,
-    nx, ny, nz). Returns the partials (pvals, ppl, ptf)."""
-    dx, dy, dz, vx, vy, rinv = ray
-    ox, oy, oz = cam[0, 0], cam[0, 1], cam[0, 2]
-    bh, bw = spec.bh, spec.bw
-    dev = cam.device
-    ns, npl = sph.shape[1], pl.shape[1]
-    T = lists.shape[0]
-    pvals = torch.zeros((max(n_entries, 1), 8), dtype=torch.float32, device=dev)
-    ppl = torch.zeros((T, npl, P.PL_ROWS), dtype=torch.float32, device=dev)
-    zero = torch.zeros_like(m)
-    gd = [zero, zero, zero]
-    go = [zero, zero, zero]
-
-    def cotangents(vals):
-        w = torch.exp(-vals[0] * c.inv_tau - m) * inv_s
-        gdotv = gv[0] * vals[1]
-        for i in range(1, 7):
-            gdotv = gdotv + gv[i] * vals[1 + i]
-        dlogit = w * (gdotv - S)
-        return (-dlogit * c.inv_tau,) + tuple(w * g for g in gv)
-
-    def tile_sums(x, upd):
-        return block_sum_plain(tile_view(torch.where(upd, x, 0.0), bh, bw))
-
-    tab = lists[:, 0, :]
-    cnt = tab[:, 0]
-    tiles = torch.arange(T, device=dev)
-    for kk in range(int(cnt.max().item()) if T else 0):
-        kt = tab[:, 1 + kk].long()
-        live = kk < cnt
-        rel = live & (gates[tiles, 0, kt] == 1) if spec.bwd_cull else live
-        upd = rel[tile]
-        args = _sphere_args(sph, kt[tile])
-        vals = O.sphere_f(c, *args, dx, dy, dz, ox, oy, oz)
-        grads = O.sphere_f_vjp(c, *args, dx, dy, dz, ox, oy, oz, cotangents(vals))
-        rows = torch.stack([tile_sums(grads[r], upd) for r in range(7)], dim=1)   # [T, 7]
-        pvals[(offsets.long() + kk)[live], :7] = rows[live]
-        gd = [torch.where(upd, a + g, a) for a, g in zip(gd, grads[7:10])]
-        go = [torch.where(upd, a + g, a) for a, g in zip(go, grads[10:13])]
-    for k in range(int(cam[0, P.C_NPL].item())):
-        rel = (gates[:, 0, ns + k] == 1) if spec.bwd_cull else torch.ones_like(cnt, dtype=torch.bool)
-        upd = rel[tile]
-        args = _plane_args(pl, k)
-        vals = O.plane_f(c, *args, dx, dy, dz, ox, oy, oz)
-        grads = O.plane_f_vjp(c, *args, dx, dy, dz, ox, oy, oz, cotangents(vals))
-        ppl[:, k, :11] = torch.stack([tile_sums(grads[r], upd) for r in range(11)], dim=1)
-        gd = [torch.where(upd, a + g, a) for a, g in zip(gd, grads[11:14])]
-        go = [torch.where(upd, a + g, a) for a, g in zip(go, grads[14:17])]
-
-    ptf = torch.zeros((T, NTF, 2), dtype=torch.float32, device=dev)
-    per_pixel = list(go) + list(O.raygen_vjp(*gd, dx, dy, dz, vx, vy, rinv))
-    for slot, x in enumerate(per_pixel):
-        hi, lo = block_tf_sum_plain(tile_view(x, bh, bw))
-        ptf[:, slot, 0], ptf[:, slot, 1] = hi, lo
-    return pvals, ppl, ptf
 
 
 def soft_fwd_plain(sph, pl, cam, lists, *, spec: SoftSpec):
@@ -495,17 +216,6 @@ def soft_mse_plain(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entri
 
 # -- wrappers ---------------------------------------------------------------------
 
-def list_entries(lists: torch.Tensor):
-    """(offsets [T] i32, pidx [E] i32): where each tile's slots start in the
-    compact sphere partials, and the sphere of every entry (tile order,
-    then slot order)."""
-    cnt = lists[:, 0, 0]
-    offsets = (torch.cumsum(cnt, 0) - cnt).to(torch.int32)
-    ns = lists.shape[2] - 1
-    slot = torch.arange(ns, device=lists.device)[None, :] < cnt[:, None]
-    return offsets.contiguous(), lists[:, 0, 1:][slot].to(torch.int32).contiguous()
-
-
 def soft_fwd(sph, pl, cam, lists, *, spec: SoftSpec):
     """K1: (planes [10, Hp, Wp] f32, gates [T, 2, NS+NP] i32)."""
     _check(spec, sph, pl, cam, lists)
@@ -519,14 +229,6 @@ def soft_fwd(sph, pl, cam, lists, *, spec: SoftSpec):
     prm.cull = int(spec.cull)
     _launch("rtwc_soft_fwd", "soft_fwd", (cam, sph, pl, lists, out, gates), prm, sph)
     return out, gates
-
-
-def _partials(spec: SoftSpec, sph, pl, n_entries: int):
-    T = spec.grid[0] * spec.grid[1]
-    dev = sph.device
-    return (torch.zeros((max(n_entries, 1), 8), dtype=torch.float32, device=dev),
-            torch.zeros((T, pl.shape[1], P.PL_ROWS), dtype=torch.float32, device=dev),
-            torch.zeros((T, NTF, 2), dtype=torch.float32, device=dev))
 
 
 def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec, n_entries: int):
@@ -565,22 +267,30 @@ def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entries: in
     return pvals, ppl, ptf
 
 
-def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int):
+def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
     """Sum the partials in a fixed order: (dsph [8, NS], dpl [12, NP],
-    two-float pairs [13, 2])."""
+    two-float pairs [13, 2]). psh [E_sh, 4] and pshidx [E_sh] are the
+    shadowed kernels' occluder partials (K5, K6), keyed by shadow-list slot."""
     dev = pvals.device
-    for name, t, dtype, ndim in (("pvals", pvals, torch.float32, 2),
-                                 ("pidx", pidx, torch.int32, 1),
-                                 ("ppl", ppl, torch.float32, 3),
-                                 ("ptf", ptf, torch.float32, 3)):
+    named = [("pvals", pvals, torch.float32, 2), ("pidx", pidx, torch.int32, 1),
+             ("ppl", ppl, torch.float32, 3), ("ptf", ptf, torch.float32, 3)]
+    if (psh is None) != (pshidx is None):
+        raise ValueError("psh and pshidx go together")
+    if psh is not None:
+        named += [("psh", psh, torch.float32, 2), ("pshidx", pshidx, torch.int32, 1)]
+        if psh.shape[0] < pshidx.shape[0] or psh.shape[1] != 4:
+            raise ValueError("psh must be [E_sh, 4] with E_sh >= len(pshidx)")
+    for name, t, dtype, ndim in named:
         if t.device != dev or t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {ndim}-d {dtype} tensor on {dev}")
     if pvals.shape[0] < pidx.shape[0] or pvals.shape[1] != 8 or ppl.shape[2] != P.PL_ROWS \
             or ptf.shape[2] != 2 or ppl.shape[0] != ptf.shape[0]:
         raise ValueError("partials do not fit together")
     n = pidx.shape[0]
+    n_sh = 0 if pshidx is None else pshidx.shape[0]
     if dev.type == "cpu":
-        return soft_grad_reduce_plain(pvals[:n], pidx, ppl, ptf, ns)
+        return soft_grad_reduce_plain(pvals[:n], pidx, ppl, ptf, ns,
+                                      None if psh is None else psh[:n_sh], pshidx)
     if dev.type != "cuda":
         raise ValueError(f"soft_grad_reduce runs on cuda or cpu, not {dev}")
     npl = ppl.shape[1]
@@ -588,9 +298,9 @@ def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int):
     dpl = torch.empty((P.PL_ROWS, npl), dtype=torch.float32, device=dev)
     dtf = torch.empty((ptf.shape[1], 2), dtype=torch.float32, device=dev)
     prm = ReduceParams(ns=ns, np=npl, n_entries=n, n_tiles=ppl.shape[0], ntf=ptf.shape[1],
-                       device=_device_index(pvals))
+                       device=_device_index(pvals), n_sh_entries=n_sh)
     _launch("rtwc_soft_grad_reduce", "soft_grad_reduce",
-            (pvals, pidx, ppl, ptf, dsph, dpl, dtf), prm, pvals)
+            (pvals, pidx, psh, pshidx, ppl, ptf, dsph, dpl, dtf), prm, pvals)
     return dsph, dpl, dtf
 
 
@@ -608,37 +318,73 @@ def _dcam(dtf: torch.Tensor) -> torch.Tensor:
                                                   device=tot.device)])[None, :]
 
 
+def _lists(sph, pl, cam, spec: SoftSpec, cull: bool):
+    """(view lists, shadow lists or None) for spec's config."""
+    if spec.config.shadows:
+        return SH.build_lists(sph, pl, cam, spec, cull)
+    return build_lists(sph, cam, spec, cull), None
+
+
+def _forward_planes(sph, pl, cam, spec: SoftSpec):
+    """(planes, gates, view lists, shadow lists): K4 with shadows, else K1."""
+    lists, shl = _lists(sph, pl, cam, spec, spec.cull)
+    if shl is not None:
+        return SH.soft_sh_fwd(sph, pl, cam, lists, shl, spec=spec) + (lists, shl)
+    return soft_fwd(sph, pl, cam, lists, spec=spec) + (lists, shl)
+
+
+def _reduce(sph, pidx, pshidx, parts):
+    """soft_grad_reduce over K2 / K3 partials (pshidx None), or K5 / K6
+    partials with their shadow-occluder table."""
+    if pshidx is None:
+        pvals, ppl, ptf = parts
+        return soft_grad_reduce(pvals, pidx, ppl, ptf, sph.shape[1])
+    pvals, psh, ppl, ptf = parts
+    return soft_grad_reduce(pvals, pidx, ppl, ptf, sph.shape[1], psh=psh, pshidx=pshidx)
+
+
 class SoftRender(torch.autograd.Function):
-    """planes [10, Hp, Wp] = K1(sph, pl, cam); backward = K2 + the
-    reduction (the counterpart of `soft_packed`, pallas_soft.py:2604-2622).
-    Cotangents on the m / s planes are discarded: the closed-form softmax
-    VJP already accounts for the normaliser."""
+    """planes = K1(sph, pl, cam) ([10, Hp, Wp]), or K4 with shadows
+    ([14, Hp, Wp]); backward = K2 or K5, then the reduction (the counterpart
+    of `soft_packed`, pallas_soft.py:2604-2622). Cotangents on the m / s
+    (and vis / d(rgb)/d(vis)) planes are discarded: the closed-form softmax
+    VJP already accounts for the normaliser, and K5 takes the value path
+    through vis from the saved planes."""
 
     @staticmethod
     def forward(ctx, sph, pl, cam, spec: SoftSpec):
-        lists = build_lists(sph, cam, spec, spec.cull)
-        out, gates = soft_fwd(sph, pl, cam, lists, spec=spec)
+        out, gates, lists, shl = _forward_planes(sph, pl, cam, spec)
         ctx.spec = spec
-        ctx.save_for_backward(sph, pl, cam, out, gates, lists)
+        ctx.save_for_backward(sph, pl, cam, out, gates, lists, *(() if shl is None else (shl,)))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        sph, pl, cam, out, gates, lists = ctx.saved_tensors
+        sph, pl, cam, out, gates, lists, *shl = ctx.saved_tensors
+        shl = shl[0] if shl else None
         spec = ctx.spec
         if spec.bwd_cull != spec.cull:
-            lists = build_lists(sph, cam, spec, spec.bwd_cull)
+            lists, shl = _lists(sph, pl, cam, spec, spec.bwd_cull)
         offsets, pidx = list_entries(lists)
-        pvals, ppl, ptf = soft_bwd(sph, pl, cam, lists, offsets, gates, out, g.contiguous(),
-                                   spec=spec, n_entries=pidx.shape[0])
-        dsph, dpl, dtf = soft_grad_reduce(pvals, pidx, ppl, ptf, sph.shape[1])
+        g = g.contiguous()
+        pshidx = None
+        if shl is None:
+            parts = soft_bwd(sph, pl, cam, lists, offsets, gates, out, g, spec=spec,
+                             n_entries=pidx.shape[0])
+        else:
+            sh_offsets, pshidx = list_entries(shl)
+            parts = SH.soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, out, g,
+                                   spec=spec, n_entries=pidx.shape[0],
+                                   n_sh_entries=pshidx.shape[0])
+        dsph, dpl, dtf = _reduce(sph, pidx, pshidx, parts)
         return dsph, dpl, _dcam(dtf), None
 
 
-def _mse_via_k1(sph, pl, cam, tgt, spec: SoftSpec):
-    """The un-differentiated loss: K1 and the mean in torch."""
+def _mse_via_forward(sph, pl, cam, tgt, spec: SoftSpec):
+    """The un-differentiated loss: the forward kernel (K1, or K4 with
+    shadows) and the mean in torch."""
     H, W = spec.config.height, spec.config.width
-    out = soft_fwd(sph, pl, cam, build_lists(sph, cam, spec, spec.cull), spec=spec)[0]
+    out = _forward_planes(sph, pl, cam, spec)[0]
     d = (out[SO_R:SO_B + 1, :H, :W] - tgt[:, :H, :W]) / torch.tensor(
         255.0, dtype=torch.float32, device=out.device)
     return torch.mean(d * d)
@@ -647,23 +393,30 @@ def _mse_via_k1(sph, pl, cam, tgt, spec: SoftSpec):
 class SoftMSE(torch.autograd.Function):
     """loss = mean(((rgb - tgt) / 255)^2) over the image (the counterpart of
     `soft_mse`, pallas_soft.py:2571-2601). Under autograd the forward runs
-    K3 at loss-cotangent 1 and keeps the tables, and the backward scales
-    them by the incoming gradient; an un-differentiated call runs K1 and
-    the loss in torch. The target's cotangent needs the rgb planes, which
-    K3 never writes: it recomputes them with K1, only when asked."""
+    K3 (K6 with shadows) at loss-cotangent 1 and keeps the tables, and the
+    backward scales them by the incoming gradient; an un-differentiated
+    call runs K1 (K4) and the loss in torch. The target's cotangent needs
+    the rgb planes, which K3 / K6 never write: it recomputes them with K1
+    (K4), only when asked."""
 
     @staticmethod
     def forward(ctx, sph, pl, cam, tgt, spec: SoftSpec):
         ctx.spec = spec
         if not any(ctx.needs_input_grad[:4]):
-            return _mse_via_k1(sph, pl, cam, tgt, spec)
+            return _mse_via_forward(sph, pl, cam, tgt, spec)
         H, W = spec.config.height, spec.config.width
         inv_n = 1.0 / (3.0 * H * W)
-        lists = build_lists(sph, cam, spec, spec.cull)
+        lists, shl = _lists(sph, pl, cam, spec, spec.cull)
         offsets, pidx = list_entries(lists)
-        pvals, ppl, ptf = soft_mse(sph, pl, cam, lists, offsets, tgt, spec=spec,
-                                   n_entries=pidx.shape[0])
-        dsph, dpl, dtf = soft_grad_reduce(pvals, pidx, ppl, ptf, sph.shape[1])
+        pshidx = None
+        if shl is None:
+            parts = soft_mse(sph, pl, cam, lists, offsets, tgt, spec=spec,
+                             n_entries=pidx.shape[0])
+        else:
+            sh_offsets, pshidx = list_entries(shl)
+            parts = SH.soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec,
+                                   n_entries=pidx.shape[0], n_sh_entries=pshidx.shape[0])
+        dsph, dpl, dtf = _reduce(sph, pidx, pshidx, parts)
         loss = (dtf[SLOT_LOSS, 0] + dtf[SLOT_LOSS, 1]) * O.f32(1.0 / 255.0 ** 2) * inv_n
         ctx.save_for_backward(dsph, dpl, _dcam(dtf), sph, pl, cam, tgt)
         return loss
@@ -676,8 +429,7 @@ class SoftMSE(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             H, W = spec.config.height, spec.config.width
             inv_n = 1.0 / (3.0 * H * W)
-            lists = build_lists(sph, cam, spec, spec.cull)
-            sav = soft_fwd(sph, pl, cam, lists, spec=spec)[0]
+            sav = _forward_planes(sph, pl, cam, spec)[0]
             dtgt = torch.zeros_like(tgt)
             dtgt[:, :H, :W] = -gbar * 2.0 * inv_n / (255.0 * 255.0) * (
                 sav[SO_R:SO_B + 1, :H, :W] - tgt[:, :H, :W])
@@ -686,26 +438,15 @@ class SoftMSE(torch.autograd.Function):
 
 # -- entry points -------------------------------------------------------------------
 
-def _packed(scene, camera):
-    sph, pl, counts = P.pack_scene(scene)
-    cam = P.with_counts(P.pack_camera(camera, scene.device), counts)
-    return sph, pl, cam
-
-
-def _spec(config: RenderConfig, tau, bh, bw, cull, bwd_cull, name) -> SoftSpec:
-    tau = config.soft_tau if tau is None else tau
-    if tau <= 0.0:
-        raise ValueError(f"{name} needs tau > 0")
-    return SoftSpec(config=config, tau=float(tau), bh=bh, bw=bw, cull=cull, bwd_cull=bwd_cull)
-
-
 def render_frame_soft_kernel(scene, camera, config: RenderConfig, tau: float | None = None,
                              bh: int = 16, bw: int = 16, cull: bool = True,
                              bwd_cull: bool = True) -> Framebuffer:
-    """Differentiable frame render on K1 / K2 (pallas_soft.py:2764-2792):
-    gradients reach scene geometry, colours and the camera pose through
-    pack_scene / pack_camera. cull / bwd_cull switch off the two-level
-    culling of the forward / backward kernel."""
+    """Differentiable frame render on K1 / K2, or K4 / K5 when
+    config.shadows is on (pallas_soft.py:2764-2792): gradients reach scene
+    geometry, colours and the camera pose through pack_scene / pack_camera,
+    and with shadows reach occluders through their shadows alone. cull /
+    bwd_cull switch off the two-level culling of the forward / backward
+    kernel."""
     spec = _spec(config, tau, bh, bw, cull, bwd_cull, "render_frame_soft_kernel")
     out = SoftRender.apply(*_packed(scene, camera), spec)[:, :config.height, :config.width]
     rgb = out[SO_R:SO_B + 1].permute(1, 2, 0)
@@ -721,8 +462,9 @@ def render_soft_mse_loss(scene, camera, target, config: RenderConfig, tau: float
                          bwd_cull: bool = True) -> torch.Tensor:
     """mean(((rgb - target) / 255)^2) of the soft render, target [H, W, 3],
     differentiable in scene, camera and target, with the cotangents derived
-    inside K3 (pallas_soft.py:2715-2737). K3 has one cull switch: both
-    flags must be on for it to cull, as in JAX."""
+    inside K3, or K6 when config.shadows is on (pallas_soft.py:2715-2737).
+    K3 / K6 have one cull switch: both flags must be on for it to cull, as
+    in JAX."""
     spec = _spec(config, tau, bh, bw, cull and bwd_cull, cull and bwd_cull,
                  "render_soft_mse_loss")
     Hp, Wp = spec.extent
@@ -731,5 +473,5 @@ def render_soft_mse_loss(scene, camera, target, config: RenderConfig, tau: float
     sph, pl, cam = _packed(scene, camera)
     tgt = tgt.contiguous()
     if not torch.is_grad_enabled():  # SoftMSE would still see needs_input_grad
-        return _mse_via_k1(sph, pl, cam, tgt, spec)
+        return _mse_via_forward(sph, pl, cam, tgt, spec)
     return SoftMSE.apply(sph, pl, cam, tgt, spec)

@@ -7,21 +7,34 @@ hard reject branch of the reference becomes a smooth depth penalty
 
 and the closest hit a temperature-tau softmin over {objects, background at
 far}. This module is the plain oracle of the soft kernels
-(render/soft_kernel.py) and, with shadows on, of the shadowed kernels that
-come later: it materialises [H, W, N] tensors, so it is for small images.
+(render/soft_kernel.py) and, with shadows on, of the shadowed kernels
+(render/shadow_kernel.py): it materialises [H, W, N] tensors, so it is for
+small images.
 
 softplus is written as logaddexp(x, 0), as jax.nn.softplus is;
 torch.nn.functional.softplus linearises above threshold=20 and would change
 the penalty's value and gradient at large k*x. The JAX package's
 HIGHEST-precision einsums are elementwise sums here: no matmul, no TF32.
+
+A missed sphere whose penalised t_eff comes near `far` competes with the
+background, and there its penalty miss_penalty * (4c - b^2) / r^2 turns
+one ulp of b^2 into ~0.2 depth units: one ulp in a ray's length moves the
+camera-rotation gradient of bench.py's grad_cam_rot_rel scene 8x. So the
+rays and each sphere's c are computed in the soft kernels' op order
+(render/soft_objects.py `raygen`, left-to-right sums): the oracle and the
+kernels then agree on those bits on the CPU and on the card, and differ
+only where the arithmetic is well conditioned. Run in float64, the
+renderer shares no rounding with the kernels; chip_smoke.py holds the
+kernel path against it there, on rays it builds from camera_rays's formula.
 """
 from __future__ import annotations
 
 import torch
 
-from rtwc_tpu_torch.camera import Camera, camera_rays, projection_elements
+from rtwc_tpu_torch.camera import Camera, basis
 from rtwc_tpu_torch.config import RenderConfig
 from rtwc_tpu_torch.mathx import dot, safe_normalize
+from rtwc_tpu_torch.render import soft_objects as O
 from rtwc_tpu_torch.render.reference import (
     Framebuffer,
     _FLT_EPSILON,
@@ -63,7 +76,8 @@ def _soft_sphere_terms(origin, dirs, spheres, k: float, miss_penalty: float, far
     """Soft sphere intersection: (t_eff [.., N], t_clip [.., N], normal [.., N, 3])."""
     oc = origin - spheres.center                        # [N, 3]
     b = 2.0 * _dot3(dirs, oc)                           # [..., N]
-    c = dot(oc, oc) - spheres.radius ** 2               # [N]
+    c = (oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1] + oc[:, 2] * oc[:, 2]
+         - spheres.radius * spheres.radius)             # [N], the kernels' order
     disc = b * b - 4.0 * c                              # unit dirs: a == 1
     sq = torch.sqrt(_max(disc, 1e-12))
     t2 = 0.5 * (-b - sq)
@@ -186,14 +200,27 @@ def trace_soft(scene, origin, dirs, config: RenderConfig, tau: float | None = No
     return rgb, depth, normal, alpha
 
 
+def _soft_rays(camera: Camera, config: RenderConfig, device):
+    """(origin [3], dirs [H, W, 3]): camera_rays's rays, differentiable in
+    the pose, computed by the soft kernels' ray generation (module note)."""
+    rot = camera.rot.to(device)
+    right, up, fwd = basis(rot)
+    H, W = config.height, config.width
+    dtype = rot.dtype
+    rowf = torch.arange(H, dtype=dtype, device=device)[:, None].expand(H, W)
+    colf = torch.arange(W, dtype=dtype, device=device)[None, :].expand(H, W)
+    c = O.SoftConsts.make(config, 1.0)
+    cam9 = (right[0], right[1], right[2], up[0], up[1], up[2], fwd[0], fwd[1], fwd[2])
+    dx, dy, dz = O.raygen(c, rowf, colf, cam9)[:3]
+    return camera.pos.to(device), torch.stack([dx, dy, dz], dim=-1)
+
+
 def render_frame_soft(scene, camera: Camera, config: RenderConfig, tau: float | None = None,
                       straight_through: bool = False) -> Framebuffer:
     """Differentiable frame render on the scene's device. With
     straight_through=True the forward pass is the hard reference image
     while gradients flow through the soft path (hard + soft - soft.detach())."""
-    e1, e2 = projection_elements(config)
-    origin, dirs = camera_rays(camera, config.width, config.height, e1, e2,
-                               device=scene.device)
+    origin, dirs = _soft_rays(camera, config, scene.device)
     rgb, depth, normal, alpha = trace_soft(scene, origin, dirs, config, tau=tau)
     if straight_through:
         hard = render_frame(scene, camera, config)

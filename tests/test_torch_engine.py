@@ -4,6 +4,7 @@ port's `_render_step` against JAX's `_render_step` for 5 frames at a fixed
 dt in every mode. Tolerance: cells (kind, char, colour) equal on >= 99.5 %
 of cells; on cells both packages call a hit, a differing truecolour channel
 is off by at most 1 (truncation at a boundary)."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -13,11 +14,12 @@ import pytest
 import torch
 
 import rtwc_tpu.camera as JC
+import rtwc_tpu.config as JCFG
 import rtwc_tpu.scene as JS
 import rtwc_tpu_torch.camera as TC
 import rtwc_tpu_torch.scene as TS
-from rtwc_tpu.config import EngineConfig, RenderConfig, RenderMode
 from rtwc_tpu.engine.engine import _render_step as j_step
+from rtwc_tpu_torch.config import EngineConfig, RenderConfig, RenderMode
 from rtwc_tpu_torch.engine import Engine
 from rtwc_tpu_torch.engine.engine import _render_step as t_step
 from rtwc_tpu_torch.io import FramebufferSink
@@ -151,6 +153,12 @@ def test_cli_runs_without_jax(tmp_path):
     assert proc.stdout.count(b"\n") >= 12 and b";2;" in proc.stdout
 
 
+def _jax_cfg(cfg):
+    """The JAX package's RenderConfig with the same fields as the port's."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return JCFG.RenderConfig(**{**kw, "mode": JCFG.RenderMode(cfg.mode.value)})
+
+
 def _cells_agree(jc, tc):
     jk, jcol, jch = (np.asarray(x) for x in jc)
     tk, tcol, tch = (x.numpy() for x in tc)
@@ -173,7 +181,7 @@ def test_render_step_matches_jax(mode):
                      rot=np.array([0.15, 3.0, 0.0], np.float32))
     tcam = TC.camera_from_numpy(jcam)
     for _ in range(5):
-        js, jc = j_step(js, jcam, np.float32(0.05), cfg)
+        js, jc = j_step(js, jcam, np.float32(0.05), _jax_cfg(cfg))
         ts, tc = t_step(ts, tcam, 0.05, cfg)
         _cells_agree(jc, tc)
     np.testing.assert_array_equal(ts.spheres.center.numpy(), np.asarray(js.spheres.center))

@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from rtwc_tpu.config import RenderConfig, RenderMode
+from rtwc_tpu.config import RenderConfig as JRenderConfig
+from rtwc_tpu.config import RenderMode as JRenderMode
 from rtwc_tpu.heads import ansi256 as JA
 from rtwc_tpu.heads import ascii as JASC
 from rtwc_tpu.heads.encode import encode_frame_numpy as j_encode
 from rtwc_tpu.heads.modes import framebuffer_to_cells as j_cells
 from rtwc_tpu.render.reference import Framebuffer as JFB
+from rtwc_tpu_torch.config import RenderConfig, RenderMode
 from rtwc_tpu_torch.heads import ansi256 as TA
 from rtwc_tpu_torch.heads import ascii as TASC
 from rtwc_tpu_torch.heads.encode import encode_frame, encode_frame_numpy
@@ -84,7 +86,8 @@ def _framebuffer(seed=2, H=24, W=40):
 def test_cells_and_bytes_match_jax(mode):
     jfb, tfb = _framebuffer()
     cfg = RenderConfig(width=40, height=24, mode=mode)
-    want = [np.asarray(x) for x in j_cells(jfb, cfg)]
+    jcfg = JRenderConfig(width=40, height=24, mode=JRenderMode(mode.value))
+    want = [np.asarray(x) for x in j_cells(jfb, jcfg)]
     got = t_cells(tfb, cfg)
     for w, g, name in zip(want, got, ("kind", "color", "char")):
         assert g.dtype == torch.int32, name

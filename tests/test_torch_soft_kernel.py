@@ -39,6 +39,7 @@ from rtwc_tpu.render.pallas_soft import render_frame_soft_pallas as j_render
 from rtwc_tpu.render.pallas_soft import render_soft_mse_loss as j_mse
 from rtwc_tpu_torch.render import _cuda
 from rtwc_tpu_torch.render import pack as TP
+from rtwc_tpu_torch.render import soft_core as C
 from rtwc_tpu_torch.render import soft_kernel as SK
 from rtwc_tpu_torch.render import soft_objects as O
 from rtwc_tpu_torch.render.softmin import render_frame_soft as t_soft
@@ -401,7 +402,7 @@ def test_reduction_sums_entries_by_sphere_in_tile_order():
 
 def test_block_sums_follow_the_warp_order():
     x = torch.randn(3, 256)
-    s = SK.block_sum_plain(x)
+    s = C.block_sum_plain(x)
     np.testing.assert_allclose(s.numpy(), x.double().sum(1).numpy(), rtol=1e-5, atol=1e-5)
     warps = x.reshape(3, 8, 32)
     for off in (16, 8, 4, 2, 1):
