@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's display and train paths on one CUDA card and check them.
+"""Run the PyTorch port's display, train and roofline paths on one CUDA card and check them.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   0  card name and power limit (nvidia-smi), torch and CUDA versions
-  1  build csrc/hard_render.cu, csrc/soft_render.cu and csrc/soft_shadow.cu
-     with nvcc for sm_90a, one nvcc each, all at once; print build times and
-     each kernel's ptxas registers and spills
+  1  build csrc/hard_render.cu, csrc/soft_render.cu, csrc/soft_shadow.cu and
+     csrc/calibrate.cu with nvcc for sm_90a, one nvcc each, all at once;
+     print build times and each kernel's ptxas registers and spills
   2  the K7 kernel against its plain torch version on the card, on the
      same packed tables and broad-phase lists, in seven cases; then one
      frame of the whole step (kernel path) against the plain reference
@@ -56,10 +56,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      bench headline config; the generic and fused steps and the device's
      busy share; the fused step at 3840x2160 with 200 spheres and its peak
      memory; the cache-fallback share of tiles at both sizes
+  6a the calibration chain kernel against its plain version for every body,
+     at 64 iterations on a grid that fills the card: mul, add, max, abs,
+     select, sqrt and div bit-equal, the others within 1e-5 relative
+  6b the roofline calibration (utils/calibrate.py), launches counted: the
+     FMA rate must lie within 0.5-1.05 of SMs x 128 x the maximum SM clock
+     (nvidia-smi), every slot weight finite and non-negative; printed beside
+     the constants utils/roofline.py pins, with each body's SASS counts
+  6c the calibrated list-aware floor (roofline.culled_step_model) of K1-K3
+     at 1920x1080 and of K4-K6 at the bench headline and at 4K/200, priced
+     with phase 6b's calibration and with the pinned constants, must be at
+     most 105 % of each kernel's device time
+  6d `python -m rtwc_tpu_torch.bench` in a subprocess: exit 0, one JSON line
+     of finite numbers, the no-credit and culled-floor speed-of-light
+     percentages at most 105, every kernel of its path launched
 Then a JSON line describing the kernels (each with its bound: the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
-from this run's lists and gate tables), and as the last line
-{"ok": true, "device": {...}}. Imports nothing of JAX. TF32 is off.
+from this run's lists and gate tables; the chain kernel's is its FMAs over
+SMs x 128 x the maximum clock; the soft kernels add `floor_ms`, the
+calibrated floor of phase 6c from this run's calibration; the reduction's
+`library_ms` is its whole function in float64 PyTorch calls, index_add_ and
+sums, held to the kernel's sums), the seconds of each phase, and as the last
+line {"ok": true, "device": {...}}. Imports nothing of JAX. TF32 is off.
 Longer tables go to chip_smoke_out/.
 """
 from __future__ import annotations
@@ -87,6 +105,9 @@ SOFT_KW = dict(soft_miss_penalty=300.0, soft_mask_k=10.0)
 SHADOW_PLANES = SOFT_PLANES + ((slice(10, 11), 1e-5, 1e-5, "vis"),
                                (slice(11, 14), 2e-3, 1e-4, "d(rgb)/d(vis)"))
 ROT_REL, GRAD_RTOL, GRAD_ATOL = 1.5e-2, 2e-2, 5e-6  # ROADMAP queue 3's carve-out
+# Phase 6: chain iterations of the kernel-vs-plain check; the calibrated floor
+# (a lower bound) may exceed a kernel's device time by 5 % of noise at most.
+CHAIN_ITERS, FLOOR_MAX = 64, 1.05
 # One H100 SXM at 700 W (NVIDIA's data sheet): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
 # float32 rate outside the tensor cores.
@@ -156,23 +177,28 @@ def _time_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
-def _kernel_device_ms(fn, reps=20, name="hard_render_kernel"):
+def _kernel_device_ms(fn, reps=20, name="hard_render_kernel", tries=3):
     """Mean device time of the kernel `name` over `reps` calls of fn, from
-    the profiler's CUDA kernel records whose name contains `name` (None if
-    it records none)."""
+    the profiler's CUDA kernel records whose name contains `name`. A profile
+    that holds no such record is taken again, up to `tries` profiles in all
+    (the profiler now and then returns a run without its device records);
+    None if none holds one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
 
 
 def _ptxas_report(log_path: str):
@@ -642,6 +668,200 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
     return out_k, gates_k, cnt_k
 
 
+def _reduce_library(pvals, pidx, ppl, ptf, ns, psh=None, pshidx=None):
+    """soft_grad_reduce's function in PyTorch library calls, in float64:
+    (dsph [NS, 8], dpl [NP, 12], camera sums hi + lo [NTF])."""
+    import torch
+
+    dsph = torch.zeros((ns, 8), dtype=torch.float64, device=pvals.device)
+    dsph.index_add_(0, pidx.long(), pvals[:pidx.shape[0]].double())
+    if psh is not None:
+        dsph[:, :4].index_add_(0, pshidx.long(), psh[:pshidx.shape[0]].double())
+    return dsph, ppl.double().sum(0), ptf.double().sum((0, 2))
+
+
+def _reduce_library_ms(P, args, kernel_out):
+    """Median ms of _reduce_library(*args), after holding its sums to the
+    kernel's (`kernel_out` of soft_grad_reduce on the same args; the active
+    rows, which the kernel zeroes, are left out): each sum within TABLE_REL
+    (tables) or TF_REL (the two-float camera sums) of the sum of its terms'
+    magnitudes, the bound of a summation's rounding."""
+    lib = _reduce_library(*args)
+    mag = _reduce_library(*(a.abs() if i in (0, 2, 3, 5) else a for i, a in enumerate(args)))
+    k_sph, k_pl, k_tf = kernel_out
+    for name, got, ker, m, tol, skip in (
+            ("spheres", lib[0].T, k_sph.double(), mag[0].T, TABLE_REL, P.S_ACTIVE),
+            ("planes", lib[1].T, k_pl.double(), mag[1].T, TABLE_REL, P.P_ACTIVE),
+            ("camera sums", lib[2][None], k_tf.double().sum(1)[None], mag[2][None], TF_REL, -1)):
+        keep = [r for r in range(got.shape[0]) if r != skip]
+        excess = ((got[keep] - ker[keep]).abs() - tol * m[keep]).max().item()
+        if excess > 0.0:
+            raise AssertionError(f"reduction library {name}: {excess} beyond its bound from the "
+                                 f"kernel's sums")
+    return _time_ms(lambda: _reduce_library(*args))
+
+
+def _max_sm_clock_mhz() -> float:
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60, check=True)
+    return float(proc.stdout.strip().splitlines()[0])
+
+
+def _phase_6ab(dev, tag):
+    """6a: every calibration body, kernel against plain version; 6b: the
+    calibration itself, counted, against the pinned constants. Returns the
+    calibration and the kernels-line entry of the chain kernel."""
+    import numpy as np
+    import torch
+
+    from rtwc_tpu_torch.utils import calibrate as CB
+    from rtwc_tpu_torch.utils import roofline as R
+
+    n = CB.full_occupancy_elems(dev)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0.4, 0.8, n).astype(np.float32)).to(dev)
+    worst = 0.0
+    for op in CB.OPS:
+        k = CB.chain_kernel(op, x, CHAIN_ITERS)
+        p = CB.chain_plain(op, x, CHAIN_ITERS)
+        torch.cuda.synchronize()
+        if not (k.shape == p.shape and torch.isfinite(k).all()):
+            raise AssertionError(f"chain {op}: kernel output non-finite or misshapen")
+        diff = (k - p).abs()
+        worst = max(worst, diff.max().item())
+        rel = (diff / p.abs()).max().item()
+        same = torch.equal(k, p)
+        exact = op in CB.EXACT
+        print(f"phase 6a: chain {op}, {n} x {CB.NCHAIN} chains, {CHAIN_ITERS} iterations: "
+              f"bit-equal {same}, max rel diff {rel!r} (limit: "
+              f"{'bit-equal' if exact else CB.INEXACT_RTOL})")
+        if not (same if exact else rel <= CB.INEXACT_RTOL):
+            raise AssertionError(f"chain {op}: kernel disagrees with its plain version ({rel})")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    peak = sms * 128 * _max_sm_clock_mhz() * 1e6
+    CB.LAUNCHES = 0
+    t = time.perf_counter()
+    res = CB.calibrate(dev)
+    launches = CB.LAUNCHES
+    rate = res["fma_ops_per_s"]
+    print(f"phase 6b: calibration in {time.perf_counter() - t:.1f} s, {launches} launches: FMA "
+          f"{rate!r} elem-ops/s = {rate / peak!r} of {sms} SMs x 128 x the maximum clock "
+          f"({peak!r}; limits 0.5-1.05); pinned {R.FMA_PER_S!r}; memory "
+          f"{res['hbm_bytes_per_s']!r} B/s, pinned {R.HBM_BYTES_PER_S!r} {tag}")
+    launch_apps = CB.I2 * CB.DEPTH * 1e-6  # ns an application -> ms a launch at I2
+    for op in ("fma",) + tuple(res["slots"]):
+        w_txt = "" if op == "fma" else f"{res['slots'][op]!r} FMA slots, pinned {R.SLOTS[op]!r}; "
+        print(f"phase 6b: {op}: {w_txt}slope {res['slope_ns'][op] * launch_apps!r} ms a launch "
+              f"of {CB.I2} iterations")
+    weights = list(res["slots"].values())
+    if not (0.5 * peak <= rate <= 1.05 * peak):
+        raise AssertionError(f"FMA rate {rate} outside 0.5-1.05 of the peak {peak}")
+    if not all(np.isfinite(w) and w >= 0.0 for w in weights) or launches < 1:
+        raise AssertionError(f"calibration: weights {weights}, launches {launches}")
+    sass = CB.sass_counts()
+    for op, cnt in sass.items():  # the loop body holds NCHAIN x DEPTH applications
+        top = sorted(cnt.items(), key=lambda kv: -kv[1])[:8]
+        print(f"phase 6b: SASS {op}: {sum(cnt.values())} instructions in the kernel; "
+              + ", ".join(f"{o} {c}" for o, c in top))
+
+    k_ms = _time_ms(lambda: CB.chain_kernel("fma", x, CHAIN_ITERS))
+    p_ms = _time_ms(lambda: CB.chain_plain("fma", x, CHAIN_ITERS), reps=3, warm=1)
+    d_ms = _kernel_device_ms(lambda: CB.chain_kernel("fma", x, CHAIN_ITERS), name="chain_kernel")
+    i2_ms = _time_ms(lambda: CB.chain_kernel("fma", x, CB.I2), reps=5, warm=1)
+    ops = n * CB.NCHAIN * CHAIN_ITERS * CB.DEPTH
+    entry = {"name": "chain_kernel (roofline calibration chains)", "route": "cuda",
+             "source": "rtwc_tpu_torch/csrc/calibrate.cu",
+             "replaces": "scripts/calibrate_roofline.py:66", "launches": launches,
+             "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, "bound_ms": ops / peak * 1e3,
+             "bound_by": "operations", "library_ms": None, "floor_ms": None, "device_ms": d_ms,
+             "ms_at_i2": i2_ms,
+             "shape": f"fma body, {n} threads x {CB.NCHAIN} chains, {CHAIN_ITERS} iterations of "
+                      f"{CB.DEPTH}; launches from the calibration ({CB.I1} and {CB.I2} iterations, "
+                      f"14 bodies)"}
+    print(f"phase 6b: chain kernel (fma, {CHAIN_ITERS} iterations): {k_ms!r} ms (device "
+          f"{d_ms!r} ms), plain {p_ms!r} ms, bound {entry['bound_ms']!r} ms (operations); "
+          f"{CB.I2} iterations {i2_ms!r} ms {tag}")
+    return {"calibration": res, "entry": entry}
+
+
+def _phase_6c(cases, calibration, tag):
+    """6c: the list-aware floor of culled_step_model for each kernel of each
+    case, priced with this run's calibration (phase 6b) and with the pinned
+    constants of utils/roofline.py, must be at most FLOOR_MAX of its device
+    time. Returns {kernel: floor ms from this run's calibration} of the first
+    case that names it."""
+    from rtwc_tpu_torch.utils import roofline as R
+
+    role = {"K1": "fwd", "K4": "fwd", "K2": "bwd", "K5": "bwd", "K3": "fused", "K6": "fused"}
+    floors = {}
+    for label, cfg, diag, dev_ms in cases:
+        fl = {}
+        for src, cal in (("run", calibration), ("pinned", None)):
+            gen = R.culled_step_model(cfg, 0.5, diag, fused=False, calibration=cal)
+            fused = R.culled_step_model(cfg, 0.5, diag, fused=True, calibration=cal)
+            fl[src] = {"fwd": gen["t_fwd_floor_s"] * 1e3, "bwd": gen["t_bwd_floor_s"] * 1e3,
+                       "fused": fused["t_floor_s"] * 1e3}
+        for key, d in dev_ms.items():
+            f, f_pin = fl["run"][role[key]], fl["pinned"][role[key]]
+            floors.setdefault(key, f)
+            if d is None:
+                raise AssertionError(f"{label}: no device time for {key}")
+            print(f"phase 6c: {label}: {key} calibrated floor {f!r} ms (pinned constants "
+                  f"{f_pin!r} ms), device {d!r} ms -> {f / d * 100:.1f} % ({f_pin / d * 100:.1f} "
+                  f"%; limit {FLOOR_MAX * 100:.0f} %); mean list {gen['mean_list_len']:.2f}, "
+                  f"applied {gen['mean_applied']:.2f}, shadow list "
+                  f"{gen['mean_shadow_list_len']:.2f}, shadow applied "
+                  f"{gen['mean_shadow_applied']:.2f} {tag}")
+            if max(f, f_pin) > FLOOR_MAX * d:
+                raise AssertionError(f"{label}: {key}'s floor {f} / {f_pin} ms exceeds its device "
+                                     f"time {d} ms")
+    return floors
+
+
+def _phase_6d(tag):
+    """6d: `python -m rtwc_tpu_torch.bench` in a subprocess: exit 0, one JSON
+    line with every number finite, the speed-of-light percentages at most
+    105, and every kernel of its path launched."""
+    import math
+
+    cmd = [sys.executable, "-m", "rtwc_tpu_torch.bench"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t
+    with open(os.path.join(OUT_DIR, "bench.log"), "w") as f:
+        f.write(proc.stderr + "\n" + proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    res = json.loads(lines[-1])
+    if len(lines) != 1 or not isinstance(res, dict):
+        raise AssertionError(f"bench printed {len(lines)} lines on stdout, want one JSON line")
+
+    def numbers(v):
+        if isinstance(v, dict):
+            for x in v.values():
+                yield from numbers(x)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield v
+
+    if not all(math.isfinite(v) for v in numbers(res)):
+        raise AssertionError(f"bench: a number is not finite: {res}")
+    sol = {k: res[k] for k in res if k.startswith(("sol_pct_nocull", "sol_pct_culled_floor"))}
+    launches = json.loads(proc.stderr.split("# kernel launches: ", 1)[1].splitlines()[0])
+    print(f"phase 6d: {' '.join(cmd[1:])}: exit 0 in {secs:.1f} s; {res['value']!r} rays/s "
+          f"(shadowed fused step), generic {res['generic_shadowed']!r}, 4K "
+          f"{res['r4k_200sph_shadowed']!r}; speed of light {sol}; launches {launches} {tag}")
+    for line in proc.stderr.splitlines():
+        print(f"phase 6d: bench {line}")
+    if not all(v <= 105.0 for v in sol.values()) or len(sol) != 6:
+        raise AssertionError(f"bench speed-of-light percentages {sol} (limit 105)")
+    used = ("soft_mse", "soft_grad_reduce", "soft_sh_fwd", "soft_sh_bwd", "soft_sh_mse",
+            "soft_sh_stats", "hard_render")
+    if not all(launches.get(k, 0) >= 1 for k in used):
+        raise AssertionError(f"bench launches {launches}: a kernel of its path never ran")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -651,6 +871,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     os.makedirs(OUT_DIR, exist_ok=True)
+    t_start = time.perf_counter()
+    laps, mark = {}, [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        laps[label] = round(now - mark[0], 1)
+        mark[0] = now
+        print(f"phase {label}: {laps[label]} s")
 
     # -- phase 0 ---------------------------------------------------------------
     card = _card_line()
@@ -682,7 +910,7 @@ def main() -> int:
     from rtwc_tpu_torch.render import soft_kernel as SK
 
     t0 = time.perf_counter()
-    names = ("hard_render", "soft_render", "soft_shadow")
+    names = ("hard_render", "soft_render", "soft_shadow", "calibrate")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:  # one nvcc for each source, at once
         libs = dict(zip(names, pool.map(_cuda.build, names)))
     hard_kernel._kernel_fn()
@@ -695,6 +923,7 @@ def main() -> int:
     for lib, so in libs.items():
         for kernel, regs, spill in _ptxas_report(so[:-3] + ".log"):
             print(f"phase 1: ptxas {lib}: {kernel}: {regs} registers; {spill}")
+    lap("0-1")
 
     # -- phase 2 ---------------------------------------------------------------
     base = RenderConfig(width=400, height=150)
@@ -753,6 +982,8 @@ def main() -> int:
             if frac < CELL_FRAC_MIN:
                 raise AssertionError(f"{mode.value} {cam_label}: cells differ from the "
                                      f"reference renderer")
+
+    lap("2")
 
     # -- phase 2b: the soft kernels against their plain versions ----------------
     from rtwc_tpu_torch.examples import inverse_render as IR
@@ -874,6 +1105,8 @@ def main() -> int:
           f"camera, tau 0.5: gradients of 7 leaf groups within rtol 2e-2 / atol 1e-6 "
           f"(largest relative diff {worst!r})")
 
+    lap("2b")
+
     # -- phase 2c: the shadowed kernels against their plain versions --------------
     from rtwc_tpu_torch.examples import fit_from_shadow as FS
 
@@ -983,6 +1216,8 @@ def main() -> int:
             raise AssertionError(f"{label}: the kernel path's rotation gradient is {err_k} off "
                                  f"float64, beyond {limit}")
 
+    lap("2c")
+
     # -- phase 3: the main path, counted ----------------------------------------
     hard_kernel.LAUNCHES = 0
     frames = 0
@@ -1028,6 +1263,8 @@ def main() -> int:
     print(f"phase 3: K7 launches {launches}, frames rendered {frames}")
     if launches != frames:
         raise AssertionError(f"K7 launched {launches} times for {frames} frames")
+
+    lap("3")
 
     # -- phase 3b: the train paths, counted -------------------------------------
     def reset_soft():
@@ -1114,6 +1351,8 @@ def main() -> int:
             raise AssertionError(f"inverse_render {extra} did not converge: "
                                  f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
+    lap("3b")
+
     # -- phase 3c: the shadowed train path, counted -------------------------------
     scene_hld, cam_hl = scene_hl.to(dev), default_camera().to(dev)
     tgt_hl = torch.zeros((1080, 1920, 3), device=dev)  # bench.py's target
@@ -1175,6 +1414,8 @@ def main() -> int:
     if proc.returncode != 0 or not tail or tail[-1] != "FIT OK":
         raise AssertionError(f"fit_from_shadow failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
 
+    lap("3c")
+
     # -- phase 4 -----------------------------------------------------------------
     cmd = [sys.executable, "-m", "rtwc_tpu_torch", "--frames", "8", "--width", "400",
            "--height", "150", "--mode", "rgb_ascii", "--no-spawn", "--no-fps"]
@@ -1183,6 +1424,8 @@ def main() -> int:
           f"{len(proc.stdout)} bytes of frames")
     if proc.returncode != 0 or b";2;" not in proc.stdout:
         raise AssertionError(f"CLI run failed: {proc.stderr.decode()[-2000:]}")
+
+    lap("4")
 
     # -- phase 5 -----------------------------------------------------------------
     tag = f"[{card}]"
@@ -1371,6 +1614,8 @@ def main() -> int:
     for kind in ("generic", "fused"):
         _profile_steps(make_step(kind), f"profile_train_{kind}", f"{kind} train step", tag)
 
+    lap("5")
+
     # -- phase 5b: the shadowed kernels and train steps ---------------------------
     spec_hl = SK.SoftSpec(cfg_hl, 0.5)
     sph_h, pl_h, cam_h = SK._packed(scene_hld, cam_hl)
@@ -1485,6 +1730,27 @@ def main() -> int:
           f"{int(cnt_4[:, 0].max())}); list entries {pidx_4.shape[0]}, shadow entries "
           f"{pshidx_4.shape[0]} {tag}")
 
+    lap("5b")
+
+    # -- phases 6a-6d: the roofline path ---------------------------------------------
+    cal = _phase_6ab(dev, tag)
+    lap("6a-6b")
+    u_diag = {"list_len": lists[:, 0, 0].cpu().numpy(),
+              "main_applied": gates[:, 0, :].sum(1).cpu().numpy(),
+              "shadow_list_len": np.zeros(lists.shape[0]), "shadow_applied": np.zeros(lists.shape[0]),
+              "bh": 16, "bw": 16, "n_planes": int(camv[0, P.C_NPL])}
+    diag_4k = SH.soft_tile_diagnostics(scene_4k, cam_hl, cfg_4k, tau=0.5)
+    floors = _phase_6c(
+        [("1920x1080 --spheres 20", cfg20, u_diag,
+          {"K1": soft_timing["K1"][2], "K2": soft_timing["K2"][2], "K3": soft_timing["K3"][2]}),
+         ("bench headline", cfg_hl, diag,
+          {"K4": soft_timing["K4"][2], "K5": soft_timing["K5"][2], "K6": soft_timing["K6"][2]}),
+         ("3840x2160 random_scene(200)", cfg_4k, diag_4k, {"K4": k4_4k, "K5": k5_4k, "K6": k6_4k})],
+        cal["calibration"], tag)
+    lap("6c")
+    bench_res = _phase_6d(tag)
+    lap("6d")
+
     # -- the kernels line: every kernel with its bound ---------------------------
     px = 16 * 16
     args_c, cfg_c = packed["c random 20 1920x1080 shadows"]
@@ -1552,29 +1818,43 @@ def main() -> int:
         ("K4-stats", "soft_sh_stats (K4-stats, cache diagnostics)", "soft_shadow.cu",
          "rtwc_tpu/render/pallas_soft.py:2822", sh_launch["soft_sh_stats"], shape_hl),
     )
+    # the reduction's whole function in PyTorch library calls on the same
+    # inputs, held to the kernel's sums before it is timed
+    lib_reduce = _reduce_library_ms(P, (parts[0], pidx, *parts[1:], sph.shape[1]), red20)
+    lib_reduce_sh = _reduce_library_ms(
+        P, (parts_h[0], pidx_h, parts_h[2], parts_h[3], 20, parts_h[1], pshidx_h), red_h)
     entries = []
     for key, kname, src, replaces, count, shape in rows:
         k_ms, p_ms, d_ms = soft_timing[key]
         b_ms, b_by = _bound(*work[key])
+        floor_key = "K4" if key == "K4-stats" else key
         entry = {"name": kname, "route": "cuda", "source": f"rtwc_tpu_torch/csrc/{src}",
                  "replaces": replaces, "launches": count, "max_abs_err": errs[key], "ms": k_ms,
-                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                 "device_ms": d_ms, "shape": shape}
+                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib_reduce if key == "reduce" else None,
+                 "floor_ms": floors.get(floor_key), "device_ms": d_ms, "shape": shape}
         if key == "reduce":
             r_ms, r_p, r_d = soft_timing["reduce sh"]
             rb_ms, rb_by = _bound(*work["reduce sh"])
             entry["reduce_shadowed"] = {"ms": r_ms, "plain_ms": r_p, "device_ms": r_d,
-                                        "bound_ms": rb_ms, "bound_by": rb_by, "shape": shape_hl}
+                                        "bound_ms": rb_ms, "bound_by": rb_by,
+                                        "library_ms": lib_reduce_sh, "shape": shape_hl}
+            entry["library"] = ("float64 index_add_ of the sphere (and shadow-occluder) "
+                                "partials, sums of the plane rows and camera pairs over tiles")
         entries.append(entry)
         print(f"phase 5b: {key}: bound {b_ms!r} ms ({b_by}; {work[key][0] / 1e6:.1f} MB, "
-              f"{work[key][1] / 1e9:.2f} GFLOP), device {d_ms!r} ms, launches {count}")
+              f"{work[key][1] / 1e9:.2f} GFLOP), calibrated floor {entry['floor_ms']!r} ms, "
+              f"device {d_ms!r} ms, launches {count}, library {entry['library_ms']!r} ms")
+    entries.append(cal["entry"])
     for e in entries:
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} was not launched on its path")
     with open(os.path.join(OUT_DIR, "train_steps.json"), "w") as f:
         json.dump({"unshadowed": step_rates, "shadowed": sh_rates, "shadowed_4k_fused_ms": ms_4k,
-                   "shadowed_4k_generic_ms": ms_4k_generic, "shadowed_4k_peak_bytes": peak_4k},
+                   "shadowed_4k_generic_ms": ms_4k_generic, "shadowed_4k_peak_bytes": peak_4k,
+                   "calibration": cal["calibration"], "floors_ms": floors, "bench": bench_res},
                   f)
+    print(f"phase times (s): {json.dumps(laps)}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -65,4 +65,5 @@ def test_builds_read_only_the_ports_sources():
         twin = os.path.join(ROOT, "rtwc_tpu", "io", "native", os.path.basename(src))
         assert filecmp.cmp(src, twin, shallow=False), f"{src} and {twin} differ"
     assert os.path.commonpath([_cuda.SRC_DIR, PKG]) == PKG
-    assert {"hard_render.cu", "soft_render.cu", "soft_shadow.cu"} <= set(os.listdir(_cuda.SRC_DIR))
+    assert {"hard_render.cu", "soft_render.cu", "soft_shadow.cu", "calibrate.cu"} <= set(
+        os.listdir(_cuda.SRC_DIR))
