@@ -20,11 +20,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      gradients) against the torch soft renderer at 400x150
   2c the shadowed kernels against their plain versions on the card: K4's
      14 planes and gates, K4-stats' counts, K5's tables under seeded random
-     cotangents, K6's loss and tables, K6 against K4 + K5 with the MSE
-     cotangents and two launches bit-equal, in eight cases (96x32; 400x150
-     pitched; the bench headline 1920x1080 random_scene(20); a saturating
-     light; a cache overflow past NC; full darkness, where the early-out
-     fires; culling off; an empty scene); then the shadowed kernel path
+     cotangents, K6's loss and tables (K5's and K6's partial tables bit-equal
+     to the plain versions'), K6 against K4 + K5 with the MSE cotangents and
+     two launches bit-equal, in ten cases (96x32; 400x150 pitched; the bench
+     headline 1920x1080 random_scene(20); a saturating light; a cache
+     overflow past NC; a slab overflow past SLAB, 40 spheres; 3840x2160
+     random_scene(200), where tiles take the exact re-walk; full darkness,
+     where the early-out fires; culling off; an empty scene); then the
+     shadowed kernel path
      against the torch soft renderer at bench.py's grad_cam_rot_rel config
      (640x360, 20 spheres): camera-rotation relative error <= 1.5e-2; and
      its rotation gradient against a float64 render on independently built
@@ -55,7 +58,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   5b with shadows: K4, K5, K6, K4-stats and the reduction vs plain at the
      bench headline config; the generic and fused steps and the device's
      busy share; the fused step at 3840x2160 with 200 spheres and its peak
-     memory; the cache-fallback share of tiles at both sizes
+     memory and K4 / K5 / K6 alone there (K5 under the MSE cotangents of a
+     zero target, as at the headline); the cache-fallback share of tiles and
+     K5's block barriers a tile at both sizes; the launches
+     of one step of each train path and of one 1920x1080 engine frame
   6a the calibration chain kernel against its plain version for every body,
      at 64 iterations on a grid that fills the card: mul, add, max, abs,
      select, sqrt and div bit-equal, the others within 1e-5 relative
@@ -73,11 +79,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 Then a JSON line describing the kernels (each with its bound: the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's lists and gate tables; the chain kernel's is its FMAs over
-SMs x 128 x the maximum clock; the soft kernels add `floor_ms`, the
-calibrated floor of phase 6c from this run's calibration; the reduction's
-`library_ms` is its whole function in float64 PyTorch calls, index_add_ and
-sums, held to the kernel's sums), the seconds of each phase, and as the last
-line {"ok": true, "device": {...}}. Imports nothing of JAX. TF32 is off.
+SMs x 128 x the maximum clock; `launches` counts one main-path step at the
+row's shape, each count set to 0 just before it: a generic or fused train
+step, one engine frame at 1920x1080 for K7, one soft_tile_diagnostics call
+for K4-stats; `launches_elsewhere` the other counted runs with their
+shapes; the soft kernels add `floor_ms`, the calibrated floor of phase 6c
+from this run's calibration; the reduction's `library_ms` is its whole
+function in float64 PyTorch calls, index_add_ and sums, held to the
+kernel's sums, `library_device_ms` the same calls' device time, from CUDA
+events around a CUDA graph of 20 calls, beside `function_device_ms`, the
+port's wrapper measured the same way), the seconds of each phase, and as the last line
+{"ok": true, "device": {...}}. Imports nothing of JAX. TF32 is off.
 Longer tables go to chip_smoke_out/.
 """
 from __future__ import annotations
@@ -491,6 +503,23 @@ def _crowd_scene(n=14, seed=3):
     return add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 60.0, 60.0)
 
 
+def _slab_crowd():
+    """40 spheres packed into a short depth range over the floor: some
+    16x16 tiles gate in more objects than the SLAB slots K5 and K6 sum at
+    once (tests/test_torch_shadow_kernel.py `_slab_crowd`)."""
+    import numpy as np
+    from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
+
+    rng = np.random.default_rng(3)
+    s = empty_scene(48, 2)
+    for _ in range(40):
+        s = add_sphere(s, float(rng.uniform(2.0, 4.0)),
+                       (float(rng.uniform(-3, 3)), float(rng.uniform(-1.5, 1.5)),
+                        float(rng.uniform(20, 27))),
+                       tuple(float(c) for c in rng.uniform(30, 220, 3)), speed=1.0)
+    return add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 60.0, 60.0)
+
+
 def _dark_scene():
     """The 96x32 shadow scene under a ceiling slab that blocks the light:
     every floor and sphere pixel is in full shadow."""
@@ -620,17 +649,25 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
     gen = torch.Generator().manual_seed(1234)
     g = torch.randn(out_p.shape, generator=gen).to(dev)
     bwd_args = (sph, pl, camv, lists, shl, offsets, sh_offsets, gates_p, out_p, g)
-    r5k = red(SH.soft_sh_bwd(*bwd_args, spec=spec, **sizes))
-    r5p = red_plain(SH.soft_sh_bwd_plain(*bwd_args, spec=spec, **sizes))
+    p5k = SH.soft_sh_bwd(*bwd_args, spec=spec, **sizes)
+    p5p = SH.soft_sh_bwd_plain(*bwd_args, spec=spec, **sizes)
+    r5k, r5p = red(p5k), red_plain(p5p)
     k5 = _close_tables(_tables(r5k), _tables(r5p), f"{label}: K5 + reduction")
 
     Hp, Wp = spec.extent
     H, W = cfg.height, cfg.width
     tgt = (torch.rand((3, Hp, Wp), generator=gen) * 255.0).to(dev)
     mse_args = (sph, pl, camv, lists, shl, offsets, sh_offsets, tgt)
-    r6k = red(SH.soft_sh_mse(*mse_args, spec=spec, **sizes))
-    r6p = red_plain(SH.soft_sh_mse_plain(*mse_args, spec=spec, **sizes))
+    p6k = SH.soft_sh_mse(*mse_args, spec=spec, **sizes)
+    p6p = SH.soft_sh_mse_plain(*mse_args, spec=spec, **sizes)
+    r6k, r6p = red(p6k), red_plain(p6p)
     k6 = _close_tables(_tables(r6k), _tables(r6p), f"{label}: K6 + reduction")
+    # K5's and K6's slab sums keep block_sum_plain's order: every partial
+    # table bit-equal to the plain version's
+    for what, pk, pp in (("K5", p5k, p5p), ("K6", p6k, p6p)):
+        if not all(torch.equal(a, b) for a, b in zip(pk, pp)):
+            raise AssertionError(f"{label}: {what}'s partial tables differ from its plain "
+                                 f"version's")
     loss_k = (r6k[2][12, 0].double() + r6k[2][12, 1].double()).item()
     loss_p = (r6p[2][12, 0].double() + r6p[2][12, 1].double()).item()
     truth = ((out_k[:3, :H, :W].double() - tgt[:, :H, :W].double()) ** 2).sum().item()
@@ -663,8 +700,9 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
           f"{k4!r}, K5 tables {k5!r}, K6 tables {k6!r}, K6 vs K4+K5 {k6_vs!r}; K6 loss rel diff "
           f"{abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)!r}; K4-stats counts equal (max "
           f"culled-in {int(cnt_k[:, 0].max())}, tiles over NC={SH.NC}: "
-          f"{int((cnt_k[:, 0] > SH.NC).sum())} of {cnt_k.shape[0]}); list entries {n}, shadow "
-          f"entries {nsh}; two launches bit-equal")
+          f"{int((cnt_k[:, 0] > SH.NC).sum())} of {cnt_k.shape[0]}, over SLAB={SH.SLAB}: "
+          f"{int((cnt_k[:, 0] > SH.SLAB).sum())}); list entries {n}, shadow entries {nsh}; K5 and "
+          f"K6 partial tables bit-equal to the plain versions'; two launches bit-equal")
     return out_k, gates_k, cnt_k
 
 
@@ -699,6 +737,56 @@ def _reduce_library_ms(P, args, kernel_out):
             raise AssertionError(f"reduction library {name}: {excess} beyond its bound from the "
                                  f"kernel's sums")
     return _time_ms(lambda: _reduce_library(*args))
+
+
+def _graph_ms(fn, calls=20, runs=5):
+    """(median device ms a call of fn, the ms of each run): CUDA events
+    around the replay of a CUDA graph of `calls` calls of fn, `runs`
+    replays. A replay queues the calls' device work with no host work
+    between them, so the time is the device's, the gaps between its
+    kernels included; no profiler record can go missing."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times), times
+
+
+def _k5_barriers(shl, gates, ns: int) -> dict:
+    """Block barriers of a K5 block, mean and max over the tiles, counted
+    from its gate tables: one after the plane staging; then either two a
+    gated object (a block_sum each, the design before the slab) or two a
+    sweep that gates any (a slab flush each, csrc/soft_block.cuh `Slab`);
+    then two (block_tf_sum) or one (block_tf_rows) for the camera sums.
+    K6's backward runs the same; its forward's barriers are K4's."""
+    import torch
+
+    main = gates[:, 0].sum(1).double()
+    listed = torch.arange(ns, device=shl.device)[None, :] < shl[:, 0, 0].long()[:, None]
+    rows = gates[:, 1].gather(1, shl[:, 0, 1:1 + ns].long().clamp(max=ns - 1))
+    shadow = (rows * listed).sum(1).double() + gates[:, 1, ns:].sum(1).double()
+    per_object = 1 + 2 * (main + shadow) + 2
+    slab = 1 + 2 * (shadow > 0).double() + 2 * (main > 0).double() + 1
+    return {"block_sum_mean": per_object.mean().item(), "block_sum_max": per_object.max().item(),
+            "slab_mean": slab.mean().item(), "slab_max": slab.max().item()}
 
 
 def _max_sm_clock_mhz() -> float:
@@ -1124,6 +1212,12 @@ def main() -> int:
          cfg96s.replace(light_specular_power=3e5, light_diffuse_power=2e4), 0.5, True),
         ("cache overflow 96x32, 14 spheres", _crowd_scene(), default_camera(),
          cfg96s.replace(max_spheres=16), 0.5, True),
+        ("slab overflow 96x32, 40 spheres", _slab_crowd(), default_camera(),
+         cfg96s.replace(max_spheres=48), 0.5, True),
+        ("4K/200 3840x2160 random_scene(200)", random_scene(200, max_spheres=200, max_planes=4,
+                                                            seed=0), default_camera(),
+         RenderConfig(width=3840, height=2160, max_spheres=200, max_planes=4, shadows=True,
+                      **SOFT_KW), 0.5, True),
         ("full darkness 96x32", _dark_scene(), default_camera(), cfg96s.replace(max_planes=3), 0.5,
          True),
         ("random 24 400x150 posed camera shadows", random_scene(24, max_spheres=24, max_planes=4,
@@ -1137,8 +1231,12 @@ def main() -> int:
         out, gates, cnt = _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=cull)
         if label.startswith("saturating") and not (out[:3] >= 254.5).any():
             raise AssertionError("the saturating light never clamps")
-        if label.startswith("cache overflow") and not int(cnt[:, 0].max()) > SH.NC:
-            raise AssertionError(f"no tile overflows the {SH.NC} cache slots")
+        if label.startswith(("cache overflow", "4K")) and not int(cnt[:, 0].max()) > SH.NC:
+            raise AssertionError(f"{label}: no tile overflows the {SH.NC} cache slots")
+        if label.startswith("slab overflow") and not (int(cnt[:, 0].max()) > SH.SLAB
+                                                      >= int(cnt[:, 0].min())):
+            raise AssertionError(f"no tile gates more objects than the {SH.SLAB} slab slots, or "
+                                 f"every tile does")
         if label.startswith("full darkness"):
             dark = (SK.tile_view(out[SH.SO_VIS], 16, 16) <= SH.VIS_EARLY_OUT).all(dim=1)
             skipped = dark & (cnt[:, 1] < gates[:, 1].sum(dim=1))
@@ -1284,11 +1382,11 @@ def main() -> int:
     IR.fit(lambda: (scene_s.replace(spheres=scene_s.spheres.replace(center=center)), cam_s),
            [center], stages_s, fit_steps, 3e-2, target_s, target_as, 1.0, False)
     torch.cuda.synchronize()
-    counts = dict(SK.LAUNCHES)
-    print(f"phase 3b: in-process fit 192x96, {fit_steps} steps: launches {counts}")
-    if not (counts["soft_fwd"] == counts["soft_bwd"] == counts["soft_grad_reduce"] == fit_steps
-            and counts["soft_mse"] == 0):
-        raise AssertionError(f"K1 / K2 launches {counts} for {fit_steps} steps")
+    fit_s_launches = dict(SK.LAUNCHES)
+    print(f"phase 3b: in-process fit 192x96, {fit_steps} steps: launches {fit_s_launches}")
+    if not (fit_s_launches["soft_fwd"] == fit_s_launches["soft_bwd"]
+            == fit_s_launches["soft_grad_reduce"] == fit_steps and fit_s_launches["soft_mse"] == 0):
+        raise AssertionError(f"K1 / K2 launches {fit_s_launches} for {fit_steps} steps")
 
     # the generic train path at full size, through the user's entry point
     ir_json = os.path.join(OUT_DIR, "inverse_render_1080p.json")
@@ -1711,9 +1809,11 @@ def main() -> int:
     k4_4k = _kernel_device_ms(lambda: SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4,
                                                      spec=spec_4k), reps=5,
                               name="soft_sh_fwd_kernel")
+    g_4 = torch.zeros_like(out_4)  # the MSE cotangents of a zero target, as at the headline
+    g_4[:3] = (2.0 / (255.0 ** 2 * 3 * 3840 * 2160)) * out_4[:3]
     k5_4k = _kernel_device_ms(lambda: SH.soft_sh_bwd(
-        sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4, gates_4, out_4,
-        torch.zeros_like(out_4), spec=spec_4k, **sizes_4), reps=5, name="soft_sh_bwd_kernel")
+        sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4, gates_4, out_4, g_4,
+        spec=spec_4k, **sizes_4), reps=5, name="soft_sh_bwd_kernel")
     k6_4k = _kernel_device_ms(lambda: SH.soft_sh_mse(
         sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
         torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k, **sizes_4), reps=5,
@@ -1729,6 +1829,11 @@ def main() -> int:
           f"{float((cnt_4[:, 0] > SH.NC).float().mean())!r} (culled-in per tile max "
           f"{int(cnt_4[:, 0].max())}); list entries {pidx_4.shape[0]}, shadow entries "
           f"{pshidx_4.shape[0]} {tag}")
+    for label, (shl_b, gates_b, ns_b) in (("bench headline", (shl_h, gates_h, sph_h.shape[1])),
+                                          ("3840x2160 random_scene(200)",
+                                           (shl_4, gates_4, sph_4.shape[1]))):
+        print(f"phase 5b: K5 block barriers a tile, {label} (counted from the gate tables; a "
+              f"block_sum per gated object vs the slab): {_k5_barriers(shl_b, gates_b, ns_b)}")
 
     lap("5b")
 
@@ -1750,6 +1855,38 @@ def main() -> int:
     lap("6c")
     bench_res = _phase_6d(tag)
     lap("6d")
+
+    # -- launches per main-path step at each row's shape: every count set to
+    # 0, one step (one engine frame for K7), the counts read
+    def per_step(step):
+        reset_soft()
+        step()
+        torch.cuda.synchronize()
+        return dict(SK.LAUNCHES)
+
+    step_20 = {kind: per_step(make_step(kind)) for kind in ("generic", "fused")}
+    step_hl = {kind: per_step(sh_step(kind, scene_hld, cam_hl, cfg_hl, tgt_hl))
+               for kind in ("generic", "fused")}
+    stats_call = per_step(lambda: SH.soft_tile_diagnostics(scene_hld, cam_hl, cfg_hl, tau=0.5))
+    hard_kernel.LAUNCHES = 0
+    run_engine(RenderConfig(width=1920, height=1080, mode=RenderMode.RGB_ASCII, shadows=True),
+               no_spawn, 1, scene=random_scene(20, seed=0, device=dev))
+    k7_frame = hard_kernel.LAUNCHES
+    print(f"phase 5b: launches per step: unshadowed 1080p {step_20}; shadowed headline "
+          f"{step_hl}; soft_tile_diagnostics {stats_call}; one engine frame at 1920x1080 "
+          f"random_scene(20) shadows: K7 {k7_frame}")
+    want = {("generic", "soft_fwd"): 1, ("generic", "soft_bwd"): 1, ("generic", "soft_grad_reduce"): 1,
+            ("fused", "soft_mse"): 1, ("fused", "soft_grad_reduce"): 1}
+    want_sh = {("generic", "soft_sh_fwd"): 1, ("generic", "soft_sh_bwd"): 1,
+               ("generic", "soft_grad_reduce"): 1, ("fused", "soft_sh_mse"): 1,
+               ("fused", "soft_grad_reduce"): 1}
+    for steps, wants in ((step_20, want), (step_hl, want_sh)):
+        for kind, counts in steps.items():
+            got = {k: v for k, v in counts.items() if v}
+            if got != {k: v for (kd, k), v in wants.items() if kd == kind}:
+                raise AssertionError(f"one {kind} step launched {got}")
+    if stats_call["soft_sh_stats"] != 1 or k7_frame != 1:
+        raise AssertionError(f"K4-stats {stats_call}, K7 {k7_frame} a frame")
 
     # -- the kernels line: every kernel with its bound ---------------------------
     px = 16 * 16
@@ -1794,37 +1931,67 @@ def main() -> int:
     errs["K7"], errs["K4-stats"], errs["reduce sh"] = max_err, errs["K4"], errs["reduce"]
     shape_20 = "1920x1080, --spheres 20 layout + 1 plane, tau 0.5, unshadowed, 16x16 tiles"
     shape_hl = "1920x1080, random_scene(20, max_spheres=20, max_planes=4), shadows, tau 0.5, 16x16 tiles"
-    sh_launch = {k: hl_launches[k] + fit_launches[k] for k in hl_launches}
+    # launches: one main-path step at the row's shape (the counts above);
+    # elsewhere: the other counted runs, each with its own shape
+    fit_sh = "fit_from_shadow at its defaults, 320x96, 300 steps (phase 3c)"
+    hl_runs = f"{steps_hl} generic + {steps_hl} fused steps at the headline (phase 3c)"
+    ir_runs = "inverse_render 1920x1080 --spheres 20, 2 x 10 steps (phase 3b)"
+    fit_s = "in-process fit 192x96, 30 steps (phase 3b)"
     rows = (
         ("K7", "hard_render (K7, hard display forward)", "hard_render.cu",
-         "rtwc_tpu/render/pallas_kernel.py:290", launches,
-         "1920x1080, random_scene(20), shadows, 16x16 tiles"),
+         "rtwc_tpu/render/pallas_kernel.py:290", k7_frame,
+         "1920x1080, random_scene(20), shadows, 16x16 tiles; launches: one engine frame",
+         [("engine frames at 400x150 (160) and 1920x500 (10) (phase 3)", launches)]),
         ("K1", "soft_fwd (K1, soft forward, unshadowed)", "soft_render.cu",
-         "rtwc_tpu/render/pallas_soft.py:2434", generic_launches["soft_fwd"], shape_20),
+         "rtwc_tpu/render/pallas_soft.py:2434", step_20["generic"]["soft_fwd"], shape_20,
+         [(fit_s, fit_s_launches["soft_fwd"]), (ir_runs + " + the target", generic_launches["soft_fwd"])]),
         ("K2", "soft_bwd (K2, soft backward, unshadowed)", "soft_render.cu",
-         "rtwc_tpu/render/pallas_soft.py:2476", generic_launches["soft_bwd"], shape_20),
+         "rtwc_tpu/render/pallas_soft.py:2476", step_20["generic"]["soft_bwd"], shape_20,
+         [(fit_s, fit_s_launches["soft_bwd"]), (ir_runs, generic_launches["soft_bwd"])]),
         ("K3", "soft_mse (K3, fused MSE step, unshadowed)", "soft_render.cu",
-         "rtwc_tpu/render/pallas_soft.py:2526", fused_launches["soft_mse"], shape_20),
+         "rtwc_tpu/render/pallas_soft.py:2526", step_20["fused"]["soft_mse"], shape_20,
+         [("fused MSE loop 1920x1080, 10 steps (phase 3b)", fused_launches["soft_mse"])]),
         ("reduce", "soft_grad_reduce (D3, deterministic two-float cross-block reduction)",
          "soft_render.cu", "tests/test_pallas_soft.py:283",
-         generic_launches["soft_grad_reduce"] + fused_launches["soft_grad_reduce"]
-         + sh_launch["soft_grad_reduce"], shape_20 + "; shadowed: see reduce_shadowed"),
+         step_20["generic"]["soft_grad_reduce"], shape_20 + "; shadowed: see reduce_shadowed",
+         [(fit_s, fit_s_launches["soft_grad_reduce"]), (ir_runs, generic_launches["soft_grad_reduce"]),
+          ("fused MSE loop 1920x1080, 10 steps (phase 3b)", fused_launches["soft_grad_reduce"]),
+          (hl_runs, hl_launches["soft_grad_reduce"]), (fit_sh, fit_launches["soft_grad_reduce"])]),
         ("K4", "soft_sh_fwd (K4, soft forward, shadowed)", "soft_shadow.cu",
-         "rtwc_tpu/render/pallas_soft.py:2434", sh_launch["soft_sh_fwd"], shape_hl),
+         "rtwc_tpu/render/pallas_soft.py:2434", step_hl["generic"]["soft_sh_fwd"], shape_hl,
+         [(hl_runs, hl_launches["soft_sh_fwd"]), (fit_sh + " + the target and the start",
+                                                  fit_launches["soft_sh_fwd"])]),
         ("K5", "soft_sh_bwd (K5, soft backward, shadowed)", "soft_shadow.cu",
-         "rtwc_tpu/render/pallas_soft.py:2476", sh_launch["soft_sh_bwd"], shape_hl),
+         "rtwc_tpu/render/pallas_soft.py:2476", step_hl["generic"]["soft_sh_bwd"], shape_hl,
+         [(hl_runs, hl_launches["soft_sh_bwd"]), (fit_sh, fit_launches["soft_sh_bwd"])]),
         ("K6", "soft_sh_mse (K6, fused MSE step, shadowed)", "soft_shadow.cu",
-         "rtwc_tpu/render/pallas_soft.py:2526", sh_launch["soft_sh_mse"], shape_hl),
+         "rtwc_tpu/render/pallas_soft.py:2526", step_hl["fused"]["soft_sh_mse"], shape_hl,
+         [(hl_runs, hl_launches["soft_sh_mse"])]),
         ("K4-stats", "soft_sh_stats (K4-stats, cache diagnostics)", "soft_shadow.cu",
-         "rtwc_tpu/render/pallas_soft.py:2822", sh_launch["soft_sh_stats"], shape_hl),
+         "rtwc_tpu/render/pallas_soft.py:2822", stats_call["soft_sh_stats"],
+         shape_hl + "; launches: one soft_tile_diagnostics call",
+         [("soft_tile_diagnostics at the headline (phase 3c)", hl_launches["soft_sh_stats"])]),
     )
     # the reduction's whole function in PyTorch library calls on the same
     # inputs, held to the kernel's sums before it is timed
-    lib_reduce = _reduce_library_ms(P, (parts[0], pidx, *parts[1:], sph.shape[1]), red20)
-    lib_reduce_sh = _reduce_library_ms(
-        P, (parts_h[0], pidx_h, parts_h[2], parts_h[3], 20, parts_h[1], pshidx_h), red_h)
+    lib_args = (parts[0], pidx, *parts[1:], sph.shape[1])
+    lib_args_sh = (parts_h[0], pidx_h, parts_h[2], parts_h[3], 20, parts_h[1], pshidx_h)
+    lib_reduce = _reduce_library_ms(P, lib_args, red20)
+    lib_reduce_sh = _reduce_library_ms(P, lib_args_sh, red_h)
+    # device time of the whole function, from a CUDA graph of its calls: the
+    # library calls, and the port's wrapper (its allocations and the kernel)
+    lib_dev, port_dev = {}, {}
+    for which, a, port in (("unshadowed", lib_args, soft_calls["reduce"][1]),
+                           ("shadowed", lib_args_sh, sh_calls["reduce sh"][1])):
+        lib_dev[which], lib_runs = _graph_ms(lambda: _reduce_library(*a))
+        port_dev[which], port_runs = _graph_ms(port)
+        print(f"phase 5b: reduction ({which}), device ms a call of the whole function (CUDA "
+              f"graph of 20 calls, median of the replays {lib_runs!r} / {port_runs!r}): library "
+              f"calls {lib_dev[which]!r}, the port's wrapper {port_dev[which]!r} {tag}")
+    print(f"phase 5b: reduction, the kernel alone {soft_timing['reduce'][2]!r} / "
+          f"{soft_timing['reduce sh'][2]!r} ms {tag}")
     entries = []
-    for key, kname, src, replaces, count, shape in rows:
+    for key, kname, src, replaces, count, shape, elsewhere in rows:
         k_ms, p_ms, d_ms = soft_timing[key]
         b_ms, b_by = _bound(*work[key])
         floor_key = "K4" if key == "K4-stats" else key
@@ -1832,13 +1999,20 @@ def main() -> int:
                  "replaces": replaces, "launches": count, "max_abs_err": errs[key], "ms": k_ms,
                  "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": lib_reduce if key == "reduce" else None,
-                 "floor_ms": floors.get(floor_key), "device_ms": d_ms, "shape": shape}
+                 "floor_ms": floors.get(floor_key), "device_ms": d_ms, "shape": shape,
+                 "launches_elsewhere": [{"run": r, "launches": c} for r, c in elsewhere]}
         if key == "reduce":
             r_ms, r_p, r_d = soft_timing["reduce sh"]
             rb_ms, rb_by = _bound(*work["reduce sh"])
             entry["reduce_shadowed"] = {"ms": r_ms, "plain_ms": r_p, "device_ms": r_d,
                                         "bound_ms": rb_ms, "bound_by": rb_by,
-                                        "library_ms": lib_reduce_sh, "shape": shape_hl}
+                                        "library_ms": lib_reduce_sh,
+                                        "library_device_ms": lib_dev["shadowed"],
+                                        "function_device_ms": port_dev["shadowed"],
+                                        "launches": step_hl["generic"]["soft_grad_reduce"],
+                                        "shape": shape_hl}
+            entry["library_device_ms"] = lib_dev["unshadowed"]
+            entry["function_device_ms"] = port_dev["unshadowed"]
             entry["library"] = ("float64 index_add_ of the sphere (and shadow-occluder) "
                                 "partials, sums of the plane rows and camera pairs over tiles")
         entries.append(entry)

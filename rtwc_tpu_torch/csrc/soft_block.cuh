@@ -1,7 +1,7 @@
 // Block-level device code shared by the soft kernels (csrc/soft_render.cu,
 // csrc/soft_shadow.cu): table loads, the block sums of the per-block
-// partials, the online-softmin step, the forward and backward sweeps and
-// the launch helpers. One thread per pixel, one block per (bh, bw)
+// partials, the online-softmin step, the forward and backward sweeps, K5's
+// and K6's slab and stash, and the launch helpers. One thread per pixel, one block per (bh, bw)
 // broad-phase tile. The plain torch twins are in render/soft_core.py
 // (block_sum_plain, block_tf_sum_plain, _accumulate, object_sweep,
 // _backward_sweep).
@@ -47,6 +47,14 @@ __device__ __forceinline__ Plane load_plane(const float* s_pl, int np, int k) {
   return q;
 }
 
+// The warp butterfly of the block sums: lane 0 ends with its warp's sums.
+template <int N>
+__device__ __forceinline__ void warp_sum(float v[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_down_sync(FULL, v[i], off);
+}
+
 // Block sum of N values per thread; thread 0 gets the totals in out[].
 // Warp butterflies, then the warps' sums in warp order (block_sum_plain).
 template <int N>
@@ -54,9 +62,7 @@ __device__ __forceinline__ void block_sum(float v[N], float* s_red, float out[N]
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int nwarps = (blockDim.x * blockDim.y) >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_down_sync(FULL, v[i], off);
+  warp_sum<N>(v);
   if (lane == 0)
     for (int i = 0; i < N; ++i) s_red[warp * N + i] = v[i];
   __syncthreads();
@@ -70,13 +76,12 @@ __device__ __forceinline__ void block_sum(float v[N], float* s_red, float out[N]
   __syncthreads();
 }
 
-// Two-float block sum of N values per thread (block_tf_sum_plain).
+// The warp butterfly of the two-float block sums: lane 0 of each warp
+// stores its warp's (hi, lo) pairs at s_red[(warp * N + i) * 2].
 template <int N>
-__device__ __forceinline__ void block_tf_sum(const float v[N], float* s_red, float hi[N],
-                                             float lo[N]) {
+__device__ __forceinline__ void warp_tf_sum(const float v[N], float* s_red) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int nwarps = (blockDim.x * blockDim.y) >> 5;
   float s[N], e[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -93,6 +98,15 @@ __device__ __forceinline__ void block_tf_sum(const float v[N], float* s_red, flo
       s_red[(warp * N + i) * 2] = s[i];
       s_red[(warp * N + i) * 2 + 1] = e[i];
     }
+}
+
+// Two-float block sum of N values per thread (block_tf_sum_plain).
+template <int N>
+__device__ __forceinline__ void block_tf_sum(const float v[N], float* s_red, float hi[N],
+                                             float lo[N]) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nwarps = (blockDim.x * blockDim.y) >> 5;
+  warp_tf_sum<N>(v, s_red);
   __syncthreads();
   if (tid == 0) {
     for (int i = 0; i < N; ++i) {
@@ -201,31 +215,105 @@ struct Reduce {
   float tf[MAX_WARPS * NTF * 2];
 };
 
-// K2's sweep (also K3's backward, and the main sweep of K5 and K6). Writes
-// the block's partials: NTFB two-float slots, the twelve camera cotangents
-// and, for K3 / K6 (NTFB = 13), the loss from each pixel's loss_px.
-// SHADED (K5, K6): object colours are min(255, A + vis B), the ray
-// cotangents start from the shadow sweep's (gd, go), and each plane row
-// adds to the shadow sweep's partial already in ppl.
-template <int NTFB, bool SHADED>
+// The slab scheme of K5 and K6 (csrc/soft_shadow.cu): per-object partials
+// without a block barrier per object. Each warp reduces its 32 lanes with
+// block_sum's butterfly and lane 0 parks the warp's N sums in slot `used`
+// of the slab, [slot][warp][value], with no barrier. When SLAB_SLOTS
+// slots are full, or the sweep ends, one barrier; then the block's threads
+// take one (slot, value) pair each, sum it over the warps in warp order
+// 0, 1, ... (block_sum's order, so the totals are bit-equal to its) and
+// write it to the slot's row; a second barrier frees the slab. SLAB_SLOTS =
+// 32: 11.4 KB a block. A tile of the bench's cells gates at most 11
+// objects in a sweep (4K / 200 spheres), so those flush once a sweep, and
+// K5 and K6 (with their 27 KB stash) take 41 KB a block, a fifth of an
+// SM's 228 KB.
+constexpr int SLAB_SLOTS = 32;
+constexpr int SLAB_VALS = 11;  // the widest row: a plane of the main sweep
+
+struct Slab {
+  float v[SLAB_SLOTS][MAX_WARPS][SLAB_VALS];
+  float* dst[SLAB_SLOTS];  // the slot's row in pvals, psh or ppl
+  int n[SLAB_SLOTS];       // values in the slot; negative: add them to the row
+};
+
+// Sums the `used` slots into their rows; see Slab.
+__device__ __forceinline__ void slab_flush(Slab* sb, int& used) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y, nwarps = nthreads >> 5;
+  __syncthreads();
+  for (int e = tid; e < used * SLAB_VALS; e += nthreads) {
+    const int j = e / SLAB_VALS, i = e - j * SLAB_VALS;
+    const int n = sb->n[j];
+    if (i < (n < 0 ? -n : n)) {
+      float a = sb->v[j][0][i];
+      for (int w = 1; w < nwarps; ++w) a = a + sb->v[j][w][i];
+      float* d = sb->dst[j] + i;
+      *d = n < 0 ? *d + a : a;
+    }
+  }
+  __syncthreads();
+  used = 0;
+}
+
+// One object's N per-pixel values into the slab; the block's total of
+// value i goes to dst[i] (add: dst[i] + total) at the next flush.
+template <int N>
+__device__ __forceinline__ void slab_put(float v[N], Slab* sb, int& used, float* dst, bool add) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  warp_sum<N>(v);
+  if (lane == 0)
+    for (int i = 0; i < N; ++i) sb->v[used][warp][i] = v[i];
+  if (tid == 0) {
+    sb->dst[used] = dst;
+    sb->n[used] = add ? -N : N;
+  }
+  if (++used == SLAB_SLOTS) slab_flush(sb, used);
+}
+
+// The camera's two-float block sum for the slab scheme: block_tf_sum's
+// butterfly and warp order, but thread i combines slot i over the warps
+// and writes (hi, lo) to out[2 i], N threads at once. Last barrier of the
+// kernel: nothing reads s_red after it.
+template <int N>
+__device__ __forceinline__ void block_tf_rows(const float v[N], float* s_red,
+                                              float* __restrict__ out) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nwarps = (blockDim.x * blockDim.y) >> 5;
+  warp_tf_sum<N>(v, s_red);
+  __syncthreads();
+  if (tid < N) {
+    float a = s_red[2 * tid], b = s_red[2 * tid + 1];
+    for (int w = 1; w < nwarps; ++w)
+      tf_combine(a, b, s_red[(w * N + tid) * 2], s_red[(w * N + tid) * 2 + 1], &a, &b);
+    out[2 * tid] = a;
+    out[2 * tid + 1] = b;
+  }
+}
+
+// K2's sweep (also K3's backward). Writes the block's partials: NTFB
+// two-float slots, the twelve camera cotangents and, for K3 (NTFB = 13), the
+// loss from each pixel's loss_px; a block_sum per object.
+template <int NTFB>
 __device__ void backward_sweep(const SoftParams& p, const float* __restrict__ cam,
                                const float* __restrict__ sph, const float* s_pl,
                                const int* __restrict__ lst, const int* gate_row, int tile,
                                int offset, const Ray& r, Vec3 o, float m, float inv_s,
                                const float gv[7], float S, float loss_px, Reduce* sm,
                                float* __restrict__ pvals, float* __restrict__ ppl,
-                               float* __restrict__ ptf, float vis, Vec3 gd, Vec3 go) {
+                               float* __restrict__ ptf) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  Vec3 gd = {0.0f, 0.0f, 0.0f}, go = {0.0f, 0.0f, 0.0f};
   const int n_list = __ldg(lst);
   for (int kk = 0; kk < n_list; ++kk) {
     const int k = __ldg(lst + 1 + kk);
     if (p.cull && gate_row[k] != 1) continue;  // block-uniform
     const Sphere sp = load_sphere(sph, p.ns, k);
-    const ObjOut v = sphere_f(p, sp, r.d, o, vis, SHADED);
+    const ObjOut v = sphere_f(p, sp, r.d, o);
     const ObjOut ct = cotangents(p, v, m, inv_s, gv, S);
     float g[7], tot[7];
     Vec3 cd, co;
-    sphere_f_vjp(p, sp, r.d, o, ct, g, &cd, &co, vis, SHADED);
+    sphere_f_vjp(p, sp, r.d, o, ct, g, &cd, &co);
     gd.x = gd.x + cd.x;
     gd.y = gd.y + cd.y;
     gd.z = gd.z + cd.z;
@@ -240,11 +328,11 @@ __device__ void backward_sweep(const SoftParams& p, const float* __restrict__ ca
   for (int k = 0; k < n_pl; ++k) {
     if (p.cull && gate_row[p.ns + k] != 1) continue;
     const Plane q = load_plane(s_pl, p.np, k);
-    const ObjOut v = plane_f(p, q, r.d, o, vis, SHADED);
+    const ObjOut v = plane_f(p, q, r.d, o);
     const ObjOut ct = cotangents(p, v, m, inv_s, gv, S);
     float g[11], tot[11];
     Vec3 cd, co;
-    plane_f_vjp(p, q, r.d, o, ct, g, &cd, &co, vis, SHADED);
+    plane_f_vjp(p, q, r.d, o, ct, g, &cd, &co);
     gd.x = gd.x + cd.x;
     gd.y = gd.y + cd.y;
     gd.z = gd.z + cd.z;
@@ -254,7 +342,7 @@ __device__ void backward_sweep(const SoftParams& p, const float* __restrict__ ca
     block_sum<11>(g, sm->red, tot);
     if (tid == 0) {
       float* row = ppl + ((size_t)tile * p.np + k) * PL_ROWS;
-      for (int i = 0; i < 11; ++i) row[i] = SHADED ? row[i] + tot[i] : tot[i];
+      for (int i = 0; i < 11; ++i) row[i] = tot[i];
     }
   }
   // camera: position cotangents and the raygen VJP, two-float
@@ -272,6 +360,99 @@ __device__ void backward_sweep(const SoftParams& p, const float* __restrict__ ca
     }
 }
 
+
+// Per-pixel values that K5 and K6 keep in shared memory while their sweeps
+// run, [field][MAX_THREADS]: written before a sweep, read where needed, so
+// that they hold no register through an object's VJP. Each thread reads and
+// writes only its own column, so no barrier guards it; `volatile` keeps the
+// compiler from holding the values in registers after all. The row stride
+// is the constant MAX_THREADS, not the block's size, so that a field is an
+// immediate offset from the thread's column and costs no address register.
+enum StashField {
+  ST_M, ST_INV_S, ST_S, ST_GV,                  // m, 1/s, S, the 7 output cotangents
+  ST_GD = ST_GV + 7, ST_GO = ST_GD + 3,         // the ray cotangents, accumulated
+  ST_VX = ST_GO + 3, ST_VY, ST_RINV, ST_LOSS,   // what only the camera sum reads
+  ST_VIS, ST_DEPTH, ST_ON, ST_GDEPTH0 = ST_ON + 3, ST_GAW,  // what S needs after the shadow sweep
+  ST_FIELDS
+};
+
+struct Stash {
+  volatile float* col;  // this thread's column
+  __device__ explicit Stash(float* s) : col(s + threadIdx.y * blockDim.x + threadIdx.x) {}
+  __device__ void put(int f, float v) const { col[f * MAX_THREADS] = v; }
+  __device__ float get(int f) const { return col[f * MAX_THREADS]; }
+  // gd += cd, go += co, as backward_sweep accumulates them
+  __device__ void add_ray_cotangents(Vec3 cd, Vec3 co) const {
+    put(ST_GD, get(ST_GD) + cd.x);
+    put(ST_GD + 1, get(ST_GD + 1) + cd.y);
+    put(ST_GD + 2, get(ST_GD + 2) + cd.z);
+    put(ST_GO, get(ST_GO) + co.x);
+    put(ST_GO + 1, get(ST_GO + 1) + co.y);
+    put(ST_GO + 2, get(ST_GO + 2) + co.z);
+  }
+};
+
+// The main backward sweep of K5 and K6: backward_sweep's arithmetic op for
+// op with the objects shaded by vis (rgb = min(255, A + vis B)) and each
+// plane row added to the shadow sweep's partial already in ppl. Its
+// per-object partials are summed through the slab, the camera's through
+// block_tf_rows; m, 1/s, S, the output cotangents and the ray cotangents
+// (seeded by the caller) stay in the stash `st`, so the registers hold the
+// ray, vis and one object's adjoint. K2 and K3 can take it up with vis = 1,
+// unshaded objects and plane rows set rather than added.
+template <int NTFB>
+__device__ void backward_sweep_slab(const SoftParams& p, const float* __restrict__ cam,
+                                    const float* __restrict__ sph, const float* s_pl,
+                                    const int* __restrict__ lst, const int* gate_row, int tile,
+                                    int offset, Vec3 d, Vec3 o, float vis, Stash st,
+                                    Reduce* sm, Slab* sb, float* __restrict__ pvals,
+                                    float* __restrict__ ppl, float* __restrict__ ptf) {
+  int used = 0;  // slab slots filled
+  const int n_list = __ldg(lst);
+  for (int kk = 0; kk < n_list; ++kk) {
+    const int k = __ldg(lst + 1 + kk);
+    if (p.cull && gate_row[k] != 1) continue;  // block-uniform
+    const Sphere sp = load_sphere(sph, p.ns, k);
+    const ObjOut v = sphere_f(p, sp, d, o, vis, true);
+    float gv[7];
+    for (int i = 0; i < 7; ++i) gv[i] = st.get(ST_GV + i);
+    const ObjOut ct = cotangents(p, v, st.get(ST_M), st.get(ST_INV_S), gv, st.get(ST_S));
+    float g[7];
+    Vec3 cd, co;
+    sphere_f_vjp(p, sp, d, o, ct, g, &cd, &co, vis, true);
+    st.add_ray_cotangents(cd, co);
+    slab_put<7>(g, sb, used, pvals + (size_t)(offset + kk) * 8, false);
+  }
+  const int n_pl = (int)__ldg(cam + C_NPL);
+  for (int k = 0; k < n_pl; ++k) {
+    if (p.cull && gate_row[p.ns + k] != 1) continue;
+    const Plane q = load_plane(s_pl, p.np, k);
+    const ObjOut v = plane_f(p, q, d, o, vis, true);
+    float gv[7];
+    for (int i = 0; i < 7; ++i) gv[i] = st.get(ST_GV + i);
+    const ObjOut ct = cotangents(p, v, st.get(ST_M), st.get(ST_INV_S), gv, st.get(ST_S));
+    float g[11];
+    Vec3 cd, co;
+    plane_f_vjp(p, q, d, o, ct, g, &cd, &co, vis, true);
+    st.add_ray_cotangents(cd, co);
+    slab_put<11>(g, sb, used, ppl + ((size_t)tile * p.np + k) * PL_ROWS, true);
+  }
+  if (used > 0) slab_flush(sb, used);
+  // camera: position cotangents and the raygen VJP, two-float
+  Ray r;
+  r.d = d;
+  r.vx = st.get(ST_VX);
+  r.vy = st.get(ST_VY);
+  r.inv = st.get(ST_RINV);
+  float v[NTFB];
+  v[0] = st.get(ST_GO);
+  v[1] = st.get(ST_GO + 1);
+  v[2] = st.get(ST_GO + 2);
+  raygen_vjp(r, Vec3{st.get(ST_GD), st.get(ST_GD + 1), st.get(ST_GD + 2)}, v + 3);
+  if constexpr (NTFB > SLOT_LOSS) v[SLOT_LOSS] = st.get(ST_LOSS);
+  block_tf_rows<NTFB>(v, sm->tf, ptf + (size_t)tile * NTF * 2);
+}
+
 __device__ __forceinline__ void stage_planes(const SoftParams& p, const float* pl_g, float* s_pl) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int e = tid; e < PL_ROWS * p.np; e += blockDim.x * blockDim.y) s_pl[e] = pl_g[e];
@@ -284,12 +465,13 @@ __device__ __forceinline__ Ray block_ray(const SoftParams& p, const float* cam) 
   return raygen(p, cam, rowf, colf);
 }
 
-// Sets the device and, above 48 KB, the dynamic shared memory limit.
+// Sets the device and, where the dynamic shared memory `smem` and the
+// kernel's static `static_smem` pass 48 KB together, the dynamic limit.
 template <typename K>
-inline int prepare(K kernel, const SoftParams& p, size_t smem) {
+inline int prepare(K kernel, const SoftParams& p, size_t smem, size_t static_smem = 0) {
   cudaError_t err = cudaSetDevice(p.device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024) {
+  if (smem + static_smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }

@@ -126,10 +126,9 @@ soft_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
   float S = gv[0] * sav[pix];
   for (int i = 1; i < 7; ++i) S = S + gv[i] * sav[i * plane + pix];
   S = S - g[SO_ALPHA * plane + pix] * w_bg;
-  backward_sweep<12, false>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
-                            gates + (size_t)tile * 2 * (p.ns + p.np), tile, __ldg(offsets + tile),
-                            r, o, m, inv_s, gv, S, 0.0f, &sm, pvals, ppl, ptf, 1.0f,
-                            Vec3{0.0f, 0.0f, 0.0f}, Vec3{0.0f, 0.0f, 0.0f});
+  backward_sweep<12>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
+                     gates + (size_t)tile * 2 * (p.ns + p.np), tile, __ldg(offsets + tile), r, o,
+                     m, inv_s, gv, S, 0.0f, &sm, pvals, ppl, ptf);
 }
 
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -164,9 +163,8 @@ soft_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
   }
   const float S = gv[0] * out[0] + gv[1] * out[1] + gv[2] * out[2];
   const float loss_px = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
-  backward_sweep<13, false>(p, cam, sph, s_pl, lst, s_gate, tile, __ldg(offsets + tile), r, o, m,
-                            inv_s, gv, S, loss_px, &sm, pvals, ppl, ptf, 1.0f,
-                            Vec3{0.0f, 0.0f, 0.0f}, Vec3{0.0f, 0.0f, 0.0f});
+  backward_sweep<13>(p, cam, sph, s_pl, lst, s_gate, tile, __ldg(offsets + tile), r, o, m, inv_s,
+                     gv, S, loss_px, &sm, pvals, ppl, ptf);
 }
 
 __global__ void __launch_bounds__(256)

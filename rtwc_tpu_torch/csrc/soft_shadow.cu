@@ -27,26 +27,39 @@
 // object gates decided for the whole block with __syncthreads_or /
 // __syncthreads_and, so every branch below is block-uniform. The TPU kernel
 // keeps its object cache in VMEM (29 / 21 slots of 3 planes, sized from its
-// 16 MB); here a cache slot is 3 floats per thread (t_eff, dterm, sterm) in
-// local memory, NC = 8 slots, and the 3 colour scalars of a slot in shared
-// memory. The cache is filled in sweep-1 order; a block whose culled-in
-// count exceeds NC takes the exact re-walk (a block-uniform decision: the
-// count is). Shadow-occluder gradients are keyed by the shadow list, so
-// K5 / K6 write them to a second compact table ([E_sh, 4], row = shadow-list
-// slot at sh_offsets[tile] + slot), beside K2's [E, 8] sphere table;
-// soft_grad_reduce (soft_render.cu) sums both in a fixed order. Plane rows
-// hold the shadow sweep's partial plus the main sweep's. No float atomics.
+// 16 MB); here a cache slot is 3 floats per thread (t_eff, dterm, sterm),
+// NC = 8 slots, in local memory in K4 and in shared memory in K6, and the 3
+// colour scalars of a slot in shared memory. The cache is filled in sweep-1
+// order; a block whose culled-in count exceeds NC takes the exact re-walk (a
+// block-uniform decision: the count is). Shadow-occluder gradients are
+// keyed by the shadow list, so K5 / K6 write them to a second compact table
+// ([E_sh, 4], row = shadow-list slot at sh_offsets[tile] + slot), beside
+// K2's [E, 8] sphere table; soft_grad_reduce (soft_render.cu) sums both in
+// a fixed order. Plane rows hold the shadow sweep's partial plus the main
+// sweep's. No float atomics.
 //
 // What bounds it. Per pixel, K4 does K1's work plus, per listed occluder,
 // a quadratic (stage A) and for the survivors a root, four exps and one
-// division; per gated object it caches 3 floats (at most 96 B of local
-// memory per thread) and replays 45 flops in the correction. K5 adds to
-// K2's work a transmittance adjoint (about 120 flops) and a 4- or 8-value
-// block sum per gated occluder. Stores are 56 B per pixel (K4); K5 loads
-// 84 B (13 saved planes, alpha unread, and 8 cotangent planes): 117 / 175
-// MB at 1080p, 35 / 52 us at 3.35 TB/s. Like K1-K3 these
-// kernels are compute- and latency-bound; a simple design that is right
-// comes first.
+// division; per gated object it caches 3 floats and replays 45 flops in the
+// correction. Stores are 56 B per pixel (K4); K5 loads 84 B (13 saved
+// planes, alpha unread, and 8 cotangent planes): 117 / 175 MB at 1080p, 35
+// / 52 us at 3.35 TB/s. But a 16x16 tile of the bench's scenes gates less
+// than one object a sweep on average (at most 2 main objects and 3
+// occluders at 1080p / 20 spheres, 9 and 11 at 4K / 200), so K5 and K6 are
+// bound by what every block does once and by latency: the planes, lists
+// and gates it loads, the camera's two-float sum, and how few blocks an SM
+// holds to hide them. Their design:
+// - the slab (soft_block.cuh `Slab`): a gated object's per-warp sums wait
+//   in shared memory and the block sums them when 32 slots are full or the
+//   sweep ends, two barriers a sweep instead of two an object, each total
+//   by one thread in block_sum's order (bit-equal to it);
+// - the camera sum's cross-warp combine runs on 12 / 13 threads at once
+//   (block_tf_rows), where one thread did about 84 dependent steps while
+//   255 waited;
+// - what a sweep only re-reads (m, 1/s, S, the output and ray cotangents,
+//   the camera sum's inputs) waits in a per-thread shared-memory stash, and
+//   K6's clamp cache lives in shared memory, so that K5 and K6 fit the
+//   register budget of K5_MIN_BLOCKS / K6_MIN_BLOCKS blocks an SM.
 //
 // Float semantics follow the plain versions op for op; compiled with
 // -fmad=false (see soft_common.cuh).
@@ -61,6 +74,10 @@ using namespace soft;
 namespace {
 
 constexpr int NC = 8;  // clamp-correction cache slots per pixel
+// Blocks an SM that K5 and K6 are built for: 2, at most 65536 / (256 x 2) =
+// 128 registers a thread, the most blocks at which neither spills (K5 uses
+// 112, K6 128). At 3 (80 registers) and 4 (64) both spill to local memory.
+constexpr int K5_MIN_BLOCKS = 2, K6_MIN_BLOCKS = 2;
 
 // What the shadowed forward leaves for the blend, the outputs and the
 // backward, per pixel.
@@ -69,12 +86,42 @@ struct ShFwd {
   int count, napp;  // culled-in main objects, applied occluders (block-uniform)
 };
 
-struct Cache {
-  float t[NC], dterm[NC], sterm[NC];
+// The clamp cache: NC slots of (t_eff, dterm, sterm) a pixel. K4 keeps it in
+// per-thread arrays, which the runtime slot index puts in local memory.
+struct LocalCache {
+  float t_[NC], d_[NC], s_[NC];
+  __device__ explicit LocalCache(float*) {}
+  __device__ void put(int j, float te, float dt, float st) {
+    t_[j] = te;
+    d_[j] = dt;
+    s_[j] = st;
+  }
+  __device__ float t(int j) const { return t_[j]; }
+  __device__ float dterm(int j) const { return d_[j]; }
+  __device__ float sterm(int j) const { return s_[j]; }
+};
+
+// K6 keeps it in shared memory, [slot][value][MAX_THREADS] (3 NC x 256
+// floats, 24 KB a block): neighbouring threads on neighbouring banks, and
+// K6, which holds the cache across the shadow sweep and then runs the
+// backward, keeps it out of its registers and local memory.
+struct SharedCache {
+  float* col;  // this thread's column: s_cache + tid
+  __device__ explicit SharedCache(float* s_cache)
+      : col(s_cache + threadIdx.y * blockDim.x + threadIdx.x) {}
+  __device__ void put(int j, float te, float dt, float st) {
+    col[3 * j * MAX_THREADS] = te;
+    col[(3 * j + 1) * MAX_THREADS] = dt;
+    col[(3 * j + 2) * MAX_THREADS] = st;
+  }
+  __device__ float t(int j) const { return col[3 * j * MAX_THREADS]; }
+  __device__ float dterm(int j) const { return col[(3 * j + 1) * MAX_THREADS]; }
+  __device__ float sterm(int j) const { return col[(3 * j + 2) * MAX_THREADS]; }
 };
 
 // One step of sweep 1 (pallas_soft.py:1790-1818): the online softmin over
 // t_eff with the depth, normal and A / B accumulators, and the cache store.
+template <class Cache>
 __device__ __forceinline__ void fused_accumulate(const SoftParams& p, const Geo& g,
                                                  const float col[3], Vec3 sn, Vec3 d, float* m,
                                                  float* s, float acc[10], int* count, Cache* c,
@@ -93,9 +140,7 @@ __device__ __forceinline__ void fused_accumulate(const SoftParams& p, const Geo&
 #pragma unroll
   for (int i = 0; i < 10; ++i) acc[i] = acc[i] * alpha + pw * vals[i];
   if (*count < NC) {
-    c->t[*count] = g.t_eff;
-    c->dterm[*count] = dterm;
-    c->sterm[*count] = sterm;
+    c->put(*count, g.t_eff, dterm, sterm);
     if (threadIdx.x == 0 && threadIdx.y == 0)
       for (int k = 0; k < 3; ++k) s_ccol[*count * 3 + k] = col[k];
   }
@@ -120,16 +165,18 @@ __device__ __forceinline__ void shade_accumulate(const SoftParams& p, const Geo&
 }
 
 // K4's forward (also K6's): gate0 / gate1 get the block's main-sweep and
-// shadow-sweep decisions (thread 0 writes them).
+// shadow-sweep decisions (thread 0 writes them). Cache: LocalCache (K4),
+// SharedCache on s_cache (K6).
+template <class Cache>
 __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
                            const float* __restrict__ sph, const float* s_pl,
                            const int* __restrict__ lst, const int* __restrict__ shl, int* gate0,
-                           int* gate1, float* s_ccol, Vec3 d, Vec3 o, ShFwd* f) {
+                           int* gate1, float* s_ccol, float* s_cache, Vec3 d, Vec3 o, ShFwd* f) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   // ---- sweep 1
   float m = p.bg_logit, s = 1.0f;
   float acc[10] = {p.far, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  Cache cache;
+  Cache cache(s_cache);
   int count = 0;
   forward_sweep(p, cam, sph, s_pl, lst, gate0, d, o, &m,
                 [&](const Geo& g, const float* col, Vec3 sn) {
@@ -197,8 +244,8 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
     float corr[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     for (int j = 0; j < count; ++j) {
       float A[3], B[3];
-      parts_from_terms(p, cache.dterm[j], cache.sterm[j], s_ccol + 3 * j, A, B);
-      const float w = expf(-cache.t[j] * p.inv_tau - m) * inv_s;
+      parts_from_terms(p, cache.dterm(j), cache.sterm(j), s_ccol + 3 * j, A, B);
+      const float w = expf(-cache.t(j) * p.inv_tau - m) * inv_s;
       for (int c = 0; c < 3; ++c) {
         const float val = A[c] + vis * B[c];
         const bool over = val >= 255.0f;
@@ -233,65 +280,81 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
 }
 
 // K5's sweeps (also K6's backward): the shadow sweep's adjoint at the
-// blended hit point, then the main backward sweep seeded with its ray
-// cotangents and with the depth cotangent raised by ct_D = ctP . d.
+// blended hit point, then the main backward sweep (backward_sweep_slab)
+// seeded with its ray cotangents and with the depth cotangent raised by
+// ct_D = ctP . d. The caller has put in the stash m, 1/s, vis, depth, the
+// rgb and normal cotangents (ST_GV 0-2 and 4-6), the first three terms of S
+// (ST_S), the normals (ST_ON), g_depth0, g_alpha w_bg and what the camera
+// sum reads; the shadow sweep holds in registers only the hit point, its
+// cotangent and one occluder. The per-object partials of both sweeps go
+// through the slab `sb`; the shadow sweep flushes before the main sweep, so
+// a plane row holds the shadow total before the main sweep's is added.
 template <int NTFB>
 __device__ void sh_backward(const SoftParams& p, const float* __restrict__ cam,
                             const float* __restrict__ sph, const float* s_pl,
                             const int* __restrict__ lst, const int* __restrict__ shl,
                             const int* gate0, const int* gate1, int tile, int offset,
-                            int sh_offset, const Ray& r, Vec3 o, float m, float inv_s, float vis,
-                            float depth, const float out_rgb[3], const float out_n[3],
-                            const float g_rgb[3], const float g_n[3], float g_depth0,
-                            float g_alpha, float w_bg, float g_vis, float loss_px, Reduce* sm,
-                            float* __restrict__ pvals, float* __restrict__ psh,
-                            float* __restrict__ ppl, float* __restrict__ ptf) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const Vec3 pb = {o.x + r.d.x * depth, o.y + r.d.y * depth, o.z + r.d.z * depth};
-  const float ct_vis = g_vis * vis;  // d vis / d f_j = vis / f_j
+                            int sh_offset, Vec3 d, Vec3 o, float g_vis, Stash st,
+                            Reduce* sm, Slab* sb, float* __restrict__ pvals,
+                            float* __restrict__ psh, float* __restrict__ ppl,
+                            float* __restrict__ ptf) {
+  const float depth0 = st.get(ST_DEPTH);
+  const Vec3 pb = {o.x + d.x * depth0, o.y + d.y * depth0, o.z + d.z * depth0};
+  const float ct_vis = g_vis * st.get(ST_VIS);  // d vis / d f_j = vis / f_j
   Vec3 ctp = {0.0f, 0.0f, 0.0f};
+  int used = 0;  // slab slots filled
   const int n_sh = __ldg(shl);
   for (int jj = 0; jj < n_sh; ++jj) {
     const int k = __ldg(shl + 1 + jj);
     if (p.cull && gate1[k] != 1) continue;  // block-uniform
     const Sphere sp = load_sphere(sph, p.ns, k);
-    float g[4], tot[4];
+    float g[4];
     Vec3 c;
     shadow_sphere_f_vjp(p, sp, pb, ct_vis / shadow_sphere_f(p, sp, pb), g, &c);
     ctp.x = ctp.x + c.x;
     ctp.y = ctp.y + c.y;
     ctp.z = ctp.z + c.z;
-    block_sum<4>(g, sm->red, tot);
-    if (tid == 0)
-      for (int i = 0; i < 4; ++i) psh[(size_t)(sh_offset + jj) * 4 + i] = tot[i];
+    slab_put<4>(g, sb, used, psh + (size_t)(sh_offset + jj) * 4, false);
   }
   const int n_pl = (int)__ldg(cam + C_NPL);
   for (int k = 0; k < n_pl; ++k) {
     if (p.cull && gate1[p.ns + k] != 1) continue;
     const Plane q = load_plane(s_pl, p.np, k);
-    float g[8], tot[8];
+    float g[8];
     Vec3 c;
     shadow_plane_f_vjp(p, q, pb, ct_vis / shadow_plane_f(p, q, pb), g, &c);
     ctp.x = ctp.x + c.x;
     ctp.y = ctp.y + c.y;
     ctp.z = ctp.z + c.z;
-    block_sum<8>(g, sm->red, tot);
-    if (tid == 0)
-      for (int i = 0; i < 8; ++i) ppl[((size_t)tile * p.np + k) * PL_ROWS + i] = tot[i];
+    slab_put<8>(g, sb, used, ppl + ((size_t)tile * p.np + k) * PL_ROWS, false);
   }
-  const float g_depth = g_depth0 + (ctp.x * r.d.x + ctp.y * r.d.y + ctp.z * r.d.z);
-  float S = g_rgb[0] * out_rgb[0];
-  S = S + g_rgb[1] * out_rgb[1];
-  S = S + g_rgb[2] * out_rgb[2];
+  if (used > 0) slab_flush(sb, used);
+  const float depth = st.get(ST_DEPTH);
+  const float g_depth = st.get(ST_GDEPTH0) + (ctp.x * d.x + ctp.y * d.y + ctp.z * d.z);
+  float S = st.get(ST_S);
   S = S + g_depth * depth;
-  S = S + g_n[0] * out_n[0];
-  S = S + g_n[1] * out_n[1];
-  S = S + g_n[2] * out_n[2];
-  S = S - g_alpha * w_bg;
-  const float gv[7] = {g_rgb[0], g_rgb[1], g_rgb[2], g_depth, g_n[0], g_n[1], g_n[2]};
-  backward_sweep<NTFB, true>(p, cam, sph, s_pl, lst, gate0, tile, offset, r, o, m, inv_s, gv, S,
-                             loss_px, sm, pvals, ppl, ptf, vis,
-                             Vec3{ctp.x * depth, ctp.y * depth, ctp.z * depth}, ctp);
+  S = S + st.get(ST_GV + 4) * st.get(ST_ON);
+  S = S + st.get(ST_GV + 5) * st.get(ST_ON + 1);
+  S = S + st.get(ST_GV + 6) * st.get(ST_ON + 2);
+  S = S - st.get(ST_GAW);
+  st.put(ST_S, S);
+  st.put(ST_GV + 3, g_depth);
+  st.put(ST_GD, ctp.x * depth);
+  st.put(ST_GD + 1, ctp.y * depth);
+  st.put(ST_GD + 2, ctp.z * depth);
+  st.put(ST_GO, ctp.x);
+  st.put(ST_GO + 1, ctp.y);
+  st.put(ST_GO + 2, ctp.z);
+  backward_sweep_slab<NTFB>(p, cam, sph, s_pl, lst, gate0, tile, offset, d, o, st.get(ST_VIS), st,
+                            sm, sb, pvals, ppl, ptf);
+}
+
+// The stash's camera-sum fields from the block's ray; returns its direction.
+__device__ __forceinline__ Vec3 stash_ray(const Ray& r, Stash st) {
+  st.put(ST_VX, r.vx);
+  st.put(ST_VY, r.vy);
+  st.put(ST_RINV, r.inv);
+  return r.d;
 }
 
 __device__ __forceinline__ int tile_index(const SoftParams& p) {
@@ -317,9 +380,9 @@ soft_sh_fwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   int* gate0 = gates + (size_t)tile * 2 * (p.ns + p.np);
   ShFwd f;
-  sh_forward(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
-             shlists + (size_t)tile * p.list_stride, gate0, gate0 + p.ns + p.np,
-             s_pl + PL_ROWS * p.np, r.d, o, &f);
+  sh_forward<LocalCache>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
+                         shlists + (size_t)tile * p.list_stride, gate0, gate0 + p.ns + p.np,
+                         s_pl + PL_ROWS * p.np, nullptr, r.d, o, &f);
   const size_t plane = (size_t)p.hp * p.wp;
   const size_t pix = pixel_index(p);
   const float vals[N_PLANES_SH] = {f.rgb[0], f.rgb[1], f.rgb[2], f.depth, f.n[0], f.n[1], f.n[2],
@@ -332,7 +395,7 @@ soft_sh_fwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS, K5_MIN_BLOCKS)
 soft_sh_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
                    const float* __restrict__ pl_g, const int* __restrict__ lists,
                    const int* __restrict__ shlists, const int* __restrict__ offsets,
@@ -340,45 +403,60 @@ soft_sh_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
                    const float* __restrict__ sav, const float* __restrict__ g,
                    float* __restrict__ pvals, float* __restrict__ psh, float* __restrict__ ppl,
                    float* __restrict__ ptf) {
-  extern __shared__ float s_pl[];
+  extern __shared__ float s_pl[];  // [12, NP] planes, then the stash [ST_FIELDS, threads]
   __shared__ Reduce sm;
+  __shared__ Slab sb;
   stage_planes(p, pl_g, s_pl);
   const int tile = tile_index(p);
-  const Ray r = block_ray(p, cam);
+  const Stash st(s_pl + PL_ROWS * p.np);
+  const Vec3 d = stash_ray(block_ray(p, cam), st);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   const size_t plane = (size_t)p.hp * p.wp;
   const size_t pix = pixel_index(p);
   const float m = sav[SO_M * plane + pix];
   const float inv_s = 1.0f / sav[SO_S * plane + pix];
   const float w_bg = expf(p.bg_logit - m) * inv_s;
-  const float out_rgb[3] = {sav[pix], sav[plane + pix], sav[2 * plane + pix]};
-  const float out_n[3] = {sav[SO_NX * plane + pix], sav[SO_NY * plane + pix],
-                          sav[SO_NZ * plane + pix]};
   const float g_rgb[3] = {g[pix], g[plane + pix], g[2 * plane + pix]};
-  const float g_n[3] = {g[SO_NX * plane + pix], g[SO_NY * plane + pix], g[SO_NZ * plane + pix]};
   const float g_vis = g_rgb[0] * sav[SO_DVR * plane + pix] + g_rgb[1] * sav[(SO_DVR + 1) * plane + pix] +
                       g_rgb[2] * sav[(SO_DVR + 2) * plane + pix];
+  float S = g_rgb[0] * sav[pix];
+  S = S + g_rgb[1] * sav[plane + pix];
+  S = S + g_rgb[2] * sav[2 * plane + pix];
+  st.put(ST_M, m);
+  st.put(ST_INV_S, inv_s);
+  st.put(ST_S, S);
+  for (int c = 0; c < 3; ++c) {
+    st.put(ST_GV + c, g_rgb[c]);
+    st.put(ST_GV + 4 + c, g[(SO_NX + c) * plane + pix]);
+    st.put(ST_ON + c, sav[(SO_NX + c) * plane + pix]);
+  }
+  st.put(ST_GDEPTH0, g[SO_DEPTH * plane + pix]);
+  st.put(ST_GAW, g[SO_ALPHA * plane + pix] * w_bg);
+  st.put(ST_VIS, sav[SO_VIS * plane + pix]);
+  st.put(ST_DEPTH, sav[SO_DEPTH * plane + pix]);
   const int* gate0 = gates + (size_t)tile * 2 * (p.ns + p.np);
   sh_backward<12>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
                   shlists + (size_t)tile * p.list_stride, gate0, gate0 + p.ns + p.np, tile,
-                  __ldg(offsets + tile), __ldg(sh_offsets + tile), r, o, m, inv_s,
-                  sav[SO_VIS * plane + pix], sav[SO_DEPTH * plane + pix], out_rgb, out_n, g_rgb, g_n,
-                  g[SO_DEPTH * plane + pix], g[SO_ALPHA * plane + pix], w_bg, g_vis, 0.0f, &sm,
+                  __ldg(offsets + tile), __ldg(sh_offsets + tile), d, o, g_vis, st, &sm, &sb,
                   pvals, psh, ppl, ptf);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS, K6_MIN_BLOCKS)
 soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
                    const float* __restrict__ pl_g, const int* __restrict__ lists,
                    const int* __restrict__ shlists, const int* __restrict__ offsets,
                    const int* __restrict__ sh_offsets, const float* __restrict__ tgt,
                    float* __restrict__ pvals, float* __restrict__ psh, float* __restrict__ ppl,
                    float* __restrict__ ptf) {
-  // [12, NP] planes, [NC, 3] cache colours, then 2 (NS + NP) gate ints
+  // [12, NP] planes, [NC, 3] cache colours, 2 (NS + NP) gate ints, then the
+  // clamp cache [NC, 3, threads], whose space the stash [ST_FIELDS, threads]
+  // takes once the forward is done
   extern __shared__ float s_pl[];
   __shared__ Reduce sm;
+  __shared__ Slab sb;
   float* s_ccol = s_pl + PL_ROWS * p.np;
   int* s_gate = reinterpret_cast<int*>(s_ccol + 3 * NC);
+  float* s_cache = reinterpret_cast<float*>(s_gate + 2 * (p.ns + p.np));
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int e = tid; e < 2 * (p.ns + p.np); e += blockDim.x * blockDim.y) s_gate[e] = 0;
   stage_planes(p, pl_g, s_pl);
@@ -389,7 +467,10 @@ soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   ShFwd f;
   // sh_forward ends with a __syncthreads after its last gate write
-  sh_forward(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, s_ccol, r.d, o, &f);
+  sh_forward<SharedCache>(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, s_ccol,
+                          s_cache, r.d, o, &f);
+  const Stash st(s_cache);
+  const Vec3 d = stash_ray(r, st);
   const size_t plane = (size_t)p.hp * p.wp;
   const int row = blockIdx.y * p.bh + threadIdx.y, col = blockIdx.x * p.bw + threadIdx.x;
   const size_t pix = (size_t)row * p.wp + col;
@@ -401,11 +482,25 @@ soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
   }
   const float loss_px = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
   const float g_vis = g_rgb[0] * f.dv[0] + g_rgb[1] * f.dv[1] + g_rgb[2] * f.dv[2];
-  const float zero3[3] = {0.0f, 0.0f, 0.0f};
+  float S = g_rgb[0] * f.rgb[0];
+  S = S + g_rgb[1] * f.rgb[1];
+  S = S + g_rgb[2] * f.rgb[2];
+  st.put(ST_M, f.m);
+  st.put(ST_INV_S, f.inv_s);
+  st.put(ST_S, S);
+  for (int c = 0; c < 3; ++c) {  // the loss has no depth, normal or alpha cotangent
+    st.put(ST_GV + c, g_rgb[c]);
+    st.put(ST_GV + 4 + c, 0.0f);
+    st.put(ST_ON + c, f.n[c]);
+  }
+  st.put(ST_GDEPTH0, 0.0f);
+  st.put(ST_GAW, 0.0f);
+  st.put(ST_LOSS, loss_px);
+  st.put(ST_VIS, f.vis);
+  st.put(ST_DEPTH, f.depth);
   sh_backward<13>(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, tile,
-                  __ldg(offsets + tile), __ldg(sh_offsets + tile), r, o, f.m, f.inv_s, f.vis,
-                  f.depth, f.rgb, f.n, g_rgb, zero3, 0.0f, 0.0f, 0.0f, g_vis, loss_px, &sm, pvals,
-                  psh, ppl, ptf);
+                  __ldg(offsets + tile), __ldg(sh_offsets + tile), d, o, g_vis, st, &sm, &sb,
+                  pvals, psh, ppl, ptf);
 }
 
 // C entries for ctypes, as in soft_render.cu: device pointers of contiguous
@@ -437,8 +532,8 @@ extern "C" int rtwc_soft_sh_bwd(const float* cam, const float* sph, const float*
                                 const float* g, float* pvals, float* psh, float* ppl, float* ptf,
                                 const SoftParams* params, void* stream) {
   const SoftParams p = *params;
-  const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np;
-  if (int rc = prepare(soft_sh_bwd_kernel, p, smem)) return rc;
+  const size_t smem = sizeof(float) * (PL_ROWS * (size_t)p.np + ST_FIELDS * MAX_THREADS);
+  if (int rc = prepare(soft_sh_bwd_kernel, p, smem, sizeof(Reduce) + sizeof(Slab))) return rc;
   soft_sh_bwd_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
                        (cudaStream_t)stream>>>(p, cam, sph, pl, lists, shlists, offsets,
                                                sh_offsets, gates, sav, g, pvals, psh, ppl, ptf);
@@ -450,9 +545,10 @@ extern "C" int rtwc_soft_sh_mse(const float* cam, const float* sph, const float*
                                 const int* sh_offsets, const float* tgt, float* pvals, float* psh,
                                 float* ppl, float* ptf, const SoftParams* params, void* stream) {
   const SoftParams p = *params;
-  const size_t smem =
-      sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC) + sizeof(int) * 2 * (size_t)(p.ns + p.np);
-  if (int rc = prepare(soft_sh_mse_kernel, p, smem)) return rc;
+  const size_t smem = sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC) +
+                      sizeof(int) * 2 * (size_t)(p.ns + p.np) +
+                      sizeof(float) * (3 * NC > ST_FIELDS ? 3 * NC : ST_FIELDS) * MAX_THREADS;
+  if (int rc = prepare(soft_sh_mse_kernel, p, smem, sizeof(Reduce) + sizeof(Slab))) return rc;
   soft_sh_mse_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
                        (cudaStream_t)stream>>>(p, cam, sph, pl, lists, shlists, offsets,
                                                sh_offsets, tgt, pvals, psh, ppl, ptf);

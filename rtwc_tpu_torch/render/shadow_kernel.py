@@ -20,7 +20,10 @@ from the TPU's VMEM; `soft_cache_stats` reports NC in their place.
 K5 and K6 write K2's partials plus a compact [E_sh, 4] table of shadow
 occluder gradients keyed by shadow-list slot (`sh_offsets[tile] + slot`),
 which `soft_grad_reduce` adds to the sphere rows; plane rows carry the
-shadow sweep's partial plus the main sweep's.
+shadow sweep's partial plus the main sweep's. On the card their per-object
+block sums go through a shared-memory slab of SLAB slots that is summed
+once it is full or its sweep ends (csrc/soft_block.cuh `Slab`); the order
+of the additions is block_sum_plain's, so the plain versions do not see it.
 
 Wrappers (`soft_sh_fwd`, `soft_sh_stats`, `soft_sh_bwd`, `soft_sh_mse`) run
 the plain version for CPU tensors only; for CUDA tensors they launch the
@@ -42,6 +45,7 @@ from rtwc_tpu_torch.render.broad_phase import build_tile_lists
 (SO_VIS, SO_DVR, SO_DVG, SO_DVB) = range(10, 14)
 N_PLANES_SH = 14
 NC = 8                       # clamp-correction cache slots (csrc/soft_shadow.cu)
+SLAB = 32                    # K5 / K6 slab slots (csrc/soft_block.cuh SLAB_SLOTS)
 VIS_EARLY_OUT = O.f32(1e-7)  # the all-dark early-out threshold (pallas_soft.py:995)
 
 

@@ -19,6 +19,7 @@ the depth tolerance) becomes 0.05 in rgb, the same in the kernel and in the
 port's torch renderer. K6 against the port's own generic path (same
 arithmetic): loss rtol 1e-6, gradients 2e-5 of each table's largest
 value."""
+import os
 import re
 
 import jax
@@ -267,6 +268,60 @@ def test_cache_overflow_takes_the_exact_rewalk():
     assert int(counts.min()) <= SH.NC  # both paths run in one frame
     _check_forward(scene, cam, cfg, "cache overflow")
     _mse_grads_vs_jax(scene, cam, cfg, "cache overflow")
+
+
+def _slab_crowd(n=40, seed=3):
+    """n spheres packed into a short depth range in front of the floor: some
+    16x16 tiles gate in more objects than the SLAB slots that the card's K5
+    and K6 sum at once, so their sweeps fill the slab more than once; others
+    stay below it (chip_smoke.py phase 2c runs the same scene on the card)."""
+    rng = np.random.default_rng(seed)
+    s = JS.empty_scene(48, 2)
+    for _ in range(n):
+        s = JS.add_sphere(s, float(rng.uniform(2.0, 4.0)),
+                          (float(rng.uniform(-3, 3)), float(rng.uniform(-1.5, 1.5)),
+                           float(rng.uniform(20, 27))),
+                          tuple(float(c) for c in rng.uniform(30, 220, 3)), speed=1.0)
+    return JS.add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 60.0, 60.0)
+
+
+@pytest.mark.parametrize("crowd", ["slab", "cache"])
+def test_k5_k6_on_crowded_tiles_match_jax(crowd):
+    """Tiles that gate more objects than the card's SLAB slab slots
+    (`slab`), and more culled-in objects than the NC cache slots (`cache`):
+    the plain K5 (the generic path's backward) and K6 against JAX's
+    gradients of every leaf, held as test_k5_grads_match_jax holds them.
+    K6 runs against a zero target, as _mse_grads_vs_jax runs the other
+    special scenes: against a random one, single radius and centre
+    gradients of the packed crowd sit where the two float32 renders part
+    (one radius: JAX 1.5e-5, the port 3.8e-5, a float64 render 2.1e-5)."""
+    scene, cfg = ((_slab_crowd(), CFG_SH.replace(max_spheres=48)) if crowd == "slab"
+                  else (_crowd(), CFG_SH.replace(max_spheres=16)))
+    cam = jax_camera()
+    ts, tc = _port(scene, cam)
+    spec = SK.SoftSpec(cfg, TAU)
+    sph, pl, camv = SK._packed(ts, tc)
+    lists, shl = SH.build_lists(sph, pl, camv, spec, True)
+    counts = SH.soft_sh_stats(sph, pl, camv, lists, shl, spec=spec)[2][:, 0]
+    limit = SH.SLAB if crowd == "slab" else SH.NC
+    assert int(counts.max()) > limit >= int(counts.min())
+    gj = jax.grad(lambda s, c: loss_of(j_render(s, c, cfg, tau=TAU), jnp), argnums=(0, 1))(scene, cam)
+    _, ps, pc = _grads(scene, cam, cfg, _generic_loss(cfg))
+    _assert_grads(gj, ps, pc, f"K5 {crowd}")
+    tgt = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    gj = jax.grad(lambda s, c: j_mse(s, c, jnp.asarray(tgt), cfg, tau=TAU), argnums=(0, 1))(scene, cam)
+    _, fs, fc = _grads(scene, cam, cfg, _mse_losses(tgt, cfg)[0])
+    _assert_grads(gj, fs, fc, f"K6 {crowd}")
+
+
+def test_slab_and_cache_sizes_match_the_cuda_source():
+    """The plain versions and chip_smoke.py read NC and SLAB from this
+    module; the kernels from csrc/."""
+    src = os.path.join(os.path.dirname(SK.__file__), "..", "csrc")
+    with open(os.path.join(src, "soft_shadow.cu")) as f:
+        assert re.search(r"constexpr int NC = (\d+);", f.read()).group(1) == str(SH.NC)
+    with open(os.path.join(src, "soft_block.cuh")) as f:
+        assert re.search(r"constexpr int SLAB_SLOTS = (\d+);", f.read()).group(1) == str(SH.SLAB)
 
 
 def test_occluder_outside_the_frustum_gets_grad_through_its_shadow():
