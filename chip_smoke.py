@@ -14,14 +14,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      renderer, cell by cell
   2b the soft kernels against their plain versions on the card, in eight
      cases and one with culling off: K1's planes and gates, K2's tables under seeded random
-     cotangents, K3's loss and tables, K3 against K1 + K2 with the MSE
-     cotangents, the reduction against a float64 sum, and two launches
-     giving bit-equal tables; then the kernel path end to end (forward and
+     cotangents, K3's loss and tables (its partial tables bit-equal to the
+     plain version's), K3 against K1 + K2 with the MSE cotangents, the
+     reduction bit-equal to its plain version on the same partials and
+     against a float64 sum, and two launches giving bit-equal tables; then
+     the kernel path end to end (forward and
      gradients) against the torch soft renderer at 400x150
   2c the shadowed kernels against their plain versions on the card: K4's
      14 planes and gates, K4-stats' counts, K5's tables under seeded random
      cotangents, K6's loss and tables (K5's and K6's partial tables bit-equal
-     to the plain versions'), K6 against K4 + K5 with the MSE cotangents and
+     to the plain versions', and the reduction of each bit-equal to its
+     plain version's), K6 against K4 + K5 with the MSE cotangents and
      two launches bit-equal, in ten cases (96x32; 400x150 pitched; the bench
      headline 1920x1080 random_scene(20); a saturating light; a cache
      overflow past NC; a slab overflow past SLAB, 40 spheres; 3840x2160
@@ -59,7 +62,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      bench headline config; the generic and fused steps and the device's
      busy share; the fused step at 3840x2160 with 200 spheres and its peak
      memory and K4 / K5 / K6 alone there (K5 under the MSE cotangents of a
-     zero target, as at the headline); the cache-fallback share of tiles and
+     zero target, as at the headline) and the reduction of K6's partials
+     there; the cache-fallback share of tiles and
      K5's block barriers a tile at both sizes; the launches
      of one step of each train path and of one 1920x1080 engine frame
   6a the calibration chain kernel against its plain version for every body,
@@ -88,7 +92,8 @@ from this run's calibration; the reduction's `library_ms` is its whole
 function in float64 PyTorch calls, index_add_ and sums, held to the
 kernel's sums, `library_device_ms` the same calls' device time, from CUDA
 events around a CUDA graph of 20 calls, beside `function_device_ms`, the
-port's wrapper measured the same way), the seconds of each phase, and as the last line
+port's wrapper measured the same way, at 1080p unshadowed and in
+`reduce_shadowed` and `reduce_4k200`), the seconds of each phase, and as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX. TF32 is off.
 Longer tables go to chip_smoke_out/.
 """
@@ -128,9 +133,9 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # csrc/soft_block.cuh and csrc/hard_render.cu: one per add, multiply,
 # compare-select, exp, log1p, sqrt, rsqrt or divide, the smaller count where
 # a branch could go either way.
-OPS = dict(raygen=20, lb_sphere=37, lb_plane=43, geo_sphere=40, geo_plane=47, shade=78,
+OPS = dict(raygen=20, lb_sphere=40, lb_plane=43, geo_sphere=40, geo_plane=47, shade=78,
            acc7=31, acc10=40, final=20, light_ray=20, pre_a=23, pre_b=12, pre_plane=35,
-           trans=23, corr=62, blend=18, cot=28, vjp_sphere=330, vjp_plane=360,
+           trans=23, corr=62, blend=18, cot=28, vjp_sphere=345, vjp_plane=360,
            sh_vjp_sphere=260, sh_vjp_plane=300, block_sum=5, tf_slot=40, loss=12,
            hard_sphere=30, hard_plane=25, hard_shade=70, hard_shadow=30)
 
@@ -189,12 +194,13 @@ def _time_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
-def _kernel_device_ms(fn, reps=20, name="hard_render_kernel", tries=3):
+def _kernel_device_ms(fn, reps=20, name="hard_render_kernel", tries=3, per_call=False):
     """Mean device time of the kernel `name` over `reps` calls of fn, from
-    the profiler's CUDA kernel records whose name contains `name`. A profile
-    that holds no such record is taken again, up to `tries` profiles in all
-    (the profiler now and then returns a run without its device records);
-    None if none holds one."""
+    the profiler's CUDA kernel records whose name contains `name` (with
+    per_call, the sum of those records a call: every kernel of a function
+    that launches several). A profile that holds no such record is taken
+    again, up to `tries` profiles in all (the profiler now and then returns
+    a run without its device records); None if none holds one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -209,7 +215,7 @@ def _kernel_device_ms(fn, reps=20, name="hard_render_kernel", tries=3):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and name in e.name]
         if us:
-            return sum(us) / len(us) / 1e3
+            return sum(us) / (reps if per_call else len(us)) / 1e3
     return None
 
 
@@ -226,6 +232,17 @@ def _ptxas_report(log_path: str):
                 regs = line.split("Used")[1].split("registers")[0].strip()
                 out.append((kernel, regs, spill))
     return out
+
+
+def _fit_start(center):
+    """The --spheres 20 fit's starting centres (the fused train path's and
+    phase 5's): each of `center` moved by normal(0, 0.5) from NumPy's seed
+    1, so that a step against the target's render has nonzero cotangents."""
+    import numpy as np
+    import torch
+
+    noise = np.random.default_rng(1).normal(0, 0.5, tuple(center.shape)).astype(np.float32)
+    return center + torch.from_numpy(noise).to(center.device)
 
 
 def _soft_scene_96():
@@ -292,16 +309,24 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     gen = torch.Generator().manual_seed(1234)
     g = torch.randn(out_p.shape, generator=gen).to(dev)
     bwd_args = (sph, pl, camv, lists, offsets, gates_p, out_p, g)
-    r2k = red(SK.soft_bwd(*bwd_args, spec=spec, n_entries=n))
+    p2k = SK.soft_bwd(*bwd_args, spec=spec, n_entries=n)
+    r2k = red(p2k)
     r2p = red_plain(SK.soft_bwd_plain(*bwd_args, spec=spec, n_entries=n))
     k2 = _close_tables(_tables(r2k), _tables(r2p), f"{label}: K2 + reduction")
 
     Hp, Wp = spec.extent
     H, W = cfg.height, cfg.width
     tgt = (torch.rand((3, Hp, Wp), generator=gen) * 255.0).to(dev)
-    r3k = red(SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n))
-    r3p = red_plain(SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n))
+    p3k = SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
+    p3p = SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
+    r3k, r3p = red(p3k), red_plain(p3p)
     k3 = _close_tables(_tables(r3k), _tables(r3p), f"{label}: K3 + reduction")
+    # K3's slab sums keep block_sum_plain's order: its partial tables are
+    # bit-equal to the plain version's; the reduction is bit-equal to its
+    # plain version on the same partials (K2's and K3's)
+    if not all(torch.equal(a, b) for a, b in zip(p3k, p3p)):
+        raise AssertionError(f"{label}: K3's partial tables differ from its plain version's")
+    _reduce_bit_equal(red, red_plain, (r2k, r3k), (p2k, p3k), label)
     loss_k = (r3k[2][12, 0].double() + r3k[2][12, 1].double()).item()
     loss_p = (r3p[2][12, 0].double() + r3p[2][12, 1].double()).item()
     truth = ((out_k[:3, :H, :W].double() - tgt[:, :H, :W].double()) ** 2).sum().item()
@@ -321,10 +346,12 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     # two launches on the same inputs give bit-equal tables
     again = (SK.soft_fwd(sph, pl, camv, lists, spec=spec),
              red(SK.soft_bwd(*bwd_args, spec=spec, n_entries=n)),
-             red(SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)))
+             red(SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)),
+             SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n))
     same = (torch.equal(again[0][0], out_k) and torch.equal(again[0][1], gates_k)
             and all(torch.equal(a, b) for a, b in zip(again[1], r2k))
-            and all(torch.equal(a, b) for a, b in zip(again[2], r3k)))
+            and all(torch.equal(a, b) for a, b in zip(again[2], r3k))
+            and all(torch.equal(a, b) for a, b in zip(again[3], p3k)))
     if not same:
         raise AssertionError(f"{label}: two launches gave different tables")
     errs["K1"] = max(errs["K1"], k1)
@@ -332,9 +359,22 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     errs["K3"] = max(errs["K3"], k3)
     print(f"phase 2b: {label} (tau {tau}): max abs diff K1 {k1!r}, K2 tables {k2!r}, "
           f"K3 tables {k3!r}, K3 vs K1+K2 {k3_vs!r}; K3 loss rel diff "
-          f"{abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)!r}; list entries {n}; "
-          f"two launches bit-equal")
+          f"{abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)!r}; list entries {n}; K3's partial "
+          f"tables and the reduction bit-equal to the plain versions'; two launches bit-equal")
     return out_k
+
+
+def _reduce_bit_equal(red, red_plain, outs, parts, label):
+    """The reduction's tables `outs` (of red(parts[i])) bit-equal to its plain
+    version's on the same partials, and a second launch bit-equal to the
+    first."""
+    import torch
+
+    for out, pp in zip(outs, parts):
+        if not all(torch.equal(a, b) for a, b in zip(out, red_plain(pp))):
+            raise AssertionError(f"{label}: the reduction differs from its plain version")
+        if not all(torch.equal(a, b) for a, b in zip(out, red(pp))):
+            raise AssertionError(f"{label}: two launches of the reduction differ")
 
 
 def _plain_autograd(SK):
@@ -668,6 +708,7 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
         if not all(torch.equal(a, b) for a, b in zip(pk, pp)):
             raise AssertionError(f"{label}: {what}'s partial tables differ from its plain "
                                  f"version's")
+    _reduce_bit_equal(red, red_plain, (r5k, r6k), (p5k, p6k), label)
     loss_k = (r6k[2][12, 0].double() + r6k[2][12, 1].double()).item()
     loss_p = (r6p[2][12, 0].double() + r6p[2][12, 1].double()).item()
     truth = ((out_k[:3, :H, :W].double() - tgt[:, :H, :W].double()) ** 2).sum().item()
@@ -702,7 +743,8 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
           f"culled-in {int(cnt_k[:, 0].max())}, tiles over NC={SH.NC}: "
           f"{int((cnt_k[:, 0] > SH.NC).sum())} of {cnt_k.shape[0]}, over SLAB={SH.SLAB}: "
           f"{int((cnt_k[:, 0] > SH.SLAB).sum())}); list entries {n}, shadow entries {nsh}; K5 and "
-          f"K6 partial tables bit-equal to the plain versions'; two launches bit-equal")
+          f"K6 partial tables and the reduction bit-equal to the plain versions'; two launches "
+          f"bit-equal")
     return out_k, gates_k, cnt_k
 
 
@@ -1126,6 +1168,9 @@ def main() -> int:
     f32_rel = float(np.max(np.abs(x.sum(0, dtype=np.float32) - truth) / np.abs(truth)))
     red_diff = max((a - b).abs().max().item() for a, b in zip(rk, rp))
     errs["reduce"] = red_diff
+    _reduce_bit_equal(lambda a: SK.soft_grad_reduce(*a, 20),
+                      lambda a: SK.soft_grad_reduce_plain(*a, 20), (rk,),
+                      ((pvals, pidx, ppl, ptf),), "phase 2b random partials")
     print(f"phase 2b: reduction of {T} adversarial two-float partials: max rel err vs float64 "
           f"{tf_rel!r} (limit {TF_REL}; a plain float32 sum: {f32_rel!r}); against the plain "
           f"reduction (20000 sphere entries, 2 planes, 13 slots): max abs diff {red_diff!r}")
@@ -1416,8 +1461,8 @@ def main() -> int:
     scene20d, cam20 = scene20.to(dev), default_camera().to(dev)
     with torch.no_grad():
         tgt20 = render_frame_soft_kernel(scene20d, cam20, cfg20, tau=0.5).rgb
-    noise = torch.from_numpy(np.random.default_rng(1).normal(0, 0.5, (20, 3)).astype(np.float32))
-    c20 = (scene20d.spheres.center + noise.to(dev)).requires_grad_(True)
+    start20 = _fit_start(scene20d.spheres.center)
+    c20 = start20.clone().requires_grad_(True)
     opt = torch.optim.Adam([c20], lr=1e-2)
     fused_losses = []
     reset_soft()
@@ -1639,7 +1684,9 @@ def main() -> int:
 
     # the soft kernels and the train steps at 1920x1080, 20 spheres, tau 0.5
     spec = SK.SoftSpec(cfg20, 0.5)
-    sph, pl, camv = SK._packed(scene20d, cam20)
+    # the fit's first step: its starting centres against the target's render
+    sph, pl, camv = SK._packed(scene20d.replace(spheres=scene20d.spheres.replace(center=start20)),
+                               cam20)
     lists = SK.build_lists(sph, camv, spec, True)
     offsets, pidx = SK.list_entries(lists)
     n = pidx.shape[0]
@@ -1662,7 +1709,7 @@ def main() -> int:
                lambda: SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n),
                lambda: SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec,
                                          n_entries=n)),
-        "reduce": ("soft_grad_reduce_kernel",
+        "reduce": ("soft_grad_reduce",
                    lambda: SK.soft_grad_reduce(parts[0], pidx, *parts[1:], sph.shape[1]),
                    lambda: SK.soft_grad_reduce_plain(parts[0][:n], pidx, *parts[1:],
                                                      sph.shape[1])),
@@ -1671,7 +1718,7 @@ def main() -> int:
     for key, (kname, kfn, pfn) in soft_calls.items():
         k_ms = _time_ms(kfn)
         p_ms = _time_ms(pfn, reps=5, warm=1)
-        d_ms = _kernel_device_ms(kfn, name=kname)
+        d_ms = _kernel_device_ms(kfn, name=kname, per_call=key == "reduce")
         soft_timing[key] = (k_ms, p_ms, d_ms)
         print(f"phase 5: {key} ({kname}) 1920x1080 --spheres 20 tau 0.5: {k_ms!r} ms a call "
               f"(device time alone {d_ms!r} ms), plain {p_ms!r} ms; {n} list entries {tag}")
@@ -1680,7 +1727,7 @@ def main() -> int:
     rays = 1920 * 1080
 
     def make_step(kind):
-        c = scene20d.spheres.center.clone().requires_grad_(True)
+        c = start20.clone().requires_grad_(True)
         opt = torch.optim.Adam([c], lr=1e-3)
 
         def step():
@@ -1740,7 +1787,7 @@ def main() -> int:
                lambda: SH.soft_sh_bwd_plain(*bwd_h, spec=spec_hl, **sizes_h)),
         "K6": ("soft_sh_mse_kernel", lambda: SH.soft_sh_mse(*mse_h, spec=spec_hl, **sizes_h),
                lambda: SH.soft_sh_mse_plain(*mse_h, spec=spec_hl, **sizes_h)),
-        "reduce sh": ("soft_grad_reduce_kernel",
+        "reduce sh": ("soft_grad_reduce",
                       lambda: SK.soft_grad_reduce(parts_h[0], pidx_h, parts_h[2], parts_h[3], 20,
                                                   psh=parts_h[1], pshidx=pshidx_h),
                       lambda: SK.soft_grad_reduce_plain(parts_h[0][:n_h], pidx_h, parts_h[2],
@@ -1750,7 +1797,7 @@ def main() -> int:
     for key, (kname, kfn, pfn) in sh_calls.items():
         k_ms = _time_ms(kfn)
         p_ms = _time_ms(pfn, reps=1, warm=0)  # the plain versions are timed once
-        d_ms = _kernel_device_ms(kfn, name=kname)
+        d_ms = _kernel_device_ms(kfn, name=kname, per_call=key == "reduce sh")
         soft_timing[key] = (k_ms, p_ms, d_ms)
         print(f"phase 5b: {key} ({kname}) bench headline 1920x1080 random_scene(20) shadows tau "
               f"0.5: {k_ms!r} ms a call (device time alone {d_ms!r} ms), plain {p_ms!r} ms; "
@@ -1818,6 +1865,18 @@ def main() -> int:
         sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
         torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k, **sizes_4), reps=5,
         name="soft_sh_mse_kernel")
+    # the reduction at 4K/200 on K6's partials of that step
+    parts_4 = SH.soft_sh_mse(sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
+                             torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k,
+                             **sizes_4)
+    n_4, nsh_4 = pidx_4.shape[0], pshidx_4.shape[0]
+    red_4k = (lambda: SK.soft_grad_reduce(parts_4[0], pidx_4, parts_4[2], parts_4[3], 200,
+                                          psh=parts_4[1], pshidx=pshidx_4),
+              lambda: SK.soft_grad_reduce_plain(parts_4[0][:n_4], pidx_4, parts_4[2], parts_4[3],
+                                                200, parts_4[1][:nsh_4], pshidx_4))
+    soft_timing["reduce 4k"] = (_time_ms(red_4k[0]), _time_ms(red_4k[1], reps=1, warm=0),
+                                _kernel_device_ms(red_4k[0], reps=5, name="soft_grad_reduce",
+                                                  per_call=True))
     ms_4k_generic = _step_ms(sh_step("generic", scene_4k, cam_hl, cfg_4k, tgt_4k), 5)
     print(f"phase 5b: shadowed generic train step 3840x2160 random_scene(200): "
           f"{ms_4k_generic!r} ms, {3840 * 2160 / ms_4k_generic * 1e3!r} rays/s; device time K4 "
@@ -1828,7 +1887,8 @@ def main() -> int:
           f"{base_mem / 2**20:.1f} MiB held before the step); cache-fallback share of tiles "
           f"{float((cnt_4[:, 0] > SH.NC).float().mean())!r} (culled-in per tile max "
           f"{int(cnt_4[:, 0].max())}); list entries {pidx_4.shape[0]}, shadow entries "
-          f"{pshidx_4.shape[0]} {tag}")
+          f"{pshidx_4.shape[0]}; the reduction of K6's partials {soft_timing['reduce 4k']!r} ms "
+          f"(a call, plain, device) {tag}")
     for label, (shl_b, gates_b, ns_b) in (("bench headline", (shl_h, gates_h, sph_h.shape[1])),
                                           ("3840x2160 random_scene(200)",
                                            (shl_4, gates_4, sph_4.shape[1]))):
@@ -1868,6 +1928,7 @@ def main() -> int:
     step_hl = {kind: per_step(sh_step(kind, scene_hld, cam_hl, cfg_hl, tgt_hl))
                for kind in ("generic", "fused")}
     stats_call = per_step(lambda: SH.soft_tile_diagnostics(scene_hld, cam_hl, cfg_hl, tau=0.5))
+    step_4k_launches = per_step(step_4k)
     hard_kernel.LAUNCHES = 0
     run_engine(RenderConfig(width=1920, height=1080, mode=RenderMode.RGB_ASCII, shadows=True),
                no_spawn, 1, scene=random_scene(20, seed=0, device=dev))
@@ -1901,6 +1962,7 @@ def main() -> int:
     wsh = _soft_work(lists_h, gates_h, int(cam_h[0, P.C_NPL]), px, shl_h, cnt_h, SH.NC)
     red20 = soft_calls["reduce"][1]()
     red_h = sh_calls["reduce sh"][1]()
+    red_4k_out = red_4k[0]()
     k3_parts = SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
     k6_parts = SH.soft_sh_mse(*mse_h, spec=spec_hl, **sizes_h)
     ins_h = (sph_h, pl_h, cam_h, lists_h, shl_h)
@@ -1924,6 +1986,8 @@ def main() -> int:
                + px * OPS["loss"] * lists_h.shape[0]),
         "reduce sh": (_nbytes(*parts_h, pidx_h, pshidx_h, *red_h),
                       8.0 * float(parts_h[0].numel() + parts_h[1].numel())),
+        "reduce 4k": (_nbytes(*parts_4, pidx_4, pshidx_4, *red_4k_out),
+                      8.0 * float(parts_4[0].numel() + parts_4[1].numel())),
     }
     soft_timing["K7"] = (timing["c random 20 1920x1080 shadows"][0],
                          timing["c random 20 1920x1080 shadows"][1],
@@ -1976,20 +2040,27 @@ def main() -> int:
     # inputs, held to the kernel's sums before it is timed
     lib_args = (parts[0], pidx, *parts[1:], sph.shape[1])
     lib_args_sh = (parts_h[0], pidx_h, parts_h[2], parts_h[3], 20, parts_h[1], pshidx_h)
+    lib_args_4k = (parts_4[0], pidx_4, parts_4[2], parts_4[3], 200, parts_4[1], pshidx_4)
     lib_reduce = _reduce_library_ms(P, lib_args, red20)
     lib_reduce_sh = _reduce_library_ms(P, lib_args_sh, red_h)
+    lib_reduce_4k = _reduce_library_ms(P, lib_args_4k, red_4k_out)
     # device time of the whole function, from a CUDA graph of its calls: the
-    # library calls, and the port's wrapper (its allocations and the kernel)
+    # library calls, and the port's wrapper (its allocations and the kernels)
     lib_dev, port_dev = {}, {}
     for which, a, port in (("unshadowed", lib_args, soft_calls["reduce"][1]),
-                           ("shadowed", lib_args_sh, sh_calls["reduce sh"][1])):
+                           ("shadowed", lib_args_sh, sh_calls["reduce sh"][1]),
+                           ("4k200", lib_args_4k, red_4k[0])):
         lib_dev[which], lib_runs = _graph_ms(lambda: _reduce_library(*a))
         port_dev[which], port_runs = _graph_ms(port)
         print(f"phase 5b: reduction ({which}), device ms a call of the whole function (CUDA "
               f"graph of 20 calls, median of the replays {lib_runs!r} / {port_runs!r}): library "
               f"calls {lib_dev[which]!r}, the port's wrapper {port_dev[which]!r} {tag}")
-    print(f"phase 5b: reduction, the kernel alone {soft_timing['reduce'][2]!r} / "
-          f"{soft_timing['reduce sh'][2]!r} ms {tag}")
+    print(f"phase 5b: reduction, its five kernels' device time a call (profiler) "
+          f"{soft_timing['reduce'][2]!r} / {soft_timing['reduce sh'][2]!r} / "
+          f"{soft_timing['reduce 4k'][2]!r} ms (unshadowed / shadowed / 4K/200) {tag}")
+    for which in lib_dev:
+        if not port_dev[which] < lib_dev[which]:
+            print(f"phase 5b: NOTE the reduction ({which}) is not faster than its library calls")
     entries = []
     for key, kname, src, replaces, count, shape, elsewhere in rows:
         k_ms, p_ms, d_ms = soft_timing[key]
@@ -2011,6 +2082,16 @@ def main() -> int:
                                         "function_device_ms": port_dev["shadowed"],
                                         "launches": step_hl["generic"]["soft_grad_reduce"],
                                         "shape": shape_hl}
+            r_ms, r_p, r_d = soft_timing["reduce 4k"]
+            rb_ms, rb_by = _bound(*work["reduce 4k"])
+            entry["reduce_4k200"] = {"ms": r_ms, "plain_ms": r_p, "device_ms": r_d,
+                                     "bound_ms": rb_ms, "bound_by": rb_by,
+                                     "library_ms": lib_reduce_4k,
+                                     "library_device_ms": lib_dev["4k200"],
+                                     "function_device_ms": port_dev["4k200"],
+                                     "launches": step_4k_launches["soft_grad_reduce"],
+                                     "shape": "3840x2160, random_scene(200), shadows, tau 0.5, "
+                                              "16x16 tiles; K6's partials of a zero target"}
             entry["library_device_ms"] = lib_dev["unshadowed"]
             entry["function_device_ms"] = port_dev["unshadowed"]
             entry["library"] = ("float64 index_add_ of the sphere (and shadow-occluder) "

@@ -1,10 +1,10 @@
 // Block-level device code shared by the soft kernels (csrc/soft_render.cu,
 // csrc/soft_shadow.cu): table loads, the block sums of the per-block
-// partials, the online-softmin step, the forward and backward sweeps, K5's
-// and K6's slab and stash, and the launch helpers. One thread per pixel, one block per (bh, bw)
-// broad-phase tile. The plain torch twins are in render/soft_core.py
-// (block_sum_plain, block_tf_sum_plain, _accumulate, object_sweep,
-// _backward_sweep).
+// partials, the online-softmin step, the forward and backward sweeps, the
+// slab and stash of K3, K5 and K6, and the launch helpers. One thread per
+// pixel, one block per (bh, bw) broad-phase tile. The plain torch twins
+// are in render/soft_core.py (block_sum_plain, block_tf_sum_plain,
+// _accumulate, object_sweep, _backward_sweep).
 
 #pragma once
 
@@ -215,10 +215,11 @@ struct Reduce {
   float tf[MAX_WARPS * NTF * 2];
 };
 
-// The slab scheme of K5 and K6 (csrc/soft_shadow.cu): per-object partials
-// without a block barrier per object. Each warp reduces its 32 lanes with
-// block_sum's butterfly and lane 0 parks the warp's N sums in slot `used`
-// of the slab, [slot][warp][value], with no barrier. When SLAB_SLOTS
+// The slab scheme of K3, K5 and K6 (csrc/soft_render.cu, soft_shadow.cu):
+// per-object partials without a block barrier per object. Each warp
+// reduces its 32 lanes with block_sum's butterfly and lane 0 parks the
+// warp's N sums in slot `used` of the slab, [slot][warp][value], with no
+// barrier. When SLAB_SLOTS
 // slots are full, or the sweep ends, one barrier; then the block's threads
 // take one (slot, value) pair each, sum it over the warps in warp order
 // 0, 1, ... (block_sum's order, so the totals are bit-equal to its) and
@@ -291,9 +292,9 @@ __device__ __forceinline__ void block_tf_rows(const float v[N], float* s_red,
   }
 }
 
-// K2's sweep (also K3's backward). Writes the block's partials: NTFB
-// two-float slots, the twelve camera cotangents and, for K3 (NTFB = 13), the
-// loss from each pixel's loss_px; a block_sum per object.
+// K2's sweep. Writes the block's partials: the twelve camera cotangents as
+// NTFB = 12 two-float slots; a block_sum per object. It keeps block_sum and
+// block_tf_sum until K2 moves to backward_sweep_slab, as K3, K5 and K6 have.
 template <int NTFB>
 __device__ void backward_sweep(const SoftParams& p, const float* __restrict__ cam,
                                const float* __restrict__ sph, const float* s_pl,
@@ -361,7 +362,7 @@ __device__ void backward_sweep(const SoftParams& p, const float* __restrict__ ca
 }
 
 
-// Per-pixel values that K5 and K6 keep in shared memory while their sweeps
+// Per-pixel values that K3, K5 and K6 keep in shared memory while their sweeps
 // run, [field][MAX_THREADS]: written before a sweep, read where needed, so
 // that they hold no register through an object's VJP. Each thread reads and
 // writes only its own column, so no barrier guards it; `volatile` keeps the
@@ -392,15 +393,16 @@ struct Stash {
   }
 };
 
-// The main backward sweep of K5 and K6: backward_sweep's arithmetic op for
-// op with the objects shaded by vis (rgb = min(255, A + vis B)) and each
-// plane row added to the shadow sweep's partial already in ppl. Its
-// per-object partials are summed through the slab, the camera's through
-// block_tf_rows; m, 1/s, S, the output cotangents and the ray cotangents
-// (seeded by the caller) stay in the stash `st`, so the registers hold the
-// ray, vis and one object's adjoint. K2 and K3 can take it up with vis = 1,
-// unshaded objects and plane rows set rather than added.
-template <int NTFB>
+// The backward sweep of K3, K5 and K6: backward_sweep's arithmetic op for
+// op. SHADOWED (K5, K6): the objects are shaded by vis (rgb = min(255, A +
+// vis B)) and each plane row is added to the shadow sweep's partial already
+// in ppl; otherwise (K3) the objects are unshaded, vis is unused and each
+// plane row is set. Its per-object partials are summed through the slab,
+// the camera's (and K3's loss, NTFB = 13) through block_tf_rows; m, 1/s, S,
+// the output cotangents, the ray cotangents (seeded by the caller) and the
+// loss stay in the stash `st`, so the registers hold the ray, vis and one
+// object's adjoint.
+template <int NTFB, bool SHADOWED>
 __device__ void backward_sweep_slab(const SoftParams& p, const float* __restrict__ cam,
                                     const float* __restrict__ sph, const float* s_pl,
                                     const int* __restrict__ lst, const int* gate_row, int tile,
@@ -413,13 +415,13 @@ __device__ void backward_sweep_slab(const SoftParams& p, const float* __restrict
     const int k = __ldg(lst + 1 + kk);
     if (p.cull && gate_row[k] != 1) continue;  // block-uniform
     const Sphere sp = load_sphere(sph, p.ns, k);
-    const ObjOut v = sphere_f(p, sp, d, o, vis, true);
+    const ObjOut v = sphere_f(p, sp, d, o, vis, SHADOWED);
     float gv[7];
     for (int i = 0; i < 7; ++i) gv[i] = st.get(ST_GV + i);
     const ObjOut ct = cotangents(p, v, st.get(ST_M), st.get(ST_INV_S), gv, st.get(ST_S));
     float g[7];
     Vec3 cd, co;
-    sphere_f_vjp(p, sp, d, o, ct, g, &cd, &co, vis, true);
+    sphere_f_vjp(p, sp, d, o, ct, g, &cd, &co, vis, SHADOWED);
     st.add_ray_cotangents(cd, co);
     slab_put<7>(g, sb, used, pvals + (size_t)(offset + kk) * 8, false);
   }
@@ -427,15 +429,15 @@ __device__ void backward_sweep_slab(const SoftParams& p, const float* __restrict
   for (int k = 0; k < n_pl; ++k) {
     if (p.cull && gate_row[p.ns + k] != 1) continue;
     const Plane q = load_plane(s_pl, p.np, k);
-    const ObjOut v = plane_f(p, q, d, o, vis, true);
+    const ObjOut v = plane_f(p, q, d, o, vis, SHADOWED);
     float gv[7];
     for (int i = 0; i < 7; ++i) gv[i] = st.get(ST_GV + i);
     const ObjOut ct = cotangents(p, v, st.get(ST_M), st.get(ST_INV_S), gv, st.get(ST_S));
     float g[11];
     Vec3 cd, co;
-    plane_f_vjp(p, q, d, o, ct, g, &cd, &co, vis, true);
+    plane_f_vjp(p, q, d, o, ct, g, &cd, &co, vis, SHADOWED);
     st.add_ray_cotangents(cd, co);
-    slab_put<11>(g, sb, used, ppl + ((size_t)tile * p.np + k) * PL_ROWS, true);
+    slab_put<11>(g, sb, used, ppl + ((size_t)tile * p.np + k) * PL_ROWS, SHADOWED);
   }
   if (used > 0) slab_flush(sb, used);
   // camera: position cotangents and the raygen VJP, two-float
@@ -451,6 +453,14 @@ __device__ void backward_sweep_slab(const SoftParams& p, const float* __restrict
   raygen_vjp(r, Vec3{st.get(ST_GD), st.get(ST_GD + 1), st.get(ST_GD + 2)}, v + 3);
   if constexpr (NTFB > SLOT_LOSS) v[SLOT_LOSS] = st.get(ST_LOSS);
   block_tf_rows<NTFB>(v, sm->tf, ptf + (size_t)tile * NTF * 2);
+}
+
+// The stash's camera-sum fields from the block's ray; returns its direction.
+__device__ __forceinline__ Vec3 stash_ray(const Ray& r, Stash st) {
+  st.put(ST_VX, r.vx);
+  st.put(ST_VY, r.vy);
+  st.put(ST_RINV, r.inv);
+  return r.d;
 }
 
 __device__ __forceinline__ void stage_planes(const SoftParams& p, const float* pl_g, float* s_pl) {

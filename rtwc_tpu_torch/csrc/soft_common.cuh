@@ -70,12 +70,10 @@ struct SoftParams {
 namespace soft {
 
 // 1 / sqrt(x), correctly rounded on the card as on the host: the hardware
-// rsqrtf is off by up to 2 ulp, and a miss whose penalised t_eff competes
-// with the background (t_eff ~ far) amplifies one ulp of a ray's length by
-// about miss_penalty * b^2 / r^2, so the card's forward, and with shadows
-// its gradients, drifted from the host's (PERF.md, section 6). sqrtf and the
-// division are IEEE on both, so the plain twin (1 / torch.sqrt) gives the
-// same bits on either device.
+// rsqrtf is off by up to 2 ulp, which ill-conditioned pixels amplify, so the
+// card's soft render drifted from the host's (PERF.md, section 6). sqrtf and
+// the division are IEEE on both, so the plain twin (1 / torch.sqrt) gives
+// the same bits on either device.
 SOFT_HD float rsqrt_(float x) { return 1.0f / sqrtf(x); }
 
 // -- JAX's tie rules ---------------------------------------------------------
@@ -226,13 +224,32 @@ struct Sphere {
   float cx, cy, cz, r, col[3];
 };
 
+// The ray's closest approach to a sphere: h = d . oc (b = 2 h), q = oc - h d
+// and the discriminant 4 (r^2 - q . q). For a unit d that is b^2 - 4c, but
+// b^2 and 4c are both about 4 |oc|^2 and cancel to the small disc at a
+// silhouette or a near miss, where one ulp of either moves the miss
+// penalty by mp / r^2 ulps; q . q carries no such cancellation, and an
+// error in h moves q along d, to which q . q is first-order blind.
+struct SphereSolve {
+  float h, qx, qy, qz, disc;
+};
+
+SOFT_HD SphereSolve sphere_solve(Vec3 d, float ocx, float ocy, float ocz, float r) {
+  SphereSolve v;
+  v.h = d.x * ocx + d.y * ocy + d.z * ocz;
+  v.qx = ocx - v.h * d.x;
+  v.qy = ocy - v.h * d.y;
+  v.qz = ocz - v.h * d.z;
+  v.disc = 4.0f * (r * r - (v.qx * v.qx + v.qy * v.qy + v.qz * v.qz));
+  return v;
+}
+
 // The culling lower bound on t_eff and the solve products (t2, dss).
 SOFT_HD float sphere_lb_ex(const SoftParams& p, const Sphere& s, Vec3 d, Vec3 o, float* t2,
                            float* dss) {
-  const float ocx = o.x - s.cx, ocy = o.y - s.cy, ocz = o.z - s.cz;
-  const float b = 2.0f * (d.x * ocx + d.y * ocy + d.z * ocz);
-  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - s.r * s.r;
-  const float disc = b * b - 4.0f * cc;
+  const SphereSolve v = sphere_solve(d, o.x - s.cx, o.y - s.cy, o.z - s.cz, s.r);
+  const float b = 2.0f * v.h;
+  const float disc = v.disc;
   const float sq = sqrtf(fmaxf(disc, 1e-12f));
   *t2 = 0.5f * (-b - sq);
   const float scale = 1.0f / fmaxf(s.r, 1e-3f);
@@ -299,9 +316,9 @@ SOFT_HD void sphere_f_vjp(const SoftParams& p, const Sphere& s, Vec3 d, Vec3 o,
                           const ObjOut& ct, float g[7], Vec3* ct_d, Vec3* ct_o, float vis = 1.0f,
                           bool shaded = false) {
   const float ocx = o.x - s.cx, ocy = o.y - s.cy, ocz = o.z - s.cz;
-  const float b = 2.0f * (d.x * ocx + d.y * ocy + d.z * ocz);
-  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - s.r * s.r;
-  const float disc = b * b - 4.0f * cc;
+  const SphereSolve v = sphere_solve(d, ocx, ocy, ocz, s.r);
+  const float b = 2.0f * v.h;
+  const float disc = v.disc;
   const float dm = fmaxf(disc, 1e-12f);
   const float sq = sqrtf(dm);
   const float t2 = 0.5f * (-b - sq);
@@ -337,13 +354,15 @@ SOFT_HD void sphere_f_vjp(const SoftParams& p, const Sphere& s, Vec3 d, Vec3 o,
   float ct_r = -ct_scale / (rm * rm) * max_grad(s.r, 1e-3f);
   const float ct_sq = -0.5f * ct_t2;
   const float ct_disc = ct_u * scale + ct_sq * (0.5f / sq) * max_grad(disc, 1e-12f);
-  const float ct_bb = -0.5f * ct_t2 + ct_disc * b * 2.0f;
-  const float ct_c = -4.0f * ct_disc;
-  ct_r = ct_r - ct_c * s.r * 2.0f;
-  const float ct_dot = 2.0f * ct_bb;
-  const float ct_ocx = ct_dot * d.x + ct_c * ocx * 2.0f;
-  const float ct_ocy = ct_dot * d.y + ct_c * ocy * 2.0f;
-  const float ct_ocz = ct_dot * d.z + ct_c * ocz * 2.0f;
+  const float ct_w = 4.0f * ct_disc;  // w = r^2 - q . q
+  ct_r = ct_r + ct_w * s.r * 2.0f;
+  const float ct_qx = -ct_w * v.qx * 2.0f;
+  const float ct_qy = -ct_w * v.qy * 2.0f;
+  const float ct_qz = -ct_w * v.qz * 2.0f;
+  const float ct_h = 2.0f * (-0.5f * ct_t2) - (ct_qx * d.x + ct_qy * d.y + ct_qz * d.z);
+  const float ct_ocx = ct_h * d.x + ct_qx;
+  const float ct_ocy = ct_h * d.y + ct_qy;
+  const float ct_ocz = ct_h * d.z + ct_qz;
   g[0] = -(ct_nxr + ct_ocx);
   g[1] = -(ct_nyr + ct_ocy);
   g[2] = -(ct_nzr + ct_ocz);
@@ -351,9 +370,9 @@ SOFT_HD void sphere_f_vjp(const SoftParams& p, const Sphere& s, Vec3 d, Vec3 o,
   g[4] = ct_col[0];
   g[5] = ct_col[1];
   g[6] = ct_col[2];
-  ct_d->x = ct_ds.x + ct_px * t_clip + ct_dot * ocx;
-  ct_d->y = ct_ds.y + ct_py * t_clip + ct_dot * ocy;
-  ct_d->z = ct_ds.z + ct_pz * t_clip + ct_dot * ocz;
+  ct_d->x = ct_ds.x + ct_px * t_clip + ct_h * ocx - ct_qx * v.h;
+  ct_d->y = ct_ds.y + ct_py * t_clip + ct_h * ocy - ct_qy * v.h;
+  ct_d->z = ct_ds.z + ct_pz * t_clip + ct_h * ocz - ct_qz * v.h;
   ct_o->x = ct_px + ct_ocx;
   ct_o->y = ct_py + ct_ocy;
   ct_o->z = ct_pz + ct_ocz;

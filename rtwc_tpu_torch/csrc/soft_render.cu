@@ -10,7 +10,7 @@
 //   K3 the unshadowed branch of `_soft_mse_fused_body` (:2526): K1's rgb
 //      sweep, masked MSE, its cotangents and K2's sweep in one pass;
 //   D3 `_twofloat_plane_sum` (tests/test_pallas_soft.py:283) becomes the
-//      two-float block sums here plus `soft_grad_reduce`.
+//      two-float block sums here plus the reduction `rtwc_soft_grad_reduce`.
 // The plain torch versions are in render/soft_kernel.py; the device
 // functions and hand-written adjoints in soft_common.cuh; the block sums
 // and the forward and backward sweeps in soft_block.cuh.
@@ -30,11 +30,10 @@
 // slot, compact), [T, NP, 12] plane rows, and two-float (hi, lo) pairs for
 // the camera position and basis cotangents and the loss. Within a block,
 // sums are warp butterflies (__shfl_down_sync) and then the warps' sums in
-// warp order, by one thread (csrc/soft_block.cuh). soft_grad_reduce sums
-// the partials: each of 256 threads walks a fixed chunk in tile order (for
-// a sphere: its main-list entries, then the shadow-list entries that the
-// shadowed kernels of csrc/soft_shadow.cu write), then a fixed tree. No
-// float atomics anywhere: the tables are bit-equal from launch to launch.
+// warp order (csrc/soft_block.cuh). The reduction below sums the partials
+// (and the shadow-list entries that the shadowed kernels of
+// csrc/soft_shadow.cu write) in a fixed order. No float atomics anywhere:
+// the tables are bit-equal from launch to launch.
 //
 // What bounds it. Per pixel, K1 does O(list + planes) object evaluations
 // (two transcendentals each in the penalties plus an exp per softmin step),
@@ -58,9 +57,16 @@
 
 using namespace soft;
 
+// Mirror: ReduceParams in render/soft_core.py, whose reduce_params() sets
+// the sizes below.
 struct ReduceParams {
   int ns, np, n_entries, n_tiles, ntf, device;
   int n_sh_entries;  // shadow-list sphere partials (K5, K6); 0 otherwise
+  int wc_keys;       // keys a warp counts and scatters, a multiple of 256
+  int n_wc;          // warp chunks: ceil((n_entries + n_sh_entries) / wc_keys)
+  int tch;           // tiles a first-pass plane or camera block sums, a multiple of 8
+  int n_tchunks;     // tile chunks: ceil(n_tiles / tch), at least 1
+  int n_schunks;     // sphere chunks at most: ceil(entries / RED_CHUNK) + 2 ns, at least 1
 };
 
 namespace {
@@ -131,14 +137,27 @@ soft_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
                      m, inv_s, gv, S, 0.0f, &sm, pvals, ppl, ptf);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+// Blocks an SM that K3 is built for: 3, at most 80 registers a thread. It
+// spills 60 B there (107 registers and no spill at 2) and is 12 % faster on
+// an H100 at 1080p (PERF.md section 6): the third block hides more latency
+// than the spilled stores cost.
+constexpr int K3_MIN_BLOCKS = 3;
+
+// K3: K1's rgb sweep, the masked MSE and its cotangents, then the backward
+// sweep of K5 and K6 (backward_sweep_slab) unshaded: the per-object sums
+// wait in the slab, the camera's and the loss's go through block_tf_rows,
+// and the per-pixel values the sweep re-reads wait in the stash.
+__global__ void __launch_bounds__(MAX_THREADS, K3_MIN_BLOCKS)
 soft_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
                 const float* __restrict__ pl_g, const int* __restrict__ lists,
                 const int* __restrict__ offsets, const float* __restrict__ tgt,
                 float* __restrict__ pvals, float* __restrict__ ppl, float* __restrict__ ptf) {
-  extern __shared__ float s_pl[];  // [12, NP] floats, then NS + NP gate ints
+  // [12, NP] floats, NS + NP gate ints, then the stash [ST_FIELDS, MAX_THREADS]
+  extern __shared__ float s_pl[];
   __shared__ Reduce sm;
+  __shared__ Slab sb;
   int* s_gate = reinterpret_cast<int*>(s_pl + PL_ROWS * p.np);
+  const Stash st(reinterpret_cast<float*>(s_gate + p.ns + p.np));
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int e = tid; e < p.ns + p.np; e += blockDim.x * blockDim.y) s_gate[e] = 0;
   stage_planes(p, pl_g, s_pl);
@@ -150,97 +169,393 @@ soft_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
   float acc[3] = {0.0f, 0.0f, 0.0f};
   softmin_sweep<3>(p, cam, sph, s_pl, lst, s_gate, r.d, o, &m, &s, acc);
   __syncthreads();  // the gates, written by thread 0, are read by all below
+  const Vec3 d = stash_ray(r, st);
   const float inv_s = 1.0f / s;
   const size_t plane = (size_t)p.hp * p.wp;
   const int row = blockIdx.y * p.bh + threadIdx.y, col = blockIdx.x * p.bw + threadIdx.x;
   const size_t pix = (size_t)row * p.wp + col;
   const float mask = (row < p.loss_h && col < p.loss_w) ? 1.0f : 0.0f;
-  float out[3], diff[3], gv[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float out[3], diff[3], gv[3];
   for (int c = 0; c < 3; ++c) {
     out[c] = acc[c] * inv_s;
     diff[c] = (out[c] - tgt[c * plane + pix]) * mask;
     gv[c] = p.loss_scale * diff[c];
   }
-  const float S = gv[0] * out[0] + gv[1] * out[1] + gv[2] * out[2];
-  const float loss_px = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2];
-  backward_sweep<13>(p, cam, sph, s_pl, lst, s_gate, tile, __ldg(offsets + tile), r, o, m, inv_s,
-                     gv, S, loss_px, &sm, pvals, ppl, ptf);
+  st.put(ST_M, m);
+  st.put(ST_INV_S, inv_s);
+  st.put(ST_S, gv[0] * out[0] + gv[1] * out[1] + gv[2] * out[2]);
+  for (int i = 0; i < 7; ++i) st.put(ST_GV + i, i < 3 ? gv[i] : 0.0f);
+  for (int i = 0; i < 3; ++i) {
+    st.put(ST_GD + i, 0.0f);
+    st.put(ST_GO + i, 0.0f);
+  }
+  st.put(ST_LOSS, diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]);
+  backward_sweep_slab<13, false>(p, cam, sph, s_pl, lst, s_gate, tile, __ldg(offsets + tile), d,
+                                 o, 1.0f, st, &sm, &sb, pvals, ppl, ptf);
 }
 
-__global__ void __launch_bounds__(256)
-soft_grad_reduce_kernel(ReduceParams rp, const float* __restrict__ pvals,
-                        const int* __restrict__ pidx, const float* __restrict__ psh,
-                        const int* __restrict__ pshidx, const float* __restrict__ ppl,
-                        const float* __restrict__ ptf, float* __restrict__ dsph,
-                        float* __restrict__ dpl, float* __restrict__ dtf) {
-  __shared__ float s_a[11][256];
-  __shared__ float s_e[256];
-  const int tid = threadIdx.x;
+// ---- D3, the gradient reduction ------------------------------------------
+//
+// Sums the kernels' per-block partials into dsph [8, NS], dpl [12, NP] and
+// the two-float camera and loss pairs [NTF, 2], in a fixed order, with no
+// float atomics: two launches give the same bits, and soft_grad_reduce_plain
+// (render/soft_kernel.py) gives them too. Five launches on one stream:
+//  1 count: each warp counts the sphere keys of wc_keys entries (key k for
+//    a main-list entry of sphere k, NS + k for a shadow-list one) in its
+//    own shared histogram (integer shared atomics), and its block adds its
+//    8 warps' counts; the other blocks sum tch tiles of the plane rows or of
+//    the camera pairs each (the first pass of those tables);
+//  2 prefix: one warp a key scans its counting blocks' counts: each block's
+//    first position within the key, and the key's total;
+//  3 scatter: each block scans the keys' totals into the keys' segments
+//    (and their chunks of RED_CHUNK entries, which block 0 writes out);
+//    each warp writes the sorted position of its entries after its key's
+//    segment start, its block's position and its block's earlier warps'
+//    counts, ranked within a round by __match_any_sync: a stable counting
+//    sort, tile order within a key;
+//  4 spheres: one block a chunk of a key's sorted entries, one entry a
+//    thread, each entry's values read once, summed as block_sum sums;
+//  5 final: one warp a sphere, a plane column or a camera slot sums the
+//    first passes' chunks, lane l chunks l, l + 32, ..., then a butterfly;
+//    a sphere's rows 0-3 add its shadow chunks' sum to its main chunks'.
+// What bounds it: each input is read once (the keys twice), about 1 MB at
+// 1080p and 17 MB at 4K / 200 spheres, 0.3-5 us at 3.35 TB/s; the five
+// dependent launches and the ranking of 3.8e5 keys at 4K set its time. The
+// counting blocks and the first passes put hundreds of blocks on the card
+// at 4K and at 1080p, where one block a sphere, plane and slot put 35.
+constexpr int RED_THREADS = 256, RED_WARPS = RED_THREADS / 32;
+constexpr int RED_CHUNK = RED_THREADS;  // sorted entries a sphere block sums
+constexpr int COL_GROUP = 128;          // plane columns a first-pass block sums
+constexpr int KEY_BATCH = 8;            // rounds of 32 keys whose loads a warp starts at once
+
+__device__ __forceinline__ int red_key(const ReduceParams& rp, const int* __restrict__ pidx,
+                                       const int* __restrict__ pshidx, int i) {
+  const bool main = i < rp.n_entries;
+  const int k = main ? __ldg(pidx + i) : __ldg(pshidx + (i - rp.n_entries));
+  return (k >= 0 && k < rp.ns) ? (main ? k : rp.ns + k) : -1;  // out of range: dropped
+}
+
+// Warp chunk wc's keys in rounds of 32, in order; round(key, i) runs on
+// every lane, key -1 where entry i is past the chunk or its sphere index
+// out of range, then the warp syncs.
+template <typename Round>
+__device__ __forceinline__ void warp_key_rounds(const ReduceParams& rp,
+                                                const int* __restrict__ pidx,
+                                                const int* __restrict__ pshidx, int wc,
+                                                Round&& round) {
+  const int lane = threadIdx.x & 31;
+  const int end = min(rp.n_entries + rp.n_sh_entries, (wc + 1) * rp.wc_keys);
+  for (int b0 = wc * rp.wc_keys; b0 < end; b0 += 32 * KEY_BATCH) {
+    int key[KEY_BATCH];
+#pragma unroll
+    for (int j = 0; j < KEY_BATCH; ++j) {
+      const int i = b0 + j * 32 + lane;
+      key[j] = i < end ? red_key(rp, pidx, pshidx, i) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < KEY_BATCH; ++j) {
+      round(key[j], b0 + j * 32 + lane);
+      __syncwarp();
+    }
+  }
+}
+
+// Exclusive scan of x[0, n) in place by one block of THREADS threads, in
+// tiles of THREADS * SCAN_ITEMS staged through s_tile (coalesced loads and
+// stores; each thread scans SCAN_ITEMS neighbours); returns the total.
+constexpr int SCAN_ITEMS = 8;
+
+template <int THREADS>
+__device__ int block_scan(int* x, int n, int* s_tile, int* s_warp) {
+  constexpr int NW = THREADS / 32, TILE = THREADS * SCAN_ITEMS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int carry = 0;
+  for (int t0 = 0; t0 < n; t0 += TILE) {
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      const int i = t0 + j * THREADS + tid;
+      s_tile[j * THREADS + tid] = i < n ? x[i] : 0;
+    }
+    __syncthreads();
+    int v[SCAN_ITEMS], sum = 0;
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      v[j] = s_tile[tid * SCAN_ITEMS + j];
+      sum += v[j];
+    }
+    int incl = sum;  // inclusive scan over the block: warps, then the warps' totals
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int t = lane < NW ? s_warp[lane] : 0;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, t, off);
+        if (lane >= off) t += y;
+      }
+      if (lane < NW) s_warp[lane] = t;  // inclusive totals of warps 0..lane
+    }
+    __syncthreads();
+    int run = carry + incl - sum + (warp > 0 ? s_warp[warp - 1] : 0);
+    carry += s_warp[NW - 1];
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      s_tile[tid * SCAN_ITEMS + j] = run;
+      run += v[j];
+    }
+    __syncthreads();
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      const int i = t0 + j * THREADS + tid;
+      if (i < n) x[i] = s_tile[j * THREADS + tid];
+    }
+    __syncthreads();  // s_tile and s_warp are free again
+  }
+  return carry;
+}
+
+__global__ void __launch_bounds__(RED_THREADS)
+soft_grad_reduce_count(ReduceParams rp, const int* __restrict__ pidx,
+                       const int* __restrict__ pshidx, const float* __restrict__ ppl,
+                       const float* __restrict__ ptf, int* __restrict__ counts,
+                       int* __restrict__ wcounts, float* __restrict__ ppart,
+                       float* __restrict__ cpart) {
+  extern __shared__ int s_red[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nkeys = 2 * rp.ns;
+  const int n_count = (rp.n_wc + RED_WARPS - 1) / RED_WARPS;
+  const int W = rp.np * PL_ROWS, n_groups = (W + COL_GROUP - 1) / COL_GROUP;
+  int b = blockIdx.x;
+  if (b < n_count) {  // the histograms of a block's 8 warp chunks, and their total
+    int* hist = s_red + warp * nkeys;
+    for (int k = lane; k < nkeys; k += 32) hist[k] = 0;
+    __syncwarp();
+    const int wc = b * RED_WARPS + warp;
+    if (wc < rp.n_wc)
+      warp_key_rounds(rp, pidx, pshidx, wc, [&](int key, int) {
+        if (key >= 0) atomicAdd(hist + key, 1);
+      });
+    __syncthreads();
+    for (int k = threadIdx.x; k < nkeys; k += RED_THREADS) {
+      int tot = 0;
+      for (int w = 0; w < RED_WARPS; ++w) {
+        const int c = s_red[w * nkeys + k];
+        wcounts[((size_t)b * RED_WARPS + w) * nkeys + k] = c;
+        tot += c;
+      }
+      counts[(size_t)k * n_count + b] = tot;
+    }
+    return;
+  }
+  b -= n_count;
+  float* sf = reinterpret_cast<float*>(s_red);
+  if (b < rp.n_tchunks * n_groups) {  // plane rows: tch tiles, COL_GROUP columns
+    const int c = b / n_groups, g = b - c * n_groups;
+    float acc[COL_GROUP / 32];
+    for (int j = 0; j < COL_GROUP / 32; ++j) acc[j] = 0.0f;
+    for (int i = 0; i < rp.tch / RED_WARPS; ++i) {
+      const int t = c * rp.tch + i * RED_WARPS + warp;
+      if (t >= rp.n_tiles) break;
+      for (int j = 0; j < COL_GROUP / 32; ++j) {
+        const int col = g * COL_GROUP + j * 32 + lane;
+        if (col < W) acc[j] = acc[j] + __ldg(ppl + (size_t)t * W + col);
+      }
+    }
+    for (int j = 0; j < COL_GROUP / 32; ++j) sf[warp * COL_GROUP + j * 32 + lane] = acc[j];
+    __syncthreads();
+    const int col = g * COL_GROUP + threadIdx.x;
+    if (threadIdx.x < COL_GROUP && col < W) {
+      float a = sf[threadIdx.x];
+      for (int w = 1; w < RED_WARPS; ++w) a = a + sf[w * COL_GROUP + threadIdx.x];
+      ppart[(size_t)c * W + col] = a;
+    }
+    return;
+  }
+  b -= rp.n_tchunks * n_groups;  // camera pairs: tch tiles, error-free
+  float s = 0.0f, e = 0.0f;
+  if (lane < rp.ntf)
+    for (int i = 0; i < rp.tch / RED_WARPS; ++i) {
+      const int t = b * rp.tch + i * RED_WARPS + warp;
+      if (t >= rp.n_tiles) break;
+      const float2 x = __ldg(reinterpret_cast<const float2*>(ptf) + (size_t)t * rp.ntf + lane);
+      tf_combine(s, e, x.x, x.y, &s, &e);
+    }
+  if (lane < rp.ntf) {
+    sf[(warp * rp.ntf + lane) * 2] = s;
+    sf[(warp * rp.ntf + lane) * 2 + 1] = e;
+  }
+  __syncthreads();
+  if (threadIdx.x < rp.ntf) {
+    const int slot = threadIdx.x;
+    float a = sf[slot * 2], ae = sf[slot * 2 + 1];
+    for (int w = 1; w < RED_WARPS; ++w)
+      tf_combine(a, ae, sf[(w * rp.ntf + slot) * 2], sf[(w * rp.ntf + slot) * 2 + 1], &a, &ae);
+    cpart[((size_t)b * rp.ntf + slot) * 2] = a;
+    cpart[((size_t)b * rp.ntf + slot) * 2 + 1] = ae;
+  }
+}
+
+__global__ void __launch_bounds__(RED_THREADS)
+soft_grad_reduce_prefix(ReduceParams rp, int* __restrict__ counts, int* __restrict__ totals) {
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * RED_WARPS + (threadIdx.x >> 5);
+  if (k >= 2 * rp.ns) return;
+  const int n_count = (rp.n_wc + RED_WARPS - 1) / RED_WARPS;
+  int* row = counts + (size_t)k * n_count;
+  int carry = 0;
+  for (int b0 = 0; b0 < n_count; b0 += 32) {
+    const int c = b0 + lane < n_count ? row[b0 + lane] : 0;
+    int incl = c;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (b0 + lane < n_count) row[b0 + lane] = carry + incl - c;
+    carry += __shfl_sync(FULL, incl, 31);
+  }
+  if (lane == 0) totals[k] = carry;
+}
+
+__global__ void __launch_bounds__(RED_THREADS)
+soft_grad_reduce_scatter(ReduceParams rp, const int* __restrict__ pidx,
+                         const int* __restrict__ pshidx, const int* __restrict__ prefix,
+                         const int* __restrict__ wcounts, int* __restrict__ totals,
+                         int* __restrict__ seg, int* __restrict__ cbase, int* __restrict__ perm) {
+  // [8, 2 NS] the warps' next positions, [2 NS + 1] the segments, then a scan tile
+  extern __shared__ int s_red[];
+  __shared__ int s_warp[RED_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nkeys = 2 * rp.ns;
+  const int n_count = (rp.n_wc + RED_WARPS - 1) / RED_WARPS;
+  int* s_seg = s_red + RED_WARPS * nkeys;
+  int* s_tile = s_seg + nkeys + 1;
+  for (int k = threadIdx.x; k < nkeys; k += RED_THREADS) s_seg[k] = __ldg(totals + k);
+  __syncthreads();
+  const int total = block_scan<RED_THREADS>(s_seg, nkeys, s_tile, s_warp);
+  if (threadIdx.x == 0) s_seg[nkeys] = total;
+  __syncthreads();
+  if (blockIdx.x == 0) {  // the segments and their chunks, for the last two launches
+    for (int k = threadIdx.x; k <= nkeys; k += RED_THREADS) seg[k] = s_seg[k];
+    for (int k = threadIdx.x; k < nkeys; k += RED_THREADS)
+      cbase[k] = (s_seg[k + 1] - s_seg[k] + RED_CHUNK - 1) / RED_CHUNK;
+    __syncthreads();
+    const int n_chunks = block_scan<RED_THREADS>(cbase, nkeys, s_tile, s_warp);
+    if (threadIdx.x == 0) cbase[nkeys] = n_chunks;
+  }
+  if ((int)blockIdx.x >= n_count) return;
+  for (int k = threadIdx.x; k < nkeys; k += RED_THREADS) {
+    int r = s_seg[k] + __ldg(prefix + (size_t)k * n_count + blockIdx.x);
+    for (int w = 0; w < RED_WARPS; ++w) {
+      const int c = __ldg(wcounts + ((size_t)blockIdx.x * RED_WARPS + w) * nkeys + k);
+      s_red[w * nkeys + k] = r;
+      r += c;
+    }
+  }
+  __syncthreads();
+  const int wc = blockIdx.x * RED_WARPS + warp;
+  if (wc >= rp.n_wc) return;
+  int* run = s_red + warp * nkeys;
+  warp_key_rounds(rp, pidx, pshidx, wc, [&](int key, int i) {
+    const unsigned peers = __match_any_sync(FULL, key);
+    if (key < 0) return;
+    perm[run[key] + __popc(peers & ((1u << lane) - 1u))] = i;
+    __syncwarp(peers);
+    if (lane == __ffs(peers) - 1) run[key] += __popc(peers);
+  });
+}
+
+__global__ void __launch_bounds__(RED_THREADS)
+soft_grad_reduce_spheres(ReduceParams rp, const float* __restrict__ pvals,
+                         const float* __restrict__ psh, const int* __restrict__ seg,
+                         const int* __restrict__ cbase, const int* __restrict__ perm,
+                         float* __restrict__ spart) {
+  __shared__ float s_sum[RED_WARPS][7];
+  extern __shared__ int s_cbase[];  // cbase [2 NS + 1]
+  const int nkeys = 2 * rp.ns;
   const int b = blockIdx.x;
-  if (b < rp.ns) {  // one sphere: its entries, in tile order, then its shadow entries
-    const int k = b;
-    const int chunk = max(1, (rp.n_entries + 255) / 256);
-    float acc[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    const int e1 = min(rp.n_entries, (tid + 1) * chunk);
-    for (int e = tid * chunk; e < e1; ++e)
-      if (__ldg(pidx + e) == k)
-        for (int i = 0; i < 7; ++i) acc[i] = acc[i] + __ldg(pvals + (size_t)e * 8 + i);
-    const int chunk_sh = max(1, (rp.n_sh_entries + 255) / 256);
-    const int e2 = min(rp.n_sh_entries, (tid + 1) * chunk_sh);
-    for (int e = tid * chunk_sh; e < e2; ++e)
-      if (__ldg(pshidx + e) == k)
-        for (int i = 0; i < 4; ++i) acc[i] = acc[i] + __ldg(psh + (size_t)e * 4 + i);
-    for (int i = 0; i < 7; ++i) s_a[i][tid] = acc[i];
-    __syncthreads();
-    for (int stride = 128; stride > 0; stride >>= 1) {
-      if (tid < stride)
-        for (int i = 0; i < 7; ++i) s_a[i][tid] = s_a[i][tid] + s_a[i][tid + stride];
-      __syncthreads();
+  if (b >= __ldg(cbase + nkeys)) return;  // block-uniform
+  for (int k = threadIdx.x; k <= nkeys; k += RED_THREADS) s_cbase[k] = __ldg(cbase + k);
+  __syncthreads();
+  int lo = 0, hi = nkeys - 1;  // the last key whose chunks start at or before b
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (s_cbase[mid] <= b) lo = mid; else hi = mid - 1;
+  }
+  const int key = lo;
+  const int row = __ldg(seg + key) + (b - s_cbase[key]) * RED_CHUNK + threadIdx.x;
+  float v[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (row < __ldg(seg + key + 1)) {
+    const int e = __ldg(perm + row);
+    if (key < rp.ns) {  // a main-list entry: 7 of its 8 floats
+      const float4 a = __ldg(reinterpret_cast<const float4*>(pvals) + (size_t)e * 2);
+      const float4 c = __ldg(reinterpret_cast<const float4*>(pvals) + (size_t)e * 2 + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = c.x; v[5] = c.y; v[6] = c.z;
+    } else {  // a shadow-list entry: 4 floats
+      const float4 a = __ldg(reinterpret_cast<const float4*>(psh) + (size_t)(e - rp.n_entries));
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     }
-    if (tid == 0) {
-      for (int i = 0; i < 7; ++i) dsph[i * rp.ns + k] = s_a[i][0];
-      dsph[7 * rp.ns + k] = 0.0f;
+  }
+  warp_sum<7>(v);  // block_sum's order: warp butterflies, then the warps in order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0)
+    for (int i = 0; i < 7; ++i) s_sum[warp][i] = v[i];
+  __syncthreads();
+  if (threadIdx.x < 7) {
+    float a = s_sum[0][threadIdx.x];
+    for (int w = 1; w < RED_WARPS; ++w) a = a + s_sum[w][threadIdx.x];
+    spart[(size_t)b * 8 + threadIdx.x] = a;
+  }
+}
+
+// A warp's sum of key's chunk partials: lane l chunks l, l + 32, ..., then
+// the butterfly; lane 0 ends with the first N values' totals.
+template <int N>
+__device__ __forceinline__ void warp_chunks(const int* __restrict__ cbase,
+                                            const float* __restrict__ spart, int key,
+                                            float v[N]) {
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < N; ++i) v[i] = 0.0f;
+  for (int c = __ldg(cbase + key) + lane; c < __ldg(cbase + key + 1); c += 32)
+    for (int i = 0; i < N; ++i) v[i] = v[i] + __ldg(spart + (size_t)c * 8 + i);
+  warp_sum<N>(v);
+}
+
+__global__ void __launch_bounds__(RED_THREADS)
+soft_grad_reduce_final(ReduceParams rp, const int* __restrict__ cbase,
+                       const float* __restrict__ spart, const float* __restrict__ ppart,
+                       const float* __restrict__ cpart, float* __restrict__ dsph,
+                       float* __restrict__ dpl, float* __restrict__ dtf) {
+  const int lane = threadIdx.x & 31;
+  const int q = blockIdx.x * RED_WARPS + (threadIdx.x >> 5);  // one warp a sphere, column, slot
+  const int W = rp.np * PL_ROWS;
+  if (q < rp.ns) {  // a sphere: its main chunks, then rows 0-3 plus its shadow chunks
+    float v[7], sh[4];
+    warp_chunks<7>(cbase, spart, q, v);
+    warp_chunks<4>(cbase, spart, rp.ns + q, sh);
+    if (lane == 0) {
+      for (int i = 0; i < 7; ++i) dsph[i * rp.ns + q] = i < 4 ? v[i] + sh[i] : v[i];
+      dsph[7 * rp.ns + q] = 0.0f;
     }
-  } else if (b < rp.ns + rp.np) {  // one plane: every tile's row
-    const int k = b - rp.ns;
-    const int chunk = max(1, (rp.n_tiles + 255) / 256);
-    float acc[11];
-    for (int i = 0; i < 11; ++i) acc[i] = 0.0f;
-    const int t1 = min(rp.n_tiles, (tid + 1) * chunk);
-    for (int t = tid * chunk; t < t1; ++t)
-      for (int i = 0; i < 11; ++i)
-        acc[i] = acc[i] + __ldg(ppl + ((size_t)t * rp.np + k) * PL_ROWS + i);
-    for (int i = 0; i < 11; ++i) s_a[i][tid] = acc[i];
-    __syncthreads();
-    for (int stride = 128; stride > 0; stride >>= 1) {
-      if (tid < stride)
-        for (int i = 0; i < 11; ++i) s_a[i][tid] = s_a[i][tid] + s_a[i][tid + stride];
-      __syncthreads();
-    }
-    if (tid == 0) {
-      for (int i = 0; i < 11; ++i) dpl[i * rp.np + k] = s_a[i][0];
-      dpl[11 * rp.np + k] = 0.0f;
-    }
-  } else {  // one two-float slot: every tile's (hi, lo), error-free
-    const int slot = b - rp.ns - rp.np;
-    const int chunk = max(1, (rp.n_tiles + 255) / 256);
+  } else if (q < rp.ns + W) {  // a plane column
+    const int col = q - rp.ns;
+    float v = 0.0f;
+    for (int c = lane; c < rp.n_tchunks; c += 32) v = v + __ldg(ppart + (size_t)c * W + col);
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
+    const int row = col % PL_ROWS, k = col / PL_ROWS;
+    if (lane == 0) dpl[row * rp.np + k] = row == PL_ROWS - 1 ? 0.0f : v;  // the active row
+  } else if (q < rp.ns + W + rp.ntf) {  // a camera or loss slot, error-free
+    const int slot = q - rp.ns - W;
     float s = 0.0f, e = 0.0f;
-    const int t1 = min(rp.n_tiles, (tid + 1) * chunk);
-    for (int t = tid * chunk; t < t1; ++t)
-      tf_combine(s, e, __ldg(ptf + ((size_t)t * rp.ntf + slot) * 2),
-                 __ldg(ptf + ((size_t)t * rp.ntf + slot) * 2 + 1), &s, &e);
-    s_a[0][tid] = s;
-    s_e[tid] = e;
-    __syncthreads();
-    for (int stride = 128; stride > 0; stride >>= 1) {
-      if (tid < stride)
-        tf_combine(s_a[0][tid], s_e[tid], s_a[0][tid + stride], s_e[tid + stride], &s_a[0][tid],
-                   &s_e[tid]);
-      __syncthreads();
+    for (int c = lane; c < rp.n_tchunks; c += 32)
+      tf_combine(s, e, __ldg(cpart + ((size_t)c * rp.ntf + slot) * 2),
+                 __ldg(cpart + ((size_t)c * rp.ntf + slot) * 2 + 1), &s, &e);
+    for (int off = 16; off > 0; off >>= 1) {
+      const float s2 = __shfl_down_sync(FULL, s, off);
+      const float e2 = __shfl_down_sync(FULL, e, off);
+      tf_combine(s, e, s2, e2, &s, &e);
     }
-    if (tid == 0) {
-      dtf[slot * 2] = s_a[0][0];
-      dtf[slot * 2 + 1] = s_e[0];
+    if (lane == 0) {
+      dtf[slot * 2] = s;
+      dtf[slot * 2 + 1] = e;
     }
   }
 }
@@ -278,23 +593,70 @@ extern "C" int rtwc_soft_mse(const float* cam, const float* sph, const float* pl
                              float* pvals, float* ppl, float* ptf, const SoftParams* params,
                              void* stream) {
   const SoftParams p = *params;
-  const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np + sizeof(int) * (size_t)(p.ns + p.np);
-  if (int rc = prepare(soft_mse_kernel, p, smem)) return rc;
+  const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np + sizeof(int) * (size_t)(p.ns + p.np) +
+                      sizeof(float) * ST_FIELDS * MAX_THREADS;
+  if (int rc = prepare(soft_mse_kernel, p, smem, sizeof(Reduce) + sizeof(Slab))) return rc;
   soft_mse_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
                     (cudaStream_t)stream>>>(p, cam, sph, pl, lists, offsets, tgt, pvals, ppl,
                                             ptf);
   return (int)cudaGetLastError();
 }
 
+// The reduction's five launches. With n_count = ceil(n_wc / 8) counting
+// blocks, iws holds counts [2 NS, n_count] (scanned in place per key),
+// wcounts [n_count, 8, 2 NS], totals [2 NS], seg [2 NS + 1], cbase
+// [2 NS + 1] and perm [entries]; fws holds spart [n_schunks, 8], ppart
+// [n_tchunks, 12 NP] and cpart [n_tchunks, NTF, 2] (render/soft_core.py
+// reduce_params sizes them).
 extern "C" int rtwc_soft_grad_reduce(const float* pvals, const int* pidx, const float* psh,
                                      const int* pshidx, const float* ppl, const float* ptf,
-                                     float* dsph, float* dpl, float* dtf,
+                                     float* dsph, float* dpl, float* dtf, int* iws, float* fws,
                                      const ReduceParams* params, void* stream) {
   const ReduceParams rp = *params;
   cudaError_t err = cudaSetDevice(rp.device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = rp.ns + rp.np + rp.ntf;
-  soft_grad_reduce_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(rp, pvals, pidx, psh, pshidx,
-                                                                    ppl, ptf, dsph, dpl, dtf);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int nkeys = 2 * rp.ns, W = rp.np * PL_ROWS;
+  const int n_count = (rp.n_wc + RED_WARPS - 1) / RED_WARPS;
+  int* counts = iws;
+  int* wcounts = counts + (size_t)nkeys * n_count;
+  int* totals = wcounts + (size_t)n_count * RED_WARPS * nkeys;
+  int* seg = totals + nkeys;
+  int* cbase = seg + nkeys + 1;
+  int* perm = cbase + nkeys + 1;
+  float* spart = fws;
+  float* ppart = spart + (size_t)rp.n_schunks * 8;
+  float* cpart = ppart + (size_t)rp.n_tchunks * W;
+  const size_t hist_smem = sizeof(int) * RED_WARPS * (size_t)nkeys;
+  const size_t count_smem = hist_smem > sizeof(float) * RED_WARPS * COL_GROUP
+                                ? hist_smem : sizeof(float) * RED_WARPS * COL_GROUP;
+  const size_t scatter_smem =
+      hist_smem + sizeof(int) * ((size_t)nkeys + 1 + RED_THREADS * SCAN_ITEMS);
+  const size_t cbase_smem = sizeof(int) * (size_t)(nkeys + 1);
+  if (count_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(soft_grad_reduce_count, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)count_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (scatter_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(soft_grad_reduce_scatter,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)scatter_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_groups = (W + COL_GROUP - 1) / COL_GROUP;
+  soft_grad_reduce_count<<<n_count + rp.n_tchunks * (n_groups + 1), RED_THREADS, count_smem,
+                           st>>>(rp, pidx, pshidx, ppl, ptf, counts, wcounts, ppart, cpart);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int n_prefix = nkeys > 0 ? (nkeys + RED_WARPS - 1) / RED_WARPS : 1;
+  soft_grad_reduce_prefix<<<n_prefix, RED_THREADS, 0, st>>>(rp, counts, totals);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  soft_grad_reduce_scatter<<<n_count > 0 ? n_count : 1, RED_THREADS, scatter_smem, st>>>(
+      rp, pidx, pshidx, counts, wcounts, totals, seg, cbase, perm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  soft_grad_reduce_spheres<<<rp.n_schunks, RED_THREADS, cbase_smem, st>>>(
+      rp, pvals, psh, seg, cbase, perm, spart);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  soft_grad_reduce_final<<<(rp.ns + W + rp.ntf + RED_WARPS - 1) / RED_WARPS, RED_THREADS, 0,
+                           st>>>(rp, cbase, spart, ppart, cpart, dsph, dpl, dtf);
   return (int)cudaGetLastError();
 }

@@ -345,16 +345,8 @@ __device__ void sh_backward(const SoftParams& p, const float* __restrict__ cam,
   st.put(ST_GO, ctp.x);
   st.put(ST_GO + 1, ctp.y);
   st.put(ST_GO + 2, ctp.z);
-  backward_sweep_slab<NTFB>(p, cam, sph, s_pl, lst, gate0, tile, offset, d, o, st.get(ST_VIS), st,
-                            sm, sb, pvals, ppl, ptf);
-}
-
-// The stash's camera-sum fields from the block's ray; returns its direction.
-__device__ __forceinline__ Vec3 stash_ray(const Ray& r, Stash st) {
-  st.put(ST_VX, r.vx);
-  st.put(ST_VY, r.vy);
-  st.put(ST_RINV, r.inv);
-  return r.d;
+  backward_sweep_slab<NTFB, true>(p, cam, sph, s_pl, lst, gate0, tile, offset, d, o,
+                                  st.get(ST_VIS), st, sm, sb, pvals, ppl, ptf);
 }
 
 __device__ __forceinline__ int tile_index(const SoftParams& p) {

@@ -86,12 +86,42 @@ class ReduceParams(ctypes.Structure):
 
     _fields_ = [("ns", ctypes.c_int), ("np", ctypes.c_int), ("n_entries", ctypes.c_int),
                 ("n_tiles", ctypes.c_int), ("ntf", ctypes.c_int), ("device", ctypes.c_int),
-                ("n_sh_entries", ctypes.c_int)]
+                ("n_sh_entries", ctypes.c_int), ("wc_keys", ctypes.c_int),
+                ("n_wc", ctypes.c_int), ("tch", ctypes.c_int), ("n_tchunks", ctypes.c_int),
+                ("n_schunks", ctypes.c_int)]
+
+
+RED_CHUNK = 256        # sorted entries a first-pass sphere block sums (one a thread)
+RED_TILE_CHUNKS = 256  # about this many first-pass blocks each for planes and camera
+RED_WARP_CHUNKS = 2048  # about this many warps count and scatter the sphere keys
+
+
+def reduce_tile_chunk(n_tiles: int) -> int:
+    """Tiles a first-pass plane or camera block of the reduction sums: a
+    multiple of its 8 warps, so that about RED_TILE_CHUNKS blocks cover the
+    tiles (a part of the sum order, which soft_grad_reduce_plain follows)."""
+    return 8 * max(1, -(-n_tiles // (8 * RED_TILE_CHUNKS)))
+
+
+def reduce_params(ns: int, npl: int, n: int, n_sh: int, n_tiles: int, ntf: int, device: int):
+    """(ReduceParams, int workspace length, float workspace length) of one
+    reduction; the C entry carves the workspaces as its comment says."""
+    N = n + n_sh
+    wc_keys = 256 * max(1, -(-N // (256 * RED_WARP_CHUNKS)))  # whole batches of 8 rounds
+    tch = reduce_tile_chunk(n_tiles)
+    prm = ReduceParams(ns=ns, np=npl, n_entries=n, n_tiles=n_tiles, ntf=ntf, device=device,
+                       n_sh_entries=n_sh, wc_keys=wc_keys, n_wc=-(-N // wc_keys), tch=tch,
+                       n_tchunks=max(1, -(-n_tiles // tch)),
+                       n_schunks=max(1, -(-N // RED_CHUNK) + 2 * ns))
+    n_count = -(-prm.n_wc // 8)  # blocks of 8 counting warps
+    n_int = 2 * ns * n_count * 9 + 2 * ns + 2 * (2 * ns + 1) + N
+    n_float = prm.n_schunks * 8 + prm.n_tchunks * (npl * P.PL_ROWS + ntf * 2)
+    return prm, n_int, n_float
 
 
 # C entry -> (library, number of pointer arguments)
 _ENTRIES = {"rtwc_soft_fwd": ("soft_render", 6), "rtwc_soft_bwd": ("soft_render", 11),
-            "rtwc_soft_mse": ("soft_render", 9), "rtwc_soft_grad_reduce": ("soft_render", 9),
+            "rtwc_soft_mse": ("soft_render", 9), "rtwc_soft_grad_reduce": ("soft_render", 11),
             "rtwc_soft_sh_fwd": ("soft_shadow", 8), "rtwc_soft_sh_bwd": ("soft_shadow", 14),
             "rtwc_soft_sh_mse": ("soft_shadow", 12)}
 

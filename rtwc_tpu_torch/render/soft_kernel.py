@@ -25,11 +25,12 @@ and K3 never add into a global table. Each block writes partials:
   - two-float (hi, lo) pairs [T, 13, 2]: the camera position (0-2) and
     basis (3-11) cotangents, and the MSE loss (12). The basis sums cancel
     badly, so they stay two-float all the way (pallas_soft.py:573-577).
-`soft_grad_reduce` then sums them in a fixed order (each of 256 threads
-walks a fixed chunk in tile order, then a fixed tree), with no atomics:
-two launches on the same inputs give bit-equal tables. Inside a block the
-per-object sums are warp butterflies, then the warps' sums in warp order;
-the plain versions below reproduce both orders.
+`soft_grad_reduce` then sums them in a fixed order (the entries grouped by
+sphere with a counting sort, chunks of them and of the tiles summed by
+blocks, then the chunks in order), with no float atomics: two launches on
+the same inputs give bit-equal tables. Inside a block the per-object sums
+are warp butterflies, then the warps' sums in warp order; the plain
+versions below reproduce both orders.
 
 Wrappers (`soft_fwd`, `soft_bwd`, `soft_mse`, `soft_grad_reduce`) run the
 plain version for CPU tensors only; for CUDA tensors they launch the kernel
@@ -51,81 +52,129 @@ import torch
 from rtwc_tpu_torch.config import RenderConfig
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render import shadow_kernel as SH
+from rtwc_tpu_torch.render import soft_core as C
 from rtwc_tpu_torch.render import soft_objects as O
 from rtwc_tpu_torch.render.broad_phase import sphere_tile_lists
 from rtwc_tpu_torch.render.reference import Framebuffer
 from rtwc_tpu_torch.render.soft_core import (  # noqa: F401 (LAUNCHES, NTF: shared names)
     LAUNCHES, NTF, SLOT_LOSS, SO_ALPHA, SO_B, SO_DEPTH, SO_M, SO_NX, SO_NZ, SO_R, SO_S,
-    ReduceParams, SoftSpec, _accumulate, _backward_sweep, _check, _device_index, _launch,
-    _packed, _params, _partials, _ray_planes, _spec, block_tf_sum_plain, list_entries,
+    SoftSpec, _accumulate, _backward_sweep, _check, _device_index, _launch, _packed, _params,
+    _partials, _ray_planes, _spec, block_sum_plain, block_tf_sum_plain, list_entries,
     object_sweep, tile_view)
 
 N_PLANES = 10
-RED_THREADS = 256  # threads of one soft_grad_reduce block
 
 
 # -- the reduction's plain version ------------------------------------------------
 
-def _chunked(x: torch.Tensor, fill):
-    """[n, ...] -> [RED_THREADS, chunk, ...]: thread j takes items
-    j*chunk .. (j+1)*chunk - 1 (padding with `fill`)."""
-    n = x.shape[0]
-    chunk = max(1, -(-n // RED_THREADS))
-    pad = RED_THREADS * chunk - n
+def _warp_passes(x: torch.Tensor, combine=None, err=None):
+    """The last pass over the first-pass chunks (dim 0), per column: lane l
+    of a warp sums chunks l, l + 32, ... in order, then the warp butterfly
+    (csrc/soft_render.cu soft_grad_reduce_final). combine / err: the
+    two-float version."""
+    pad = -x.shape[0] % 32
     if pad:
-        x = torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
-                                     device=x.device)])
-    return x.reshape(RED_THREADS, chunk, *x.shape[1:])
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        if err is not None:
+            err = torch.cat([err, err.new_zeros((pad,) + tuple(err.shape[1:]))])
+    x = x.reshape(x.shape[0] // 32, 32, *x.shape[1:])
+    acc = torch.zeros_like(x[0])
+    if err is None:
+        for i in range(x.shape[0]):
+            acc = acc + x[i]
+        for off in (16, 8, 4, 2, 1):
+            acc = acc[:off] + acc[off:2 * off]
+        return acc[0]
+    err = err.reshape(x.shape)
+    acc_e = torch.zeros_like(acc)
+    for i in range(x.shape[0]):
+        acc, acc_e = combine(acc, acc_e, x[i], err[i])
+    for off in (16, 8, 4, 2, 1):
+        acc, acc_e = combine(acc[:off], acc_e[:off], acc[off:2 * off], acc_e[off:2 * off])
+    return acc[0], acc_e[0]
 
 
-def _tree(acc: torch.Tensor, combine=None, err=None):
-    """Fixed tree over dim 0 (RED_THREADS): s[i] += s[i + stride]."""
-    stride = RED_THREADS // 2
-    while stride:
-        if combine is None:
-            acc = acc[:stride] + acc[stride:2 * stride]
-        else:
-            acc, err = combine(acc[:stride], err[:stride], acc[stride:2 * stride],
-                               err[stride:2 * stride])
-        stride //= 2
-    return acc[0] if combine is None else (acc[0], err[0])
+def _tile_passes(x: torch.Tensor, combine=None, err=None):
+    """The first pass over the tiles (dim 0): a block sums tch tiles, warp w
+    tiles w, w + 8, ... in order, then its 8 warps in order. Returns the
+    chunks' sums [n_tchunks, ...] (two-float, with combine and err: sums
+    and errors)."""
+    T = x.shape[0]
+    tch = C.reduce_tile_chunk(T)
+    n_ch = max(1, -(-T // tch))
+
+    def chunks(t):  # tile c*tch + i*8 + w at [c, i, w]
+        t = torch.cat([t, t.new_zeros((n_ch * tch - T,) + tuple(t.shape[1:]))])
+        return t.reshape(n_ch, tch // 8, 8, *t.shape[1:])
+
+    x = chunks(x)
+    acc = torch.zeros_like(x[:, 0])
+    if combine is None:
+        for i in range(x.shape[1]):
+            acc = acc + x[:, i]
+        out = acc[:, 0]
+        for w in range(1, 8):
+            out = out + acc[:, w]
+        return out
+    e = chunks(err)
+    acc_e = torch.zeros_like(acc)
+    for i in range(x.shape[1]):
+        acc, acc_e = combine(acc, acc_e, x[:, i], e[:, i])
+    out, out_e = acc[:, 0], acc_e[:, 0]
+    for w in range(1, 8):
+        out, out_e = combine(out, out_e, acc[:, w], acc_e[:, w])
+    return out, out_e
 
 
 def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
-    """The reduction kernel's sums in its order: returns dsph [8, NS],
-    dpl [12, NP] and the two-float pairs [NTF, 2]. psh [E_sh, 4] / pshidx:
-    the shadowed kernels' occluder partials, added to rows 0-3 after each
-    thread's main entries."""
+    """The reduction kernels' sums in their order (csrc/soft_render.cu):
+    returns dsph [8, NS], dpl [12, NP] and the two-float pairs [NTF, 2].
+    psh [E_sh, 4] / pshidx: the shadowed kernels' occluder partials, added
+    to rows 0-3 after a sphere's main entries. Entries are grouped by
+    sphere, main list first, in tile order within a sphere (a stable sort);
+    a first pass sums each group's chunks of RED_CHUNK entries as a block
+    sum, the last sums a group's chunks as a warp does (_warp_passes) and
+    adds a sphere's shadow sums to rows 0-3 of its main ones. The plane
+    rows and camera pairs are summed over chunks of tiles, then over the
+    chunks (_tile_passes, _warp_passes). Entries whose sphere index lies
+    outside [0, ns) are dropped."""
     dev = pvals.device
-    vals = _chunked(pvals, 0.0)                                  # [R, C, 8]
-    idx = _chunked(pidx, -1)                                     # [R, C]
-    objs = torch.arange(ns, device=dev)
-    acc = torch.zeros((RED_THREADS, ns, 8), dtype=torch.float32, device=dev)
-    for j in range(vals.shape[1]):
-        hit = (idx[:, j, None] == objs[None, :])[..., None]     # [R, NS, 1]
-        acc = acc + torch.where(hit, vals[:, j, None, :], 0.0)
+    n = pidx.shape[0]
+    keys, vals = [pidx.long()], [pvals[:n]]
     if pshidx is not None and pshidx.shape[0]:
-        svals = _chunked(psh, 0.0)                               # [R, C2, 4]
-        sidx = _chunked(pshidx, -1)
-        for j in range(svals.shape[1]):
-            hit = (sidx[:, j, None] == objs[None, :])[..., None]
-            acc[..., :4] = acc[..., :4] + torch.where(hit, svals[:, j, None, :], 0.0)
-    dsph = _tree(acc).T.contiguous()                             # [8, NS]
-    dsph[P.S_ACTIVE] = 0.0                                       # takes no gradient
+        keys.append(pshidx.long() + ns)
+        vals.append(torch.nn.functional.pad(psh[:pshidx.shape[0], :4], (0, 4)))
+        ok = torch.cat([(pidx >= 0) & (pidx < ns), (pshidx >= 0) & (pshidx < ns)])
+    else:
+        ok = (pidx >= 0) & (pidx < ns)
+    key, val = torch.cat(keys)[ok], torch.cat(vals)[ok]
+    order = torch.sort(key, stable=True).indices
+    key, val = key[order], val[order]
+    cnt = torch.bincount(key, minlength=2 * ns)
+    start = torch.cumsum(cnt, 0) - cnt
+    nch = -(-cnt // C.RED_CHUNK)
+    cbase = torch.cumsum(nch, 0) - nch
+    pos = torch.arange(key.shape[0], device=dev) - start[key]
+    table = torch.zeros((int(nch.sum()), C.RED_CHUNK, 8), dtype=torch.float32, device=dev)
+    table[cbase[key] + pos // C.RED_CHUNK, pos % C.RED_CHUNK] = val
+    part = (block_sum_plain(table.permute(0, 2, 1).reshape(-1, C.RED_CHUNK)).reshape(-1, 8)
+            if table.shape[0] else table[:, 0])
+    # a key's chunks in a warp's order: chunk j of key k at [j, k]
+    rounds = -(-int(nch.max()) // 32) if ns else 0
+    by_key = torch.zeros((32 * max(rounds, 1), 2 * ns, 8), dtype=torch.float32, device=dev)
+    owner = torch.repeat_interleave(torch.arange(2 * ns, device=dev), nch)
+    by_key[torch.arange(part.shape[0], device=dev) - cbase[owner], owner] = part
+    sums = _warp_passes(by_key)                                  # [2 NS, 8]
+    dsph = torch.zeros((8, ns), dtype=torch.float32, device=dev)  # S_ACTIVE takes no gradient
+    dsph[:4] = (sums[:ns, :4] + sums[ns:, :4]).T                 # main, then shadow rows
+    dsph[4:7] = sums[:ns, 4:7].T
 
-    pv = _chunked(ppl, 0.0)                                      # [R, C, NP, 12]
-    acc = torch.zeros((RED_THREADS,) + tuple(ppl.shape[1:]), dtype=torch.float32, device=dev)
-    for j in range(pv.shape[1]):
-        acc = acc + pv[:, j]
-    dpl = _tree(acc).T.contiguous()                              # [12, NP]
+    T, npl = ppl.shape[0], ppl.shape[1]
+    dpl = _warp_passes(_tile_passes(ppl.reshape(T, npl * P.PL_ROWS)))
+    dpl = dpl.reshape(npl, P.PL_ROWS).T.contiguous()            # [12, NP]
     dpl[P.P_ACTIVE] = 0.0
-
-    tv = _chunked(ptf, 0.0)                                      # [R, C, NTF, 2]
-    s = torch.zeros((RED_THREADS, ptf.shape[1]), dtype=torch.float32, device=dev)
-    e = torch.zeros_like(s)
-    for j in range(tv.shape[1]):
-        s, e = O.tf_combine(s, e, tv[:, j, :, 0], tv[:, j, :, 1])
-    hi, lo = _tree(s, O.tf_combine, e)
+    s, e = _tile_passes(ptf[..., 0], O.tf_combine, ptf[..., 1])
+    hi, lo = _warp_passes(s, O.tf_combine, e)
     return dsph, dpl, torch.stack([hi, lo], dim=-1)
 
 
@@ -293,14 +342,19 @@ def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
                                       None if psh is None else psh[:n_sh], pshidx)
     if dev.type != "cuda":
         raise ValueError(f"soft_grad_reduce runs on cuda or cpu, not {dev}")
+    for name, t in (("pvals", pvals), ("psh", psh), ("ptf", ptf)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (vector loads)")
     npl = ppl.shape[1]
     dsph = torch.empty((P.SPH_ROWS, ns), dtype=torch.float32, device=dev)
     dpl = torch.empty((P.PL_ROWS, npl), dtype=torch.float32, device=dev)
     dtf = torch.empty((ptf.shape[1], 2), dtype=torch.float32, device=dev)
-    prm = ReduceParams(ns=ns, np=npl, n_entries=n, n_tiles=ppl.shape[0], ntf=ptf.shape[1],
-                       device=_device_index(pvals), n_sh_entries=n_sh)
+    prm, n_int, n_float = C.reduce_params(ns, npl, n, n_sh, ppl.shape[0], ptf.shape[1],
+                                          _device_index(pvals))
+    iws = torch.empty(n_int, dtype=torch.int32, device=dev)
+    fws = torch.empty(n_float, dtype=torch.float32, device=dev)
     _launch("rtwc_soft_grad_reduce", "soft_grad_reduce",
-            (pvals, pidx, psh, pshidx, ppl, ptf, dsph, dpl, dtf), prm, pvals)
+            (pvals, pidx, psh, pshidx, ppl, ptf, dsph, dpl, dtf, iws, fws), prm, pvals)
     return dsph, dpl, dtf
 
 

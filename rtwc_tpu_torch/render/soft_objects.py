@@ -262,13 +262,20 @@ def shade_vjp(c: SoftConsts, col, p, n, d, ct_rgb, vis=None):
 
 # -- spheres -----------------------------------------------------------------
 
+def sphere_solve(dx, dy, dz, ocx, ocy, ocz, r):
+    """(h, qx, qy, qz, disc): h = d . oc, q = oc - h d and the discriminant
+    4 (r^2 - q . q), free of b^2 - 4c's cancellation at silhouettes and near
+    misses (soft_common.cuh `sphere_solve`)."""
+    h = dx * ocx + dy * ocy + dz * ocz
+    qx, qy, qz = ocx - h * dx, ocy - h * dy, ocz - h * dz
+    return h, qx, qy, qz, 4.0 * (r * r - (qx * qx + qy * qy + qz * qz))
+
+
 def sphere_lb_ex(c: SoftConsts, scx, scy, scz, r, dx, dy, dz, ox, oy, oz):
     """(lb, t2, dss): the culling lower bound on t_eff and the solve
     products sphere_f_post continues from."""
-    ocx, ocy, ocz = ox - scx, oy - scy, oz - scz
-    b = 2.0 * (dx * ocx + dy * ocy + dz * ocz)
-    cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-    disc = b * b - 4.0 * cc
+    h, _, _, _, disc = sphere_solve(dx, dy, dz, ox - scx, oy - scy, oz - scz, r)
+    b = 2.0 * h
     sq = torch.sqrt(torch.clamp(disc, min=1e-12))
     t2 = 0.5 * (-b - sq)
     scale = 1.0 / torch.clamp(r, min=1e-3)
@@ -313,9 +320,8 @@ def sphere_f_vjp(c: SoftConsts, scx, scy, scz, r, cr, cg, cb, dx, dy, dz, ox, oy
     caller, as JAX's transpose of a broadcast does)."""
     ct_teff, ct_r, ct_g, ct_b, ct_tc, ct_nxo, ct_nyo, ct_nzo = cts
     ocx, ocy, ocz = ox - scx, oy - scy, oz - scz
-    b = 2.0 * (dx * ocx + dy * ocy + dz * ocz)
-    cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-    disc = b * b - 4.0 * cc
+    h, qx, qy, qz, disc = sphere_solve(dx, dy, dz, ocx, ocy, ocz, r)
+    b = 2.0 * h
     dm = torch.clamp(disc, min=1e-12)
     sq = torch.sqrt(dm)
     t2 = 0.5 * (-b - sq)
@@ -350,18 +356,18 @@ def sphere_f_vjp(c: SoftConsts, scx, scy, scz, r, cr, cg, cb, dx, dy, dz, ox, oy
     ct_r_ = -ct_scale / (rm * rm) * max_grad(r, 1e-3)
     ct_sq = -0.5 * ct_t2
     ct_disc = ct_u * scale + ct_sq * (0.5 / sq) * max_grad(disc, 1e-12)
-    ct_bb = -0.5 * ct_t2 + ct_disc * b * 2.0
-    ct_c = -4.0 * ct_disc
-    ct_r_ = ct_r_ - ct_c * r * 2.0
-    ct_dot = 2.0 * ct_bb
-    ct_ocx = ct_dot * dx + ct_c * ocx * 2.0
-    ct_ocy = ct_dot * dy + ct_c * ocy * 2.0
-    ct_ocz = ct_dot * dz + ct_c * ocz * 2.0
+    ct_w = 4.0 * ct_disc  # w = r^2 - q . q
+    ct_r_ = ct_r_ + ct_w * r * 2.0
+    ct_qx, ct_qy, ct_qz = -ct_w * qx * 2.0, -ct_w * qy * 2.0, -ct_w * qz * 2.0
+    ct_h = 2.0 * (-0.5 * ct_t2) - (ct_qx * dx + ct_qy * dy + ct_qz * dz)
+    ct_ocx = ct_h * dx + ct_qx
+    ct_ocy = ct_h * dy + ct_qy
+    ct_ocz = ct_h * dz + ct_qz
     return (-(ct_nxr + ct_ocx), -(ct_nyr + ct_ocy), -(ct_nzr + ct_ocz), ct_r_,
             ct_col[0], ct_col[1], ct_col[2],
-            ct_d[0] + ct_px * t_clip + ct_dot * ocx,
-            ct_d[1] + ct_py * t_clip + ct_dot * ocy,
-            ct_d[2] + ct_pz * t_clip + ct_dot * ocz,
+            ct_d[0] + ct_px * t_clip + ct_h * ocx - ct_qx * h,
+            ct_d[1] + ct_py * t_clip + ct_h * ocy - ct_qy * h,
+            ct_d[2] + ct_pz * t_clip + ct_h * ocz - ct_qz * h,
             ct_px + ct_ocx, ct_py + ct_ocy, ct_pz + ct_ocz)
 
 

@@ -17,15 +17,21 @@ the penalty's value and gradient at large k*x. The JAX package's
 HIGHEST-precision einsums are elementwise sums here: no matmul, no TF32.
 
 A missed sphere whose penalised t_eff comes near `far` competes with the
-background, and there its penalty miss_penalty * (4c - b^2) / r^2 turns
-one ulp of b^2 into ~0.2 depth units: one ulp in a ray's length moves the
-camera-rotation gradient of bench.py's grad_cam_rot_rel scene 8x. So the
-rays and each sphere's c are computed in the soft kernels' op order
-(render/soft_objects.py `raygen`, left-to-right sums): the oracle and the
-kernels then agree on those bits on the CPU and on the card, and differ
-only where the arithmetic is well conditioned. Run in float64, the
-renderer shares no rounding with the kernels; chip_smoke.py holds the
-kernel path against it there, on rays it builds from camera_rays's formula.
+background, and a sphere at whose silhouette the penalty competes with
+the objects behind it decides a pixel's weights: there the penalty's
+slope amplifies any rounding of the discriminant. So the rays and each
+sphere's discriminant are computed in the soft kernels' op order
+(render/soft_objects.py `raygen` and `sphere_solve`: 4 (r^2 - q . q) with
+q the ray's closest approach to the centre, not b^2 - 4c, whose two terms
+of about 4 |oc|^2 cancel there; the JAX package keeps b^2 - 4c). The
+oracle and the kernels then agree on those bits on the CPU and on the
+card, and differ only where the arithmetic is well conditioned. Run in
+float64, the renderer shares no rounding with the kernels; chip_smoke.py
+holds the kernel path against it there, on rays it builds from
+camera_rays's formula. Its float64 rays use e1 and e2 rounded to float32,
+the constants every float32 render receives; the JAX package's float64
+rays (camera_rays under jax_enable_x64) round each pixel's cx * e1 and
+cy * e2 to float32 instead (rtwc_tpu/camera/camera.py:103-108).
 """
 from __future__ import annotations
 
@@ -75,10 +81,9 @@ def _penalty(x: torch.Tensor, k: float) -> torch.Tensor:
 def _soft_sphere_terms(origin, dirs, spheres, k: float, miss_penalty: float, far: float):
     """Soft sphere intersection: (t_eff [.., N], t_clip [.., N], normal [.., N, 3])."""
     oc = origin - spheres.center                        # [N, 3]
-    b = 2.0 * _dot3(dirs, oc)                           # [..., N]
-    c = (oc[:, 0] * oc[:, 0] + oc[:, 1] * oc[:, 1] + oc[:, 2] * oc[:, 2]
-         - spheres.radius * spheres.radius)             # [N], the kernels' order
-    disc = b * b - 4.0 * c                              # unit dirs: a == 1
+    h, _, _, _, disc = O.sphere_solve(*(dirs[..., None, i] for i in range(3)),
+                                      *(oc[:, i] for i in range(3)), spheres.radius)
+    b = 2.0 * h                                         # [..., N]
     sq = torch.sqrt(_max(disc, 1e-12))
     t2 = 0.5 * (-b - sq)
     # t1 = t2 + sq >= t2, so penalising t2 covers both hard root tests.

@@ -1,5 +1,7 @@
-"""Device times of the shadowed kernels K4, K5 and K6 alone, at the bench
-headline and at 4K/200, for one checkout of the port.
+"""Device times of the soft train path's heaviest kernels alone, for one
+checkout of the port: the shadowed K4, K5 and K6 at the bench headline and
+at 4K/200, K3 at 1080p, and the gradient reduction's whole function against
+its library calls at three shapes.
 
     python rtwc_tpu_torch/utils/shadow_times.py [--root DIR]
 
@@ -7,15 +9,25 @@ DIR is the root of the checkout whose `rtwc_tpu_torch` is timed (default:
 the checkout that holds this file), for example an older commit unpacked
 by `git archive` into the git-ignored `chip_work/`. Run it for each
 checkout in turns, in one call, to compare two commits on one card. The
-inputs are those of `chip_smoke.py` phase 5b: the bench headline
+inputs are those of `chip_smoke.py` phases 5 and 5b: the bench headline
 (1920x1080, `random_scene(20, max_spheres=20, max_planes=4, seed=0)`,
 shadows, tau 0.5, 16x16 tiles) and 3840x2160 with `random_scene(200)`; at
 both shapes K5 runs under the MSE cotangents of a zero target and K6
-against that target. Each time is `chip_smoke.py`'s `_kernel_device_ms`
-(the profiler's mean record) over 20 launches at the headline and 5 at 4K.
-Before it times them, it holds K5's and K6's partial tables to their plain
-versions' at the headline, bit for bit. Needs one CUDA card (exit 2
-without one); prints the card's name and power limit, then one JSON line.
+against that target. K2 and K3 run at 1920x1080 on the first step of the
+`--spheres 20` fit: `examples.inverse_render`'s layout with its centres
+moved as `chip_smoke._fit_start` moves them, against the layout's own
+tau-0.5 render, so their MSE cotangents are a training step's. Each kernel
+time is `chip_smoke.py`'s `_kernel_device_ms` (the profiler's mean record)
+over 20 launches (5 at 4K). The reduction runs on K2's partials at 1080p,
+K5's at the headline and K6's at 4K/200; its time and its library calls'
+(float64 `index_add_` and sums, held to its sums first) are
+`chip_smoke.py`'s `_graph_ms`: CUDA events around a CUDA graph of 20 calls
+of the whole function, the median of 5 replays; its five kernels' shares
+are `_kernel_device_ms` a call. It reports whether K3's, K5's and K6's
+partial tables and the reduction's tables equal their plain versions', bit
+for bit, on these inputs. The kernels' registers and spill stores are
+`chip_smoke.py` phase 1's report. Needs one CUDA card (exit 2 without
+one); prints the card's name and power limit, then one JSON line.
 """
 from __future__ import annotations
 
@@ -26,10 +38,13 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CHECKOUT = os.path.dirname(os.path.dirname(HERE))
+REDUCE_KERNELS = tuple(f"soft_grad_reduce_{k}"
+                       for k in ("count", "prefix", "scatter", "spheres", "final"))
 
 
 def _case(SK, SH, cfg, scene, cam, dev):
-    """(spec, sizes, K4's, K5's and K6's launch arguments) for one configuration."""
+    """(spec, sizes, K4's, K5's and K6's launch arguments, pidx, pshidx) for
+    one shadowed configuration."""
     import torch
 
     spec = SK.SoftSpec(cfg, 0.5)
@@ -44,7 +59,33 @@ def _case(SK, SH, cfg, scene, cam, dev):
     tgt = torch.zeros((3,) + spec.extent, device=dev)
     fwd = (sph, pl, camv, lists, shl)
     return (spec, sizes, fwd, fwd + (offsets, sh_offsets, gates, out, g),
-            fwd + (offsets, sh_offsets, tgt))
+            fwd + (offsets, sh_offsets, tgt), pidx, pshidx)
+
+
+def _unshadowed(SK, IR, cam, dev, fit_start):
+    """(spec, n, K2's and K3's launch arguments, pidx) at 1920x1080 on the
+    first step of the --spheres 20 fit: its starting centres against the
+    layout's own render (chip_smoke.py phase 5)."""
+    import torch
+
+    cfg, scene = IR.build(1920, 1080, 20)
+    spec = SK.SoftSpec(cfg, 0.5)
+    scene, cam = scene.to(dev), cam.to(dev)
+
+    def render(sc):
+        sph, pl, camv = SK._packed(sc, cam)
+        lists = SK.build_lists(sph, camv, spec, True)
+        return (sph, pl, camv, lists) + tuple(SK.soft_fwd(sph, pl, camv, lists, spec=spec))
+
+    tgt = torch.zeros((3,) + spec.extent, device=dev)
+    tgt[:, :1080, :1920] = render(scene)[4][:3, :1080, :1920]
+    sph, pl, camv, lists, out, gates = render(scene.replace(
+        spheres=scene.spheres.replace(center=fit_start(scene.spheres.center))))
+    offsets, pidx = SK.list_entries(lists)
+    g = torch.zeros_like(out)
+    g[:3] = (2.0 / (255.0 ** 2 * 3 * 1920 * 1080)) * (out[:3] - tgt)
+    return (spec, pidx.shape[0], (sph, pl, camv, lists, offsets, gates, out, g),
+            (sph, pl, camv, lists, offsets, tgt), pidx)
 
 
 def main(argv=None) -> int:
@@ -53,7 +94,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]  # run by path
     sys.path.insert(0, CHECKOUT)
-    from chip_smoke import _card_line, _kernel_device_ms  # imports nothing of the port
+    from chip_smoke import (_card_line, _fit_start, _graph_ms, _kernel_device_ms,
+                            _reduce_library, _reduce_library_ms)  # import nothing of the port
     import torch
 
     if not torch.cuda.is_available():
@@ -63,6 +105,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     from rtwc_tpu_torch.camera import default_camera
     from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.examples import inverse_render as IR
+    from rtwc_tpu_torch.render import pack as P
     from rtwc_tpu_torch.render import shadow_kernel as SH
     from rtwc_tpu_torch.render import soft_kernel as SK
     from rtwc_tpu_torch.scene import random_scene
@@ -83,21 +127,54 @@ def main(argv=None) -> int:
                                                   **soft_kw),
                              random_scene(200, max_spheres=200, max_planes=4, seed=0), cam,
                              dev), 5)}
+    spec20, n20, bwd20, mse20, pidx20 = _unshadowed(SK, IR, cam, dev, _fit_start)
 
-    spec, sizes, _, bwd, mse = cases["headline"][0]
-    for what, kern, plain, a in (("K5", SH.soft_sh_bwd, SH.soft_sh_bwd_plain, bwd),
-                                 ("K6", SH.soft_sh_mse, SH.soft_sh_mse_plain, mse)):
-        got, want = kern(*a, spec=spec, **sizes), plain(*a, spec=spec, **sizes)
-        if not all(torch.equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"{what}'s partial tables differ from its plain version's")
+    spec, sizes, _, bwd, mse, _, _ = cases["headline"][0]
+    bit_equal = {}
+    for what, kern, plain, a, kw in (
+            ("K3", SK.soft_mse, SK.soft_mse_plain, mse20, dict(spec=spec20, n_entries=n20)),
+            ("K5", SH.soft_sh_bwd, SH.soft_sh_bwd_plain, bwd, dict(spec=spec, **sizes)),
+            ("K6", SH.soft_sh_mse, SH.soft_sh_mse_plain, mse, dict(spec=spec, **sizes))):
+        got, want = kern(*a, **kw), plain(*a, **kw)
+        bit_equal[what] = all(torch.equal(x, y) for x, y in zip(got, want))
     times = {}
-    for label, ((spec, sizes, fwd, bwd, mse), reps) in cases.items():
+    for label, ((spec, sizes, fwd, bwd, mse, _, _), reps) in cases.items():
         for key, kname, fn in (
                 ("K4", "soft_sh_fwd_kernel", lambda: SH.soft_sh_fwd(*fwd, spec=spec)),
                 ("K5", "soft_sh_bwd_kernel", lambda: SH.soft_sh_bwd(*bwd, spec=spec, **sizes)),
                 ("K6", "soft_sh_mse_kernel", lambda: SH.soft_sh_mse(*mse, spec=spec, **sizes))):
             times[f"{key} {label}"] = _kernel_device_ms(fn, reps=reps, name=kname)
-    print(json.dumps({"root": root, "card": card, "device_ms": times}))
+    times["K3 1080p"] = _kernel_device_ms(
+        lambda: SK.soft_mse(*mse20, spec=spec20, n_entries=n20), name="soft_mse_kernel")
+
+    # the reduction's whole function and its library calls, as CUDA graphs
+    parts = SK.soft_bwd(*bwd20, spec=spec20, n_entries=n20)
+    red_args = {"unshadowed 1080p": (parts[0], pidx20, parts[1], parts[2], 20, None, None)}
+    for label, kern, key in (("shadowed headline", SH.soft_sh_bwd, "headline"),
+                             ("4k200", SH.soft_sh_mse, "4k200")):
+        spec, sizes, _, bwd, mse, pidx, pshidx = cases[key][0]
+        p = kern(*(bwd if kern is SH.soft_sh_bwd else mse), spec=spec, **sizes)
+        red_args[label] = (p[0], pidx, p[2], p[3], spec.config.max_spheres, p[1], pshidx)
+    reduction = {}
+    for label, (pvals, pidx, ppl, ptf, ns, psh, pshidx) in red_args.items():
+        def port():
+            return SK.soft_grad_reduce(pvals, pidx, ppl, ptf, ns, psh=psh, pshidx=pshidx)
+        out = port()
+        n, nsh = pidx.shape[0], 0 if pshidx is None else pshidx.shape[0]
+        want = SK.soft_grad_reduce_plain(pvals[:n], pidx, ppl, ptf, ns,
+                                         None if psh is None else psh[:nsh], pshidx)
+        bit_equal[f"reduction {label}"] = all(torch.equal(x, y) for x, y in zip(out, want))
+        args_l = (pvals, pidx, ppl, ptf, ns) + (() if psh is None else (psh, pshidx))
+        _reduce_library_ms(P, args_l, out)  # holds the library calls to its sums
+        lib_ms, lib_runs = _graph_ms(lambda: _reduce_library(*args_l))
+        port_ms, port_runs = _graph_ms(port)
+        reduction[label] = {"function_device_ms": port_ms, "replays": port_runs,
+                            "library_device_ms": lib_ms, "library_replays": lib_runs,
+                            "entries": n, "shadow_entries": nsh, "tiles": ppl.shape[0],
+                            "per_kernel_ms": {k: _kernel_device_ms(port, name=k, per_call=True)
+                                              for k in REDUCE_KERNELS}}
+    print(json.dumps({"root": root, "card": card, "bit_equal_to_plain": bit_equal,
+                      "device_ms": times, "reduction": reduction}))
     return 0
 
 

@@ -28,6 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+import rtwc_tpu.camera as JC
+import rtwc_tpu.render as JR
+import rtwc_tpu.render.softmin as JSM
 import rtwc_tpu.scene as JS
 import rtwc_tpu_torch.camera as TC
 import rtwc_tpu_torch.scene as TS
@@ -41,6 +44,7 @@ from rtwc_tpu_torch.config import RenderConfig
 from rtwc_tpu_torch.examples import fit_from_shadow as FS
 from rtwc_tpu_torch.render import shadow_kernel as SH
 from rtwc_tpu_torch.render import soft_kernel as SK
+from rtwc_tpu_torch.render import softmin as TSM
 from rtwc_tpu_torch.render.softmin import render_frame_soft as t_soft
 from test_torch_soft_kernel import rel_err
 from test_torch_softmin import (CFG, LEAVES, TAU, assert_close_tree, camera64, fb_arrays,
@@ -75,9 +79,13 @@ def _port(scene, cam, **kw):
     return TS.scene_from_numpy(scene, **kw.get("s", {})), TC.camera_from_numpy(cam, **kw.get("c", {}))
 
 
-def _check_forward(scene, cam, cfg, what):
+def _check_forward(scene, cam, cfg, what, alpha_pixels=()):
     """Port K4 against JAX's shadowed Pallas forward and against the port's
-    torch soft renderer; returns the port framebuffer."""
+    torch soft renderer; returns the port framebuffer. Alpha holds to 1e-4
+    of JAX's, except at the (row, col) alpha_pixels a caller names: there
+    the port's alpha is within 5e-4 of JAX's and no farther from a float64
+    render than JAX's is (a silhouette where JAX's discriminant b^2 - 4c
+    rounds farther than the port's 4 (r^2 - q . q))."""
     ts, tc = _port(scene, cam)
     n = dict(SK.LAUNCHES)
     fb = SK.render_frame_soft_kernel(ts, tc, cfg, tau=TAU)
@@ -86,7 +94,13 @@ def _check_forward(scene, cam, cfg, what):
     fb64 = t_soft(scene64(ts), camera64(tc), cfg, tau=TAU)
     ref = t_soft(ts, tc, cfg, tau=TAU)
     assert_shadow_fb_close(fb_arrays(fb), fb_arrays(fb_j), fb_arrays(fb64), fb_arrays(ref), what)
-    np.testing.assert_allclose(fb.alpha.numpy(), np.asarray(fb_j.alpha), atol=1e-4)
+    a, b, e = fb.alpha.numpy(), np.asarray(fb_j.alpha), fb64.alpha.numpy()
+    named = np.zeros(a.shape, bool)
+    for px in alpha_pixels:
+        named[px] = True
+    ok = np.abs(a - b) <= 1e-4
+    ok |= named & (np.abs(a - b) <= 5e-4) & (np.abs(a - e) <= np.abs(b - e))
+    assert ok.all(), f"{what} alpha: port {a[~ok]}, JAX {b[~ok]}, float64 {e[~ok]}"
     assert_shadow_fb_close(fb_arrays(fb), fb_arrays(ref), fb_arrays(fb64),
                            what=what + " vs torch")
     return fb
@@ -266,7 +280,8 @@ def test_cache_overflow_takes_the_exact_rewalk():
     assert fwd_slots == fused_slots == SH.NC
     assert int(counts.max()) > SH.NC, "no tile overflows the cache; densify the scene"
     assert int(counts.min()) <= SH.NC  # both paths run in one frame
-    _check_forward(scene, cam, cfg, "cache overflow")
+    # (11, 42): a silhouette pixel, alpha 2.8e-4 from JAX's, 3e-6 from float64
+    _check_forward(scene, cam, cfg, "cache overflow", alpha_pixels=((11, 42),))
     _mse_grads_vs_jax(scene, cam, cfg, "cache overflow")
 
 
@@ -292,9 +307,8 @@ def test_k5_k6_on_crowded_tiles_match_jax(crowd):
     the plain K5 (the generic path's backward) and K6 against JAX's
     gradients of every leaf, held as test_k5_grads_match_jax holds them.
     K6 runs against a zero target, as _mse_grads_vs_jax runs the other
-    special scenes: against a random one, single radius and centre
-    gradients of the packed crowd sit where the two float32 renders part
-    (one radius: JAX 1.5e-5, the port 3.8e-5, a float64 render 2.1e-5)."""
+    special scenes; test_k5_k6_on_the_slab_crowd_with_a_random_target
+    holds the slab crowd against a random one."""
     scene, cfg = ((_slab_crowd(), CFG_SH.replace(max_spheres=48)) if crowd == "slab"
                   else (_crowd(), CFG_SH.replace(max_spheres=16)))
     cam = jax_camera()
@@ -314,14 +328,130 @@ def test_k5_k6_on_crowded_tiles_match_jax(crowd):
     _assert_grads(gj, fs, fc, f"K6 {crowd}")
 
 
+def _mse_grads64(scene, cam, tgt, cfg):
+    """Every leaf's gradient of the MSE loss through the port's torch soft
+    renderer in float64 (the arbiter of the module note)."""
+    ts, tc = _port(scene, cam)
+    s64 = scene64(ts)
+    for node in (s64.spheres, s64.planes):
+        for leaf in vars(node).values():
+            leaf.requires_grad_(True)
+    c64 = TC.Camera(pos=tc.pos.double().requires_grad_(True),
+                    rot=tc.rot.double().requires_grad_(True))
+    t = torch.from_numpy(tgt).double()
+    torch.mean(((t_soft(s64, c64, cfg, tau=TAU).rgb - t) / 255.0) ** 2).backward()
+    return s64, c64
+
+
+# (group, leaf, index) of the slab crowd's gradients that the per-pixel split
+# pins to one ill-conditioned pixel (test_k5_k6_on_the_slab_crowd_with_a_random_target)
+ILL_CONDITIONED = {("spheres", "radius", 37)}
+
+
+def test_k5_k6_on_the_slab_crowd_with_a_random_target():
+    """The slab crowd against mse_case's uniform(0, 255) target: the plain K5
+    (the generic path) and K6 against JAX's gradients of every leaf
+    (render_soft_mse_loss, the Pallas path), held as _assert_grads holds
+    them. One value alone, pinned in ILL_CONDITIONED, may leave that
+    tolerance, and is then held to the rule for ill-conditioned pixels
+    (ROADMAP queue 3): no farther from float64 than the farther of JAX's two
+    float32 renders, the Pallas path and softmin.py, plus GRAD_ATOL. Every
+    other value of every leaf passes _assert_grads' tolerance. The pinned
+    value is sphere 37's radius gradient: one pixel, (21, 33), carries it
+    (a per-pixel split of the loss's forward-mode derivative), where the sphere's
+    silhouette penalty competes with a sphere and the floor behind it and
+    d rgb / d r is about -1735. The Pallas path gives 1.46e-5 and
+    softmin.py 1.19e-5 against float64's 2.13e-5; the port gave 3.81e-5
+    while its discriminant was b^2 - 4c (0.8 % off at that pixel, two
+    thirds of it that cancellation) and gives 2.11e-5 with 4 (r^2 - q . q)
+    (render/soft_objects.py `sphere_solve`)."""
+    cfg = CFG_SH.replace(max_spheres=48)
+    scene, cam = _slab_crowd(), jax_camera()
+    tgt = np.random.default_rng(1).uniform(0.0, 255.0, (cfg.height, cfg.width, 3)).astype(np.float32)
+    gj = jax.grad(lambda s, c: j_mse(s, c, jnp.asarray(tgt), cfg, tau=TAU), argnums=(0, 1))(scene, cam)
+    s64, c64 = _mse_grads64(scene, cam, tgt, cfg)
+    g_soft = None  # softmin.py's float32 gradients, only where the rule is needed
+    keys = [("scene", g, leaf) for g, leaf in LEAVES] + [("camera", None, "pos"), ("camera", None, "rot")]
+
+    def pick(tree, key):
+        part, group, leaf = key
+        node = tree[0 if part == "scene" else 1]
+        return np.asarray(getattr(getattr(node, group), leaf) if group else getattr(node, leaf),
+                          np.float64)
+
+    fused, generic = _mse_losses(tgt, cfg)
+    for name, loss in (("K5", generic), ("K6", fused)):
+        _, ps, pc = _grads(scene, cam, cfg, loss)
+        for key in keys:
+            a, b = pick(gj, key), pick((ps, pc), key)
+            ok = np.abs(a - b) <= GRAD_ATOL + 2e-2 * np.maximum(np.abs(a), np.abs(b))
+            if ok.all():
+                continue
+            off = [(key[1], key[2]) + tuple(i) for i in np.argwhere(~ok).tolist()]
+            assert set(off) <= ILL_CONDITIONED, (
+                f"{name} {key[1:]}: port {b[~ok]}, JAX {a[~ok]} at {np.argwhere(~ok).tolist()}")
+            if g_soft is None:
+                g_soft = jax.grad(lambda s, c: jnp.mean(
+                    ((JR.render_frame_soft(s, c, cfg, tau=TAU).rgb - tgt) / 255.0) ** 2),
+                    argnums=(0, 1))(scene, cam)
+            leaf64 = getattr(c64, key[2]) if key[0] == "camera" else getattr(getattr(s64, key[1]), key[2])
+            e = leaf64.grad.numpy()
+            jax_worst = np.maximum(np.abs(a - e), np.abs(pick(g_soft, key) - e))
+            ok |= np.abs(b - e) <= jax_worst + GRAD_ATOL
+            assert ok.all(), (f"{name} {key[1:]}: port {b[~ok]}, JAX {a[~ok]}, float64 {e[~ok]}")
+
+
+def test_float64_renders_agree_on_the_slab_crowd():
+    """The float64 arbiter. Given the same rays, JAX's softmin.py under
+    jax_enable_x64 and the port's torch renderer in float64 agree to 1e-8
+    on the slab crowd. Their own rays differ by up to 2e-8, which moves
+    rgb at pixel (21, 33) by 5e-4: JAX's camera_rays
+    (rtwc_tpu/camera/camera.py:103-108) takes cx, cy from a float32 arange
+    and multiplies them by the Python floats e1, e2, so in an x64 run
+    vx = cx e1 and vy = cy e2 are still rounded to float32 per pixel. The
+    port's float64 rays use e1, e2 rounded to float32, the constants every
+    float32 render receives (soft_objects.SoftConsts), and no float32 step
+    after them."""
+    cfg = CFG_SH.replace(max_spheres=48)
+    scene, cam = _slab_crowd(), jax_camera()
+    ts, tc = _port(scene, cam)
+    origin, dirs = TSM._soft_rays(camera64(tc), cfg, "cpu")
+    want = TSM.trace_soft(scene64(ts), origin, dirs, cfg, tau=TAU)
+    with jax.enable_x64(True):
+        js = jax.tree_util.tree_map(lambda x: jnp.asarray(np.asarray(x, np.float64)), scene)
+        got = JSM.trace_soft(js, jnp.asarray(origin.numpy()), jnp.asarray(dirs.numpy()), cfg,
+                             tau=TAU)
+        got = [np.asarray(x) for x in got]
+        jc = JC.Camera(pos=jnp.asarray(np.asarray(cam.pos, np.float64)),
+                       rot=jnp.asarray(np.asarray(cam.rot, np.float64)))
+        e1, e2 = JC.projection_elements(cfg)
+        j_dirs = np.asarray(JC.camera_rays(jc, cfg.width, cfg.height, e1, e2)[1])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=1e-8)
+    # JAX's x64 rays are those of float32 vx, vy
+    f = np.float32
+    vx = (f(2.0) * np.arange(cfg.width, dtype=f) - f(cfg.width)) / f(cfg.width) * f(e1)
+    vy = (f(cfg.height) - f(2.0) * np.arange(cfg.height, dtype=f)) / f(cfg.height) * f(e2)
+    right, up, fwd = (np.asarray(v, np.float64) for v in TC.basis(camera64(tc).rot))
+    d = (vx.astype(np.float64)[None, :, None] * np.array([right[0], up[0], fwd[0]])
+         + vy.astype(np.float64)[:, None, None] * np.array([right[1], up[1], fwd[1]])
+         + np.array([right[2], up[2], fwd[2]]))
+    d = d / np.sqrt((d * d).sum(-1, keepdims=True))
+    np.testing.assert_allclose(j_dirs, d, rtol=0, atol=1e-14)
+    assert np.abs(j_dirs - dirs.numpy()).max() > 1e-9
+
+
 def test_slab_and_cache_sizes_match_the_cuda_source():
-    """The plain versions and chip_smoke.py read NC and SLAB from this
-    module; the kernels from csrc/."""
+    """The plain versions and chip_smoke.py read NC, SLAB and the
+    reduction's chunk from the modules; the kernels from csrc/."""
     src = os.path.join(os.path.dirname(SK.__file__), "..", "csrc")
     with open(os.path.join(src, "soft_shadow.cu")) as f:
         assert re.search(r"constexpr int NC = (\d+);", f.read()).group(1) == str(SH.NC)
     with open(os.path.join(src, "soft_block.cuh")) as f:
         assert re.search(r"constexpr int SLAB_SLOTS = (\d+);", f.read()).group(1) == str(SH.SLAB)
+    with open(os.path.join(src, "soft_render.cu")) as f:  # the reduction's chunk: one a thread
+        assert re.search(r"constexpr int RED_THREADS = (\d+),", f.read()).group(1) == \
+            str(SK.C.RED_CHUNK)
 
 
 def test_occluder_outside_the_frustum_gets_grad_through_its_shadow():

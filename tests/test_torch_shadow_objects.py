@@ -22,6 +22,7 @@ import torch
 from rtwc_tpu.config import RenderConfig
 from rtwc_tpu.render.pallas_soft import _make_object_fns
 from rtwc_tpu_torch.render import soft_objects as O
+from test_torch_soft_kernel import _check_vjp
 
 torch.set_num_threads(2)
 
@@ -176,9 +177,10 @@ def test_stage_a_then_b_is_the_whole_solve():
 
 def test_shaded_object_adjoint_matches_jax_with_vis():
     """sphere_f / plane_f with vis (rgb = min(255, A + vis B)) and their
-    adjoints against jax.vjp of JAX's closures with vis held constant."""
-    fns = _make_object_fns(CFG, TAU)
-    c = O.SoftConsts.make(CFG, TAU)
+    adjoints against jax.vjp of JAX's closures with vis held constant, as
+    tests/test_torch_soft_kernel.py `_check_vjp` holds them: float32 away
+    from the sphere's silhouette, the sphere in float64 on every ray, its
+    ray cotangent normal to the ray."""
     rng = np.random.default_rng(4)
     shape = (8, 16)
     d = rng.normal(size=shape + (3,)).astype(np.float32) * 0.15 + np.array([0, 0, 1], np.float32)
@@ -188,19 +190,5 @@ def test_shaded_object_adjoint_matches_jax_with_vis():
     for kind, scal in (("sphere", (0.5, 0.3, 20.0, 3.0, 200.0, 40.0, 90.0, 0.1, -0.2, 0.3)),
                        ("plane", (0.0, -3.0, 30.0, 0.1, 1.0, 0.05, 4.0, 40.0, 100.0, 120.0, 80.0,
                                   0.2, 1.0, 0.0))):
-        n_obj = len(scal) - 3
-        planes = [np.full(shape, v, np.float32) for v in scal[:n_obj]] + rays + \
-                 [np.full(shape, v, np.float32) for v in scal[n_obj:]]
-        jf = fns.sphere_f if kind == "sphere" else fns.plane_f
-        vals, vjp = jax.vjp(lambda *a: jf(*a, vis=jnp.asarray(vis)),
-                            *(jnp.asarray(x) for x in planes))
         cts = [rng.normal(size=shape).astype(np.float32) for _ in range(8)]
-        gj = vjp(tuple(jnp.asarray(x) for x in cts))
-        targs = [torch.from_numpy(x) for x in planes]
-        tf = O.sphere_f if kind == "sphere" else O.plane_f
-        tvjp = O.sphere_f_vjp if kind == "sphere" else O.plane_f_vjp
-        for a, b in zip(tf(c, *targs, vis=torch.from_numpy(vis)), vals):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4)
-        gt = tvjp(c, *targs, tuple(torch.from_numpy(x) for x in cts), vis=torch.from_numpy(vis))
-        for i, (a, b) in enumerate(zip(gt, gj)):
-            assert rel_err(a.numpy(), b) <= 1e-5 or np.abs(a.numpy() - b).max() < 1e-9, (kind, i)
+        _check_vjp(kind, scal, rays, cts, CFG, TAU, vis=vis)

@@ -7,7 +7,9 @@ tensors), against the JAX package: `render_frame_soft_pallas` and
 Tolerances, and why:
 - the hand-written adjoints against jax.vjp and torch autograd, per
   pixel: 1e-5 of each gradient's largest magnitude (float32 reassociation
-  in the reverse sweep);
+  in the reverse sweep), a sphere's ray cotangent normal to the ray, in
+  float32 away from the sphere's silhouette and in float64 on every ray
+  (its discriminant's formula differs from JAX's, `_check_vjp`);
 - forward planes against JAX's Pallas render: the rule of
   tests/test_torch_softmin.py (atol 2e-3 / 1e-3 / 1e-4 for rgb / depth /
   normal; XLA's FMA contraction moves < 0.5 % of the values further, never
@@ -21,8 +23,11 @@ Tolerances, and why:
   fused loss at the generic-gradient tolerance, because FMA-moved
   silhouette pixels shift single contributions by ~5e-4 of the max;
 - the two-float reduction: 1e-10 relative of the float64 sum
-  (tests/test_pallas_soft.py:267-297)."""
+  (tests/test_pallas_soft.py:267-297); every sum of the plain reduction
+  within the rounding bound of its summation order."""
+import ctypes
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -69,29 +74,82 @@ def _obj_inputs(seed, n=(8, 16)):
     return rng, tuple(np.ascontiguousarray(d[..., i]) for i in range(3))
 
 
-def _check_vjp(kind, scalars, rays, cts, cfg, tau, tol=1e-5):
+def normal_to(d, g):
+    """The components of the cotangents g [3] normal to the rays d [3]."""
+    g = [np.asarray(x, np.float64) for x in g]
+    gd = sum(a * np.asarray(b, np.float64) for a, b in zip(g, d))
+    return [a - gd * np.asarray(b, np.float64) for a, b in zip(g, d)]
+
+
+SILHOUETTE_K = 32.0
+
+
+def silhouette(scalars, rays, k=SILHOUETTE_K):
+    """The rays at which JAX's sphere discriminant b^2 - 4c cancels more
+    than log2(k) of float32's 24 bits, b^2 > k |b^2 - 4c| in float64 (the
+    sphere's centre and radius lead `scalars`, the ray origin ends them).
+    There JAX's float32 rounding of b^2 - 4c, about u b^2, moves the
+    outputs past the tolerances, and the port's 4 (r^2 - q . q) rounds
+    otherwise (render/soft_objects.py `sphere_solve`)."""
+    oc = [o - c for o, c in zip(scalars[-3:], scalars[:3])]
+    d = [np.asarray(x, np.float64) for x in rays]
+    b = 2.0 * sum(a * o for a, o in zip(d, oc))
+    disc = b * b - 4.0 * (sum(o * o for o in oc) - scalars[3] ** 2)
+    return b * b > k * np.abs(disc)
+
+
+def _check_vjp(kind, scalars, rays, cts, cfg, tau, tol=1e-5, vis=None, k=SILHOUETTE_K):
     """Every input as a per-pixel plane (the plain kernels gather a list
     slot's object per pixel), so JAX's vjp returns per-pixel cotangents,
-    not sums over pixels."""
-    fns = _make_object_fns(cfg, tau)
+    not sums over pixels. Both sides run in float32 and are held at tol on
+    every ray but a sphere's silhouette rays (`silhouette`, with k). A
+    sphere runs again in float64 on both sides, on every ray, at tol (the
+    port's plain functions take float64 tensors, JAX's closures run under
+    jax_enable_x64; the scalars as float64, the rays made unit in
+    float64), which compares the formulas and not their float32 roundings.
+    A sphere's ray cotangent is compared normal to the ray: its
+    discriminant is 4 (r^2 - q . q) in the port and b^2 - 4c in JAX, equal
+    for a unit ray, so their derivatives in the ray differ along it, which
+    raygen's VJP projects out. Returns the float32 adjoints for the
+    caller's autograd check."""
     c = O.SoftConsts.make(cfg, tau)
-    jf = fns.sphere_f if kind == "sphere" else fns.plane_f
     ns = len(scalars) - 3  # object scalars before the rays
     shape = rays[0].shape
-    planes = [np.full(shape, v, np.float32) for v in scalars[:ns]] + list(rays) + \
-             [np.full(shape, v, np.float32) for v in scalars[ns:]]
-    vals, vjp = jax.vjp(jf, *(jnp.asarray(x) for x in planes))
-    gj = vjp(tuple(jnp.asarray(x) for x in cts))
-    targs = [torch.from_numpy(x) for x in planes]
-    tf = O.sphere_f if kind == "sphere" else O.plane_f
-    tvjp = O.sphere_f_vjp if kind == "sphere" else O.plane_f_vjp
-    for a, b in zip(tf(c, *targs), vals):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4)
-    gt = tvjp(c, *targs, tuple(torch.from_numpy(x) for x in cts))
-    for i, (a, b) in enumerate(zip(gt, gj)):
-        b = np.asarray(b)
-        assert rel_err(a.numpy(), b) <= tol or np.abs(a.numpy() - b).max() < 1e-9, (kind, i)
-    return c, targs, gt
+    sphere = kind == "sphere"
+    tf = O.sphere_f if sphere else O.plane_f
+    tvjp = O.sphere_f_vjp if sphere else O.plane_f_vjp
+    far = ~silhouette(scalars, rays, k) if sphere else np.ones(shape, bool)
+    for dt in (np.float32, np.float64) if sphere else (np.float32,):
+        d = [np.asarray(x, dt) for x in rays]
+        if dt is np.float64:
+            norm = np.sqrt(sum(x * x for x in d))
+            d = [x / norm for x in d]
+        m = far if dt is np.float32 else np.ones(shape, bool)
+        planes = [np.full(shape, v, dt) for v in scalars[:ns]] + d + \
+                 [np.full(shape, v, dt) for v in scalars[ns:]]
+        with jax.enable_x64(dt is np.float64):
+            fns = _make_object_fns(cfg, tau)
+            jf = fns.sphere_f if sphere else fns.plane_f
+            vj = None if vis is None else jnp.asarray(vis.astype(dt))
+            vals, vjp = jax.vjp(lambda *a: jf(*a, vis=vj), *(jnp.asarray(x) for x in planes))
+            gj = [np.asarray(g) for g in vjp(tuple(jnp.asarray(x, dt) for x in cts))]
+            vals = [np.asarray(v) for v in vals]
+        targs = [torch.from_numpy(x) for x in planes]
+        tv = None if vis is None else torch.from_numpy(vis.astype(dt))
+        got = tvjp(c, *targs, tuple(torch.from_numpy(x.astype(dt)) for x in cts), vis=tv)
+        if dt is np.float32:
+            out = (c, targs, got)
+        if not m.any():
+            continue  # every ray a silhouette ray: float64 alone
+        for a, b in zip(tf(c, *targs, vis=tv), vals):
+            np.testing.assert_allclose(a.numpy()[m], b[m], rtol=1e-5, atol=1e-4)
+        gt = [a.numpy() for a in got]
+        if sphere:
+            gt[7:10], gj[7:10] = normal_to(d, gt[7:10]), normal_to(d, gj[7:10])
+        for i, (a, b) in enumerate(zip(gt, gj)):
+            a, b = a[m], b[m]
+            assert rel_err(a, b) <= tol or np.abs(a - b).max() < 1e-9, (kind, dt.__name__, i)
+    return out
 
 
 def _cts(rng, shape):
@@ -131,11 +189,14 @@ def test_adjoints_at_ties():
     # t2 == 0: origin on the sphere's near surface (c = 0 exactly)
     _check_vjp("sphere", (0.0, 0.0, 2.0, 2.0, 100.0, 100.0, 100.0, 0.0, 0.0, 0.0),
                rays, _cts(rng, (1, 1)), cfg, TAU)
-    # t2 == far: 0.5 * (520 - 20) = 250
+    # t2 == far: 0.5 * (520 - 20) = 250; b^2 = 676 |b^2 - 4c|, but every
+    # value is an integer that float32 holds exactly, so float32 holds too
     _check_vjp("sphere", (0.0, 0.0, 260.0, 10.0, 100.0, 100.0, 100.0, 0.0, 0.0, 0.0),
-               rays, _cts(rng, (1, 1)), cfg, TAU)
+               rays, _cts(rng, (1, 1)), cfg, TAU, k=np.inf)
     # r == 1e-3 in float32: scale = 1e3 makes the radius cotangent a sum of
-    # ~1e6-sized terms that cancel, so it holds to 1e-3 here
+    # ~1e6-sized terms that cancel, so it holds to 1e-3 here. b^2 = 100 and
+    # b^2 - 4c = 4e-6: JAX's float32 t is 3.8e-4 short of 4.999, so this
+    # one ray is held in float64 alone
     _check_vjp("sphere", (0.0, 0.0, 5.0, float(np.float32(1e-3)), 100.0, 100.0, 100.0,
                           0.0, 0.0, 0.0), rays, _cts(rng, (1, 1)), cfg, TAU, tol=1e-3)
     # |px - pcx| == 0: ray straight down onto the plane's centre
@@ -398,6 +459,88 @@ def test_reduction_sums_entries_by_sphere_in_tile_order():
     np.testing.assert_allclose(dpl[:11].numpy(), ppl.double().sum(0).T[:11].numpy(), rtol=1e-5,
                                atol=1e-5)
     assert (dpl[11] == 0).all()
+
+
+def _tile_lists(rng, ns, T, most):
+    """Sphere indices of T tiles' lists in tile order: each tile a random
+    set of up to `most` distinct spheres, so every sphere's entries
+    interleave with the others' across tiles."""
+    return np.concatenate([rng.choice(ns, size=rng.integers(0, most + 1), replace=False)
+                           for _ in range(T)] + [np.zeros(0, np.int64)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["many spheres", "shadow entries", "ragged", "empty"])
+def test_reduction_against_float64_within_its_rounding_bound(case):
+    """The plain reduction (the kernels' order) against float64 sums of the
+    same adversarially scaled partials, each within the rounding bound of
+    its summation: d u sum |x_i| for a sum whose terms pass through at
+    most d float32 additions (u = 2^-24), d u^2 sum |x_i| (times 2) for
+    the two-float camera sums. Cases: 40 spheres interleaved across 300
+    tiles' lists; shadow-list entries; entry and tile counts off the
+    chunks of RED_CHUNK entries and reduce_tile_chunk tiles; nothing."""
+    rng = np.random.default_rng(11)
+    u = 2.0 ** -24
+    ns, T, n_sh = {"many spheres": (40, 300, 0), "shadow entries": (7, 2100, 2 * C.RED_CHUNK - 5),
+                   "ragged": (3, 2100, 1), "empty": (4, 5, 0)}[case]
+    pidx = (_tile_lists(rng, ns, T, 30) if case == "many spheres" else
+            rng.integers(0, ns, {"shadow entries": 3 * C.RED_CHUNK + 17, "ragged": C.RED_CHUNK - 1,
+                                 "empty": 0}[case]).astype(np.int32))
+    n = pidx.shape[0]
+
+    def adversarial(*shape):
+        return (rng.normal(size=shape) * np.exp(rng.normal(size=shape) * 2.0)).astype(np.float32)
+
+    pvals, psh = adversarial(max(n, 1), 8), adversarial(n_sh, 4)
+    pshidx = rng.integers(0, ns, n_sh).astype(np.int32)
+    ppl, x = adversarial(T, 2, 12), adversarial(T, SK.NTF)
+    ptf = np.stack([x, np.zeros_like(x)], axis=-1)
+    t = torch.from_numpy
+    kw = dict(psh=t(psh), pshidx=t(pshidx)) if n_sh else {}
+    dsph, dpl, dtf = SK.soft_grad_reduce(t(pvals), t(pidx), t(ppl), t(ptf), ns, **kw)
+    assert (dsph[7] == 0).all() and (dpl[11] == 0).all()
+    for k in range(ns):
+        rows = pvals[:n][pidx == k, :7].astype(np.float64)
+        sh = np.pad(psh[pshidx == k].astype(np.float64), ((0, 0), (0, 3)))
+        terms = np.concatenate([rows, sh])
+        # a block sum (5 + 7), a lane's chunks, the butterfly (5), main + shadow (1)
+        chunks = (-(-m // C.RED_CHUNK) for m in (rows.shape[0], sh.shape[0]))
+        lane_chunks = max(-(-c // 32) for c in chunks)
+        d = 12 + lane_chunks + 5 + 1
+        err = np.abs(dsph[:7, k].numpy().astype(np.float64) - terms.sum(0))
+        assert (err <= d * u * np.abs(terms).sum(0)).all(), (case, k)
+    tch = C.reduce_tile_chunk(T)
+    d = tch // 8 + 7 + -(-(-(-T // tch)) // 32) + 5
+    want = ppl.astype(np.float64).sum(0).T[:11]
+    err = np.abs(dpl[:11].numpy().astype(np.float64) - want)
+    assert (err <= d * u * np.abs(ppl.astype(np.float64)).sum(0).T[:11]).all(), case
+    got = dtf[:, 0].double().numpy() + dtf[:, 1].double().numpy()
+    err = np.abs(got - x.astype(np.float64).sum(0))
+    assert (err <= 2 * d * u * u * np.abs(x.astype(np.float64)).sum(0)).all(), case
+
+
+@pytest.mark.parametrize("struct, src", [("SoftParams", "soft_common.cuh"),
+                                         ("ReduceParams", "soft_render.cu")])
+def test_params_mirror_the_cuda_structs(struct, src):
+    """The ctypes mirrors in render/soft_core.py name the C structs'
+    members in their order, with their C types, so a launch reads the
+    values the wrapper set."""
+    with open(os.path.join(os.path.dirname(SK.__file__), "..", "csrc", src)) as f:
+        body = re.search(r"struct " + struct + r" \{(.*?)\};", f.read(), re.S).group(1)
+    members = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            ctype, names = decl.split(None, 1)
+            for name in names.split(","):
+                name = name.strip()
+                n = int(name[name.index("[") + 1:-1]) if "[" in name else 0
+                members.append((name.split("[")[0], ctype, n))
+    fields = getattr(C, struct)._fields_
+    assert [m[0] for m in members] == [f[0] for f in fields]
+    for (name, ctype, n), (_, ftype) in zip(members, fields):
+        base = {"int": ctypes.c_int, "float": ctypes.c_float}[ctype]
+        assert ftype == (base * n if n else base) or (n and ftype._type_ is base
+                                                      and ftype._length_ == n), name
 
 
 def test_block_sums_follow_the_warp_order():
