@@ -12,16 +12,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      same packed tables and broad-phase lists, in seven cases; then one
      frame of the whole step (kernel path) against the plain reference
      renderer, cell by cell
-  2b the soft kernels against their plain versions on the card, in eight
-     cases and one with culling off: K1's planes and gates, K2's tables under seeded random
-     cotangents, K3's loss and tables (its partial tables bit-equal to the
-     plain version's), K3 against K1 + K2 with the MSE cotangents, the
+  2b the soft kernels against their plain versions on the card, in nine
+     cases (a slab overflow among them: the 40-sphere crowd at 96x32, where
+     tiles gate more objects than SLAB) and one with culling off: K1's
+     planes and gates, K2's tables under seeded random cotangents, K3's loss
+     and tables (K2's and K3's partial tables bit-equal to the plain
+     versions'), K3 against K1 + K2 with the MSE cotangents, the
      reduction bit-equal to its plain version on the same partials and
      against a float64 sum, and two launches giving bit-equal tables; then
      the kernel path end to end (forward and
      gradients) against the torch soft renderer at 400x150
   2c the shadowed kernels against their plain versions on the card: K4's
-     14 planes and gates, K4-stats' counts, K5's tables under seeded random
+     14 planes and gates and K4-stats' counts bit-equal to the plain
+     versions', K5's tables under seeded random
      cotangents, K6's loss and tables (K5's and K6's partial tables bit-equal
      to the plain versions', and the reduction of each bit-equal to its
      plain version's), K6 against K4 + K5 with the MSE cotangents and
@@ -55,16 +58,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   4  `python -m rtwc_tpu_torch` in a subprocess
   5  timings (CUDA events, host clock, profiler): K7 vs plain, broad phase,
      engine frames/s and rays/s, a per-frame host breakdown; K1, K2, K3 and
-     the reduction vs plain at 1920x1080 with 20 spheres, the generic and
+     the reduction vs plain at 1920x1080 with 20 spheres (each soft kernel
+     also as a CUDA graph of 20 calls, `_graph_ms`), the generic and
      fused train steps vs the same steps on the plain versions, and the
      device's busy share over 20 steps
   5b with shadows: K4, K5, K6, K4-stats and the reduction vs plain at the
-     bench headline config; the generic and fused steps and the device's
-     busy share; the fused step at 3840x2160 with 200 spheres and its peak
-     memory and K4 / K5 / K6 alone there (K5 under the MSE cotangents of a
+     bench headline config (each kernel also as a CUDA graph); the generic
+     and fused steps and the device's busy share; the fused step at
+     3840x2160 with 200 spheres and its peak memory and K4 / K5 / K6 alone
+     there (K4 also as a CUDA graph; K5 under the MSE cotangents of a
      zero target, as at the headline) and the reduction of K6's partials
-     there; the cache-fallback share of tiles and
-     K5's block barriers a tile at both sizes; the launches
+     there; K4's shared memory a block and the blocks an SM its registers,
+     shared memory and threads allow at both sizes; the cache-fallback share
+     of tiles and K5's block barriers a tile at both sizes; the launches
      of one step of each train path and of one 1920x1080 engine frame
   6a the calibration chain kernel against its plain version for every body,
      at 64 iterations on a grid that fills the card: mul, add, max, abs,
@@ -82,13 +88,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      percentages at most 105, every kernel of its path launched
 Then a JSON line describing the kernels (each with its bound: the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
-from this run's lists and gate tables; the chain kernel's is its FMAs over
+from this run's lists and gate tables, K4's, K5's and K6's also at 4K/200;
+the chain kernel's is its FMAs over
 SMs x 128 x the maximum clock; `launches` counts one main-path step at the
 row's shape, each count set to 0 just before it: a generic or fused train
 step, one engine frame at 1920x1080 for K7, one soft_tile_diagnostics call
 for K4-stats; `launches_elsewhere` the other counted runs with their
 shapes; the soft kernels add `floor_ms`, the calibrated floor of phase 6c
-from this run's calibration; the reduction's `library_ms` is its whole
+from this run's calibration, and `graph_device_ms`; the reduction's `library_ms` is its whole
 function in float64 PyTorch calls, index_add_ and sums, held to the
 kernel's sums, `library_device_ms` the same calls' device time, from CUDA
 events around a CUDA graph of 20 calls, beside `function_device_ms`, the
@@ -277,7 +284,7 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     """Phase 2b for one case: K1, K2, K3 and the reduction against their
     plain versions on the same inputs, K3 against K1 + K2, determinism.
     cull=False runs every kernel without its culling (all live spheres
-    listed, no gates)."""
+    listed, no gates). Returns K1's (planes, gates)."""
     import torch
 
     spec = SK.SoftSpec(cfg, tau, cull=cull, bwd_cull=cull)
@@ -310,8 +317,8 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     g = torch.randn(out_p.shape, generator=gen).to(dev)
     bwd_args = (sph, pl, camv, lists, offsets, gates_p, out_p, g)
     p2k = SK.soft_bwd(*bwd_args, spec=spec, n_entries=n)
-    r2k = red(p2k)
-    r2p = red_plain(SK.soft_bwd_plain(*bwd_args, spec=spec, n_entries=n))
+    p2p = SK.soft_bwd_plain(*bwd_args, spec=spec, n_entries=n)
+    r2k, r2p = red(p2k), red_plain(p2p)
     k2 = _close_tables(_tables(r2k), _tables(r2p), f"{label}: K2 + reduction")
 
     Hp, Wp = spec.extent
@@ -321,11 +328,13 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     p3p = SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
     r3k, r3p = red(p3k), red_plain(p3p)
     k3 = _close_tables(_tables(r3k), _tables(r3p), f"{label}: K3 + reduction")
-    # K3's slab sums keep block_sum_plain's order: its partial tables are
-    # bit-equal to the plain version's; the reduction is bit-equal to its
-    # plain version on the same partials (K2's and K3's)
-    if not all(torch.equal(a, b) for a, b in zip(p3k, p3p)):
-        raise AssertionError(f"{label}: K3's partial tables differ from its plain version's")
+    # K2's and K3's slab sums keep block_sum_plain's order: their partial
+    # tables are bit-equal to the plain versions'; the reduction is bit-equal
+    # to its plain version on the same partials (K2's and K3's)
+    for what, pk, pp in (("K2", p2k, p2p), ("K3", p3k, p3p)):
+        if not all(torch.equal(a, b) for a, b in zip(pk, pp)):
+            raise AssertionError(f"{label}: {what}'s partial tables differ from its plain "
+                                 f"version's")
     _reduce_bit_equal(red, red_plain, (r2k, r3k), (p2k, p3k), label)
     loss_k = (r3k[2][12, 0].double() + r3k[2][12, 1].double()).item()
     loss_p = (r3p[2][12, 0].double() + r3p[2][12, 1].double()).item()
@@ -359,9 +368,10 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     errs["K3"] = max(errs["K3"], k3)
     print(f"phase 2b: {label} (tau {tau}): max abs diff K1 {k1!r}, K2 tables {k2!r}, "
           f"K3 tables {k3!r}, K3 vs K1+K2 {k3_vs!r}; K3 loss rel diff "
-          f"{abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)!r}; list entries {n}; K3's partial "
-          f"tables and the reduction bit-equal to the plain versions'; two launches bit-equal")
-    return out_k
+          f"{abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)!r}; list entries {n}, gated objects "
+          f"a tile at most {int(gates_k[:, 0].sum(1).max())}; K2's and K3's partial tables and "
+          f"the reduction bit-equal to the plain versions'; two launches bit-equal")
+    return out_k, gates_k
 
 
 def _reduce_bit_equal(red, red_plain, outs, parts, label):
@@ -473,6 +483,33 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def _list_bytes(npl: int, *lists, gate_rows: bool = True) -> int:
+    """Bytes of the tile lists a soft kernel reads and of the gate entries it
+    writes or reads: each list row's n and n entries (not the row's unused
+    tail), and, with gate_rows, one int a listed sphere and one a plane in
+    the gate row that list fills (the wrappers' torch.zeros clears the rest)."""
+    total = 0
+    for lst in lists:
+        n = int(lst[:, 0, 0].long().sum())
+        total += 4 * (n + lst.shape[0]) + (4 * (n + lst.shape[0] * npl) if gate_rows else 0)
+    return total
+
+
+def _partial_bytes(gates, ns: int, npl: int, ntf: int, shadowed: bool = False) -> int:
+    """Bytes of the partial rows a soft backward writes: the wrappers zero
+    the tables, and the kernel writes the rows of the objects its tile
+    gated, 8 floats a gated list entry (one 32-byte sector), 4 a gated
+    shadow entry, 12 a plane gated in either sweep, and ntf two-float
+    camera / loss slots a tile."""
+    g0 = gates[:, 0].long()
+    rows = 8 * int(g0[:, :ns].sum()) + 2 * ntf * gates.shape[0]
+    planes = g0[:, ns:ns + npl]
+    if shadowed:
+        rows += 4 * int(gates[:, 1, :ns].long().sum())
+        planes = planes | gates[:, 1, ns:ns + npl].long()
+    return 4 * (rows + 12 * int(planes.sum()))
+
+
 def _bound(nbytes: float, ops: float):
     """(least ms, what bounds it) for the work: bytes over 3.35 TB/s or
     float32 operations over 67 TFLOP/s, whichever takes longer."""
@@ -545,8 +582,8 @@ def _crowd_scene(n=14, seed=3):
 
 def _slab_crowd():
     """40 spheres packed into a short depth range over the floor: some
-    16x16 tiles gate in more objects than the SLAB slots K5 and K6 sum at
-    once (tests/test_torch_shadow_kernel.py `_slab_crowd`)."""
+    16x16 tiles gate in more objects than the SLAB slots the backward
+    sweeps sum at once (tests/test_torch_soft_kernel.py `_slab_crowd`)."""
     import numpy as np
     from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
 
@@ -681,10 +718,11 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
         k4 = max(k4, d)
         if not torch.allclose(out_k[sl], out_p[sl], atol=atol, rtol=rtol):
             raise AssertionError(f"{label}: K4 {name} outside atol {atol} rtol {rtol}: max {d!r}")
-    if not (torch.equal(gates_k, gates_p) and torch.equal(cnt_k, cnt_p)
-            and torch.equal(out_s, out_k) and torch.equal(gates_s, gates_k)):
-        raise AssertionError(f"{label}: K4 gates or K4-stats counts differ from the plain "
-                             f"version's, or K4-stats' planes from K4's")
+    if not (torch.equal(out_k, out_p) and torch.equal(gates_k, gates_p)
+            and torch.equal(cnt_k, cnt_p) and torch.equal(out_s, out_k)
+            and torch.equal(gates_s, gates_k)):
+        raise AssertionError(f"{label}: K4's planes or gates or K4-stats' counts differ from the "
+                             f"plain version's, or K4-stats' planes from K4's")
 
     gen = torch.Generator().manual_seed(1234)
     g = torch.randn(out_p.shape, generator=gen).to(dev)
@@ -742,8 +780,9 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
           f"{abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)!r}; K4-stats counts equal (max "
           f"culled-in {int(cnt_k[:, 0].max())}, tiles over NC={SH.NC}: "
           f"{int((cnt_k[:, 0] > SH.NC).sum())} of {cnt_k.shape[0]}, over SLAB={SH.SLAB}: "
-          f"{int((cnt_k[:, 0] > SH.SLAB).sum())}); list entries {n}, shadow entries {nsh}; K5 and "
-          f"K6 partial tables and the reduction bit-equal to the plain versions'; two launches "
+          f"{int((cnt_k[:, 0] > SH.SLAB).sum())}); list entries {n}, shadow entries {nsh} (at most "
+          f"{int(shl[:, 0, 0].max())} a tile); K4's planes and gates, K4-stats' counts, K5's and "
+          f"K6's partial tables and the reduction bit-equal to the plain versions'; two launches "
           f"bit-equal")
     return out_k, gates_k, cnt_k
 
@@ -815,9 +854,10 @@ def _graph_ms(fn, calls=20, runs=5):
 def _k5_barriers(shl, gates, ns: int) -> dict:
     """Block barriers of a K5 block, mean and max over the tiles, counted
     from its gate tables: one after the plane staging; then either two a
-    gated object (a block_sum each, the design before the slab) or two a
+    gated object (a block sum each, the design before the slab) or two a
     sweep that gates any (a slab flush each, csrc/soft_block.cuh `Slab`);
-    then two (block_tf_sum) or one (block_tf_rows) for the camera sums.
+    then two (one thread's camera sum, before the slab) or one
+    (block_tf_rows) for the camera sums.
     K6's backward runs the same; its forward's barriers are K4's."""
     import torch
 
@@ -1135,12 +1175,19 @@ def main() -> int:
          cfg96.replace(max_spheres=8, max_planes=4), 0.5),
         ("default 401x151", default_scene(base), default_camera(),
          RenderConfig(width=401, height=151), 0.5),
+        ("slab overflow 96x32, 40 spheres", _slab_crowd(), default_camera(),
+         cfg96.replace(max_spheres=48), 0.5),
     ]
     errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "reduce": 0.0}
     for label, scene, cam, cfg, tau in soft_cases:
-        out = _soft_case(SK, label, scene, cam, cfg, tau, dev, errs)
+        out, gates_c = _soft_case(SK, label, scene, cam, cfg, tau, dev, errs)
         if label.startswith("empty") and (out[SK.SO_ALPHA] != 0).any():
             raise AssertionError("the empty scene must render all background")
+        gated = gates_c[:, 0].sum(1)
+        if label.startswith("slab overflow") and not (int(gated.max()) > SH.SLAB
+                                                      >= int(gated.min())):
+            raise AssertionError(f"{label}: no tile gates more objects than the {SH.SLAB} slab "
+                                 f"slots, or every tile does")
     _soft_case(SK, "random 24 400x150 posed camera, culling off",
                random_scene(24, max_spheres=24, max_planes=4, seed=7), posed,
                RenderConfig(width=400, height=150, max_spheres=24, **SOFT_KW), 0.5, dev, errs,
@@ -1714,14 +1761,16 @@ def main() -> int:
                    lambda: SK.soft_grad_reduce_plain(parts[0][:n], pidx, *parts[1:],
                                                      sph.shape[1])),
     }
-    soft_timing = {}
+    soft_timing, graph_timing = {}, {}
     for key, (kname, kfn, pfn) in soft_calls.items():
         k_ms = _time_ms(kfn)
         p_ms = _time_ms(pfn, reps=5, warm=1)
         d_ms = _kernel_device_ms(kfn, name=kname, per_call=key == "reduce")
         soft_timing[key] = (k_ms, p_ms, d_ms)
+        graph_timing[key] = _graph_ms(kfn)[0]
         print(f"phase 5: {key} ({kname}) 1920x1080 --spheres 20 tau 0.5: {k_ms!r} ms a call "
-              f"(device time alone {d_ms!r} ms), plain {p_ms!r} ms; {n} list entries {tag}")
+              f"(device time alone {d_ms!r} ms, profiler mean; {graph_timing[key]!r} ms a call "
+              f"of a CUDA graph of 20), plain {p_ms!r} ms; {n} list entries {tag}")
 
     PlainRender, PlainMSE = _plain_autograd(SK)
     rays = 1920 * 1080
@@ -1799,8 +1848,10 @@ def main() -> int:
         p_ms = _time_ms(pfn, reps=1, warm=0)  # the plain versions are timed once
         d_ms = _kernel_device_ms(kfn, name=kname, per_call=key == "reduce sh")
         soft_timing[key] = (k_ms, p_ms, d_ms)
+        graph_timing[key] = _graph_ms(kfn)[0]
         print(f"phase 5b: {key} ({kname}) bench headline 1920x1080 random_scene(20) shadows tau "
-              f"0.5: {k_ms!r} ms a call (device time alone {d_ms!r} ms), plain {p_ms!r} ms; "
+              f"0.5: {k_ms!r} ms a call (device time alone {d_ms!r} ms, profiler mean; "
+              f"{graph_timing[key]!r} ms a call of a CUDA graph of 20), plain {p_ms!r} ms; "
               f"{n_h} list entries, {nsh_h} shadow entries {tag}")
     print(f"phase 5b: bench headline: cache-fallback share of tiles {float((cnt_h[:, 0] > SH.NC).float().mean())!r} "
           f"(culled-in objects per tile max {int(cnt_h[:, 0].max())}, NC {SH.NC})")
@@ -1853,9 +1904,9 @@ def main() -> int:
     sh_offsets_4, pshidx_4 = SK.list_entries(shl_4)
     sizes_4 = dict(n_entries=pidx_4.shape[0], n_sh_entries=pshidx_4.shape[0])
     out_4, gates_4 = SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4, spec=spec_4k)
-    k4_4k = _kernel_device_ms(lambda: SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4,
-                                                     spec=spec_4k), reps=5,
-                              name="soft_sh_fwd_kernel")
+    k4_4k_fn = lambda: SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4, spec=spec_4k)  # noqa: E731
+    k4_4k = _kernel_device_ms(k4_4k_fn, reps=5, name="soft_sh_fwd_kernel")
+    graph_timing["K4 4k"] = _graph_ms(k4_4k_fn)[0]
     g_4 = torch.zeros_like(out_4)  # the MSE cotangents of a zero target, as at the headline
     g_4[:3] = (2.0 / (255.0 ** 2 * 3 * 3840 * 2160)) * out_4[:3]
     k5_4k = _kernel_device_ms(lambda: SH.soft_sh_bwd(
@@ -1870,6 +1921,8 @@ def main() -> int:
                              torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k,
                              **sizes_4)
     n_4, nsh_4 = pidx_4.shape[0], pshidx_4.shape[0]
+    bwd_4 = (sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4, gates_4, out_4, g_4)
+    parts_5_4k = SH.soft_sh_bwd(*bwd_4, spec=spec_4k, **sizes_4)
     red_4k = (lambda: SK.soft_grad_reduce(parts_4[0], pidx_4, parts_4[2], parts_4[3], 200,
                                           psh=parts_4[1], pshidx=pshidx_4),
               lambda: SK.soft_grad_reduce_plain(parts_4[0][:n_4], pidx_4, parts_4[2], parts_4[3],
@@ -1880,7 +1933,19 @@ def main() -> int:
     ms_4k_generic = _step_ms(sh_step("generic", scene_4k, cam_hl, cfg_4k, tgt_4k), 5)
     print(f"phase 5b: shadowed generic train step 3840x2160 random_scene(200): "
           f"{ms_4k_generic!r} ms, {3840 * 2160 / ms_4k_generic * 1e3!r} rays/s; device time K4 "
-          f"{k4_4k!r} ms, K5 {k5_4k!r} ms {tag}")
+          f"{k4_4k!r} ms (profiler mean; {graph_timing['K4 4k']!r} ms a call of a CUDA graph of "
+          f"20), K5 {k5_4k!r} ms {tag}")
+    # K4's shared memory a block and the blocks an SM each limit allows
+    k4_regs = {k: int(r) for lib, so in libs.items() if lib == "soft_shadow"
+               for k, r, _ in _ptxas_report(so[:-3] + ".log") if "soft_sh_fwd_kernel" in k}
+    regs = max(k4_regs.values())
+    by_regs = 65536 // (-(-regs * 32 // 256) * 256 * 8)  # 256 threads: 8 warps, 256-register units
+    for label, np_, stride in (("bench headline", pl_h.shape[1], lists_h.shape[2]),
+                               ("3840x2160 random_scene(200)", pl_4.shape[1], lists_4.shape[2])):
+        smem = SH.fwd_shared_bytes(np_, stride)
+        by_smem = (228 * 1024) // (smem + 1024)
+        print(f"phase 5b: K4 at {label}: {smem} B of shared memory a block; blocks an SM by "
+              f"registers ({regs}) {by_regs}, by shared memory {by_smem}, by threads 8")
     print(f"phase 5b: shadowed fused train step 3840x2160 random_scene(200): {ms_4k!r} ms, "
           f"{3840 * 2160 / ms_4k * 1e3!r} rays/s; K6 device time {k6_4k!r} ms; peak memory "
           f"{peak_4k / 2**20:.1f} MiB ({(peak_4k - base_mem) / 2**20:.1f} MiB above the "
@@ -1893,7 +1958,7 @@ def main() -> int:
                                           ("3840x2160 random_scene(200)",
                                            (shl_4, gates_4, sph_4.shape[1]))):
         print(f"phase 5b: K5 block barriers a tile, {label} (counted from the gate tables; a "
-              f"block_sum per gated object vs the slab): {_k5_barriers(shl_b, gates_b, ns_b)}")
+              f"block sum per gated object vs the slab): {_k5_barriers(shl_b, gates_b, ns_b)}")
 
     lap("5b")
 
@@ -1958,37 +2023,63 @@ def main() -> int:
                            + int(counts_c[0, 1]) * OPS["hard_plane"] + OPS["hard_shade"]
                            + n_obj * OPS["hard_shadow"]).sum())
     hard_out = hard_kernel.hard_render_packed(*args_c, config=cfg_c, bh=bh, bw=bw)
-    w20 = _soft_work(lists, gates, int(camv[0, P.C_NPL]), px)
-    wsh = _soft_work(lists_h, gates_h, int(cam_h[0, P.C_NPL]), px, shl_h, cnt_h, SH.NC)
+    npl20, npl_h, npl_4 = (int(c[0, P.C_NPL]) for c in (camv, cam_h, cam_4))
+    ns20, ns_h, ns_4 = sph.shape[1], sph_h.shape[1], sph_4.shape[1]
+    w20 = _soft_work(lists, gates, npl20, px)
+    wsh = _soft_work(lists_h, gates_h, npl_h, px, shl_h, cnt_h, SH.NC)
     red20 = soft_calls["reduce"][1]()
     red_h = sh_calls["reduce sh"][1]()
     red_4k_out = red_4k[0]()
-    k3_parts = SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
-    k6_parts = SH.soft_sh_mse(*mse_h, spec=spec_hl, **sizes_h)
-    ins_h = (sph_h, pl_h, cam_h, lists_h, shl_h)
-    # key: (bytes read once + written once, float32 operations). Only the
-    # planes a kernel loads count: K1 writes gate row 0; K2 reads gate row 0,
-    # the saved planes but alpha (0-6, m, s) and the cotangents of rgb,
-    # depth, normal and alpha (0-7); K5 reads both gate rows, the saved
-    # planes but alpha (0-6, 8-13) and the same eight cotangent planes.
+    # key: (bytes read once + written once, float32 operations). Only what a
+    # kernel touches counts: its list rows and gate entries (_list_bytes),
+    # the partial rows it writes (_partial_bytes) and the planes it loads.
+    # K1 writes gate row 0; K2 reads gate row 0, the saved planes but alpha
+    # (0-6, m, s) and the cotangents of rgb, depth, normal and alpha (0-7);
+    # K3 and K6 read no gates (they gate in shared memory); K4 writes both
+    # gate rows; K5 reads both, the saved planes but alpha (0-6, 8-13) and
+    # the same eight cotangent planes.
     work = {
-        "K7": (_nbytes(*args_c, hard_out), hard_ops),
-        "K1": (_nbytes(sph, pl, camv, lists, out, gates[:, 0]), w20["fwd"]),
-        "K2": (_nbytes(sph, pl, camv, lists, offsets, gates[:, 0], out[:7], out[8:10],
-                       g_mse[:8], *parts), w20["bwd"]),
-        "K3": (_nbytes(sph, pl, camv, lists, offsets, tgt, *k3_parts),
+        "K7": (_nbytes(*args_c[:4], hard_out) + _list_bytes(0, lists_c, gate_rows=False),
+               hard_ops),
+        "K1": (_nbytes(sph, pl, camv, out) + _list_bytes(npl20, lists), w20["fwd"]),
+        "K2": (_nbytes(sph, pl, camv, offsets, out[:7], out[8:10], g_mse[:8])
+               + _list_bytes(npl20, lists) + _partial_bytes(gates, ns20, npl20, 12),
+               w20["bwd"]),
+        "K3": (_nbytes(sph, pl, camv, offsets, tgt) + _list_bytes(npl20, lists, gate_rows=False)
+               + _partial_bytes(gates, ns20, npl20, 13),
                w20["fwd"] + w20["bwd"] + px * OPS["loss"] * lists.shape[0]),
         "reduce": (_nbytes(*parts, pidx, *red20), 8.0 * float(parts[0].numel())),
-        "K4": (_nbytes(*ins_h, out_h, gates_h), wsh["sh_fwd"]),
-        "K4-stats": (_nbytes(*ins_h, out_h, gates_h, cnt_h), wsh["sh_fwd"]),
-        "K5": (_nbytes(*bwd_h[:8], out_h[:7], out_h[8:], g_h[:8], *parts_h), wsh["sh_bwd"]),
-        "K6": (_nbytes(*mse_h, *k6_parts), wsh["sh_fwd"] + wsh["sh_bwd"]
-               + px * OPS["loss"] * lists_h.shape[0]),
+        "K4": (_nbytes(sph_h, pl_h, cam_h, out_h) + _list_bytes(npl_h, lists_h, shl_h),
+               wsh["sh_fwd"]),
+        "K4-stats": (_nbytes(sph_h, pl_h, cam_h, out_h, cnt_h)
+                     + _list_bytes(npl_h, lists_h, shl_h), wsh["sh_fwd"]),
+        "K5": (_nbytes(sph_h, pl_h, cam_h, offsets_h, sh_offsets_h, out_h[:7], out_h[8:],
+                       g_h[:8]) + _list_bytes(npl_h, lists_h, shl_h)
+               + _partial_bytes(gates_h, ns_h, npl_h, 12, True), wsh["sh_bwd"]),
+        "K6": (_nbytes(sph_h, pl_h, cam_h, offsets_h, sh_offsets_h, tgt_h)
+               + _list_bytes(npl_h, lists_h, shl_h, gate_rows=False)
+               + _partial_bytes(gates_h, ns_h, npl_h, 13, True),
+               wsh["sh_fwd"] + wsh["sh_bwd"] + px * OPS["loss"] * lists_h.shape[0]),
         "reduce sh": (_nbytes(*parts_h, pidx_h, pshidx_h, *red_h),
                       8.0 * float(parts_h[0].numel() + parts_h[1].numel())),
         "reduce 4k": (_nbytes(*parts_4, pidx_4, pshidx_4, *red_4k_out),
                       8.0 * float(parts_4[0].numel() + parts_4[1].numel())),
     }
+    # K4, K5 and K6 at 4K/200 on that shape's lists, gates and counts
+    w4k = _soft_work(lists_4, gates_4, npl_4, px, shl_4, cnt_4, SH.NC)
+    work_4k = {
+        "K4": (_nbytes(sph_4, pl_4, cam_4, out_4) + _list_bytes(npl_4, lists_4, shl_4),
+               w4k["sh_fwd"]),
+        "K5": (_nbytes(sph_4, pl_4, cam_4, offsets_4, sh_offsets_4, out_4[:7], out_4[8:],
+                       g_4[:8]) + _list_bytes(npl_4, lists_4, shl_4)
+               + _partial_bytes(gates_4, ns_4, npl_4, 12, True), w4k["sh_bwd"]),
+        "K6": (_nbytes(sph_4, pl_4, cam_4, offsets_4, sh_offsets_4)
+               + 4 * 3 * spec_4k.extent[0] * spec_4k.extent[1]  # the target's planes
+               + _list_bytes(npl_4, lists_4, shl_4, gate_rows=False)
+               + _partial_bytes(gates_4, ns_4, npl_4, 13, True),
+               w4k["sh_fwd"] + w4k["sh_bwd"] + px * OPS["loss"] * lists_4.shape[0]),
+    }
+    dev_4k = {"K4": k4_4k, "K5": k5_4k, "K6": k6_4k}
     soft_timing["K7"] = (timing["c random 20 1920x1080 shadows"][0],
                          timing["c random 20 1920x1080 shadows"][1],
                          timing["c random 20 1920x1080 shadows"][3])
@@ -2070,8 +2161,18 @@ def main() -> int:
                  "replaces": replaces, "launches": count, "max_abs_err": errs[key], "ms": k_ms,
                  "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": lib_reduce if key == "reduce" else None,
-                 "floor_ms": floors.get(floor_key), "device_ms": d_ms, "shape": shape,
+                 "floor_ms": floors.get(floor_key), "device_ms": d_ms,
+                 "graph_device_ms": graph_timing.get(key), "shape": shape,
                  "launches_elsewhere": [{"run": r, "launches": c} for r, c in elsewhere]}
+        if key in work_4k:
+            entry["bound_ms_4k200"], entry["bound_by_4k200"] = _bound(*work_4k[key])
+            entry["device_ms_4k200"] = dev_4k[key]
+            print(f"phase 5b: {key} at 3840x2160 random_scene(200): bound "
+                  f"{entry['bound_ms_4k200']!r} ms ({entry['bound_by_4k200']}; "
+                  f"{work_4k[key][0] / 1e6:.1f} MB, {work_4k[key][1] / 1e9:.2f} GFLOP), device "
+                  f"{dev_4k[key]!r} ms")
+        if key == "K4":
+            entry["graph_device_ms_4k200"] = graph_timing["K4 4k"]
         if key == "reduce":
             r_ms, r_p, r_d = soft_timing["reduce sh"]
             rb_ms, rb_by = _bound(*work["reduce sh"])

@@ -1,7 +1,7 @@
 // Block-level device code shared by the soft kernels (csrc/soft_render.cu,
-// csrc/soft_shadow.cu): table loads, the block sums of the per-block
-// partials, the online-softmin step, the forward and backward sweeps, the
-// slab and stash of K3, K5 and K6, and the launch helpers. One thread per
+// csrc/soft_shadow.cu): table loads and the sphere sources of the sweeps,
+// the online-softmin step, the forward sweep, the slab and stash of the
+// backward sweep (K2, K3, K5, K6), and the launch helpers. One thread per
 // pixel, one block per (bh, bw) broad-phase tile. The plain torch twins
 // are in render/soft_core.py (block_sum_plain, block_tf_sum_plain,
 // _accumulate, object_sweep, _backward_sweep).
@@ -47,33 +47,85 @@ __device__ __forceinline__ Plane load_plane(const float* s_pl, int np, int k) {
   return q;
 }
 
+// Where a forward sweep finds its tile's list row (n, then n sphere
+// indices) and the listed spheres. GlobalList (K1, K3, K6) reads both from
+// device memory as the sweep reaches them: per object a load of the entry,
+// then the sphere's 7 parameters, then the block's vote. StagedList (K4,
+// K4-stats) reads them from shared memory, where stage_lists put them at
+// block start. Both give the same floats in the same order.
+struct GlobalList {
+  const float* __restrict__ sph;
+  const int* __restrict__ lst;
+  int ns;
+  __device__ int n() const { return __ldg(lst); }
+  __device__ int index(int kk) const { return __ldg(lst + 1 + kk); }
+  __device__ Sphere sphere(int, int k) const { return load_sphere(sph, ns, k); }
+};
+
+// The staged layout: the list row at s_lst [list_stride] ints; entry kk's
+// parameters at s_sph[f * (list_stride - 1) + kk], f = 0..STAGED - 1 in
+// load_sphere's order (cx, cy, cz, r, colour).
+constexpr int STAGED = 7;
+
+struct StagedList {
+  const int* s_lst;
+  const float* s_sph;
+  int stride;  // list_stride - 1: the most entries a row holds
+  __device__ int n() const { return s_lst[0]; }
+  __device__ int index(int kk) const { return s_lst[1 + kk]; }
+  __device__ Sphere sphere(int kk, int) const {
+    Sphere s;
+    s.cx = s_sph[kk];
+    s.cy = s_sph[stride + kk];
+    s.cz = s_sph[2 * stride + kk];
+    s.r = s_sph[3 * stride + kk];
+    s.col[0] = s_sph[4 * stride + kk];
+    s.col[1] = s_sph[5 * stride + kk];
+    s.col[2] = s_sph[6 * stride + kk];
+    return s;
+  }
+};
+
+// Copies the tile's list row lst and shadow list row shl (n, then n
+// entries each) and their spheres into shared memory: s_lst and s_lst +
+// list_stride, s_sph and s_sph + STAGED * (list_stride - 1), StagedList's
+// layout. Thread e takes entry e of the two rows laid end to end, so the
+// entries' loads are coalesced and all the spheres' loads are in flight at
+// once: one chain of dependent loads a block, not one an object. No
+// barrier: the caller's next one (stage_planes') publishes them.
+__device__ __forceinline__ void stage_lists(const SoftParams& p, const float* __restrict__ sph,
+                                            const int* __restrict__ lst,
+                                            const int* __restrict__ shl, int* s_lst,
+                                            float* s_sph) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int L = p.list_stride - 1;
+  const int n0 = __ldg(lst), n1 = __ldg(shl);
+  if (tid == 0) {
+    s_lst[0] = n0;
+    s_lst[p.list_stride] = n1;
+  }
+  for (int e = tid; e < n0 + n1; e += blockDim.x * blockDim.y) {
+    const int i = e < n0 ? 0 : 1, kk = e < n0 ? e : e - n0;
+    const int k = __ldg((i ? shl : lst) + 1 + kk);
+    s_lst[i * p.list_stride + 1 + kk] = k;
+    const Sphere sp = load_sphere(sph, p.ns, k);
+    float* row = s_sph + i * STAGED * L + kk;
+    row[0] = sp.cx;
+    row[L] = sp.cy;
+    row[2 * L] = sp.cz;
+    row[3 * L] = sp.r;
+    row[4 * L] = sp.col[0];
+    row[5 * L] = sp.col[1];
+    row[6 * L] = sp.col[2];
+  }
+}
+
 // The warp butterfly of the block sums: lane 0 ends with its warp's sums.
 template <int N>
 __device__ __forceinline__ void warp_sum(float v[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
     for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_down_sync(FULL, v[i], off);
-}
-
-// Block sum of N values per thread; thread 0 gets the totals in out[].
-// Warp butterflies, then the warps' sums in warp order (block_sum_plain).
-template <int N>
-__device__ __forceinline__ void block_sum(float v[N], float* s_red, float out[N]) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nwarps = (blockDim.x * blockDim.y) >> 5;
-  warp_sum<N>(v);
-  if (lane == 0)
-    for (int i = 0; i < N; ++i) s_red[warp * N + i] = v[i];
-  __syncthreads();
-  if (tid == 0) {
-    for (int i = 0; i < N; ++i) {
-      float a = s_red[i];
-      for (int w = 1; w < nwarps; ++w) a = a + s_red[w * N + i];
-      out[i] = a;
-    }
-  }
-  __syncthreads();
 }
 
 // The warp butterfly of the two-float block sums: lane 0 of each warp
@@ -100,26 +152,6 @@ __device__ __forceinline__ void warp_tf_sum(const float v[N], float* s_red) {
     }
 }
 
-// Two-float block sum of N values per thread (block_tf_sum_plain).
-template <int N>
-__device__ __forceinline__ void block_tf_sum(const float v[N], float* s_red, float hi[N],
-                                             float lo[N]) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nwarps = (blockDim.x * blockDim.y) >> 5;
-  warp_tf_sum<N>(v, s_red);
-  __syncthreads();
-  if (tid == 0) {
-    for (int i = 0; i < N; ++i) {
-      float a = s_red[2 * i], b = s_red[2 * i + 1];
-      for (int w = 1; w < nwarps; ++w)
-        tf_combine(a, b, s_red[(w * N + i) * 2], s_red[(w * N + i) * 2 + 1], &a, &b);
-      hi[i] = a;
-      lo[i] = b;
-    }
-  }
-  __syncthreads();
-}
-
 // One online-softmin step (pallas_soft.py:1236-1252).
 template <int NACC>
 __device__ __forceinline__ void accumulate(const SoftParams& p, const ObjOut& v, float* m,
@@ -144,17 +176,17 @@ __device__ __forceinline__ void accumulate(const SoftParams& p, const ObjOut& v,
 // (__syncthreads_or); thread 0 writes the decision to gate_row[k] (spheres)
 // or gate_row[ns + k] (planes) unless gate_row is null. visit(g, col, sn)
 // gets every object taken: its shading-free geometry, its colour and its
-// shading normal; it may move *m.
-template <typename Visit>
+// shading normal; it may move *m. The list and its spheres come from
+// `list`, a GlobalList or a StagedList.
+template <typename List, typename Visit>
 __device__ __forceinline__ void forward_sweep(const SoftParams& p, const float* __restrict__ cam,
-                                              const float* __restrict__ sph, const float* s_pl,
-                                              const int* __restrict__ lst, int* gate_row, Vec3 d,
-                                              Vec3 o, const float* m, Visit&& visit) {
+                                              const List& list, const float* s_pl, int* gate_row,
+                                              Vec3 d, Vec3 o, const float* m, Visit&& visit) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_list = __ldg(lst);
+  const int n_list = list.n();
   for (int kk = 0; kk < n_list; ++kk) {
-    const int k = __ldg(lst + 1 + kk);
-    const Sphere sp = load_sphere(sph, p.ns, k);
+    const int k = list.index(kk);
+    const Sphere sp = list.sphere(kk, k);
     if (p.cull) {
       float t2, dss;
       const float lb = sphere_lb_ex(p, sp, d, o, &t2, &dss);
@@ -210,24 +242,23 @@ __device__ __forceinline__ ObjOut cotangents(const SoftParams& p, const ObjOut& 
   return ct;
 }
 
+// The camera sum's per-warp (hi, lo) pairs (block_tf_rows).
 struct Reduce {
-  float red[MAX_WARPS * 11];
   float tf[MAX_WARPS * NTF * 2];
 };
 
-// The slab scheme of K3, K5 and K6 (csrc/soft_render.cu, soft_shadow.cu):
-// per-object partials without a block barrier per object. Each warp
-// reduces its 32 lanes with block_sum's butterfly and lane 0 parks the
-// warp's N sums in slot `used` of the slab, [slot][warp][value], with no
-// barrier. When SLAB_SLOTS
-// slots are full, or the sweep ends, one barrier; then the block's threads
-// take one (slot, value) pair each, sum it over the warps in warp order
-// 0, 1, ... (block_sum's order, so the totals are bit-equal to its) and
-// write it to the slot's row; a second barrier frees the slab. SLAB_SLOTS =
-// 32: 11.4 KB a block. A tile of the bench's cells gates at most 11
-// objects in a sweep (4K / 200 spheres), so those flush once a sweep, and
-// K5 and K6 (with their 27 KB stash) take 41 KB a block, a fifth of an
-// SM's 228 KB.
+// The slab scheme of the backward sweep (K2, K3, K5, K6): per-object
+// partials without a block barrier per object. Each warp reduces its 32
+// lanes with a butterfly (warp_sum) and lane 0 parks the warp's N sums in
+// slot `used` of the slab, [slot][warp][value], with no barrier. When
+// SLAB_SLOTS slots are full, or the sweep ends, one barrier; then the
+// block's threads take one (slot, value) pair each, sum it over the warps
+// in warp order 0, 1, ... (block_sum_plain's order, so the totals are
+// bit-equal to it) and write it to the slot's row; a second barrier frees
+// the slab. SLAB_SLOTS = 32: 11.4 KB a block. A tile of the bench's cells
+// gates at most 11 objects in a sweep (4K / 200 spheres), so those flush
+// once a sweep, and K5 and K6 (with their 27 KB stash) take 41 KB a block,
+// a fifth of an SM's 228 KB.
 constexpr int SLAB_SLOTS = 32;
 constexpr int SLAB_VALS = 11;  // the widest row: a plane of the main sweep
 
@@ -272,9 +303,9 @@ __device__ __forceinline__ void slab_put(float v[N], Slab* sb, int& used, float*
   if (++used == SLAB_SLOTS) slab_flush(sb, used);
 }
 
-// The camera's two-float block sum for the slab scheme: block_tf_sum's
-// butterfly and warp order, but thread i combines slot i over the warps
-// and writes (hi, lo) to out[2 i], N threads at once. Last barrier of the
+// The camera's two-float block sum for the slab scheme: block_tf_sum_plain's
+// butterfly and warp order, thread i combining slot i over the warps and
+// writing (hi, lo) to out[2 i], N threads at once. Last barrier of the
 // kernel: nothing reads s_red after it.
 template <int N>
 __device__ __forceinline__ void block_tf_rows(const float v[N], float* s_red,
@@ -292,78 +323,8 @@ __device__ __forceinline__ void block_tf_rows(const float v[N], float* s_red,
   }
 }
 
-// K2's sweep. Writes the block's partials: the twelve camera cotangents as
-// NTFB = 12 two-float slots; a block_sum per object. It keeps block_sum and
-// block_tf_sum until K2 moves to backward_sweep_slab, as K3, K5 and K6 have.
-template <int NTFB>
-__device__ void backward_sweep(const SoftParams& p, const float* __restrict__ cam,
-                               const float* __restrict__ sph, const float* s_pl,
-                               const int* __restrict__ lst, const int* gate_row, int tile,
-                               int offset, const Ray& r, Vec3 o, float m, float inv_s,
-                               const float gv[7], float S, float loss_px, Reduce* sm,
-                               float* __restrict__ pvals, float* __restrict__ ppl,
-                               float* __restrict__ ptf) {
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  Vec3 gd = {0.0f, 0.0f, 0.0f}, go = {0.0f, 0.0f, 0.0f};
-  const int n_list = __ldg(lst);
-  for (int kk = 0; kk < n_list; ++kk) {
-    const int k = __ldg(lst + 1 + kk);
-    if (p.cull && gate_row[k] != 1) continue;  // block-uniform
-    const Sphere sp = load_sphere(sph, p.ns, k);
-    const ObjOut v = sphere_f(p, sp, r.d, o);
-    const ObjOut ct = cotangents(p, v, m, inv_s, gv, S);
-    float g[7], tot[7];
-    Vec3 cd, co;
-    sphere_f_vjp(p, sp, r.d, o, ct, g, &cd, &co);
-    gd.x = gd.x + cd.x;
-    gd.y = gd.y + cd.y;
-    gd.z = gd.z + cd.z;
-    go.x = go.x + co.x;
-    go.y = go.y + co.y;
-    go.z = go.z + co.z;
-    block_sum<7>(g, sm->red, tot);
-    if (tid == 0)
-      for (int i = 0; i < 7; ++i) pvals[(size_t)(offset + kk) * 8 + i] = tot[i];
-  }
-  const int n_pl = (int)__ldg(cam + C_NPL);
-  for (int k = 0; k < n_pl; ++k) {
-    if (p.cull && gate_row[p.ns + k] != 1) continue;
-    const Plane q = load_plane(s_pl, p.np, k);
-    const ObjOut v = plane_f(p, q, r.d, o);
-    const ObjOut ct = cotangents(p, v, m, inv_s, gv, S);
-    float g[11], tot[11];
-    Vec3 cd, co;
-    plane_f_vjp(p, q, r.d, o, ct, g, &cd, &co);
-    gd.x = gd.x + cd.x;
-    gd.y = gd.y + cd.y;
-    gd.z = gd.z + cd.z;
-    go.x = go.x + co.x;
-    go.y = go.y + co.y;
-    go.z = go.z + co.z;
-    block_sum<11>(g, sm->red, tot);
-    if (tid == 0) {
-      float* row = ppl + ((size_t)tile * p.np + k) * PL_ROWS;
-      for (int i = 0; i < 11; ++i) row[i] = tot[i];
-    }
-  }
-  // camera: position cotangents and the raygen VJP, two-float
-  float v[NTFB], hi[NTFB], lo[NTFB];
-  v[0] = go.x;
-  v[1] = go.y;
-  v[2] = go.z;
-  raygen_vjp(r, gd, v + 3);
-  if constexpr (NTFB > SLOT_LOSS) v[SLOT_LOSS] = loss_px;
-  block_tf_sum<NTFB>(v, sm->tf, hi, lo);
-  if (tid == 0)
-    for (int i = 0; i < NTFB; ++i) {
-      ptf[((size_t)tile * NTF + i) * 2] = hi[i];
-      ptf[((size_t)tile * NTF + i) * 2 + 1] = lo[i];
-    }
-}
-
-
-// Per-pixel values that K3, K5 and K6 keep in shared memory while their sweeps
-// run, [field][MAX_THREADS]: written before a sweep, read where needed, so
+// Per-pixel values that K2, K3, K5 and K6 keep in shared memory while their
+// sweeps run, [field][MAX_THREADS]: written before a sweep, read where needed, so
 // that they hold no register through an object's VJP. Each thread reads and
 // writes only its own column, so no barrier guards it; `volatile` keeps the
 // compiler from holding the values in registers after all. The row stride
@@ -382,7 +343,7 @@ struct Stash {
   __device__ explicit Stash(float* s) : col(s + threadIdx.y * blockDim.x + threadIdx.x) {}
   __device__ void put(int f, float v) const { col[f * MAX_THREADS] = v; }
   __device__ float get(int f) const { return col[f * MAX_THREADS]; }
-  // gd += cd, go += co, as backward_sweep accumulates them
+  // gd += cd, go += co, as _backward_sweep accumulates them
   __device__ void add_ray_cotangents(Vec3 cd, Vec3 co) const {
     put(ST_GD, get(ST_GD) + cd.x);
     put(ST_GD + 1, get(ST_GD + 1) + cd.y);
@@ -393,10 +354,10 @@ struct Stash {
   }
 };
 
-// The backward sweep of K3, K5 and K6: backward_sweep's arithmetic op for
-// op. SHADOWED (K5, K6): the objects are shaded by vis (rgb = min(255, A +
+// The backward sweep of K2, K3, K5 and K6 (soft_core.py _backward_sweep,
+// op for op). SHADOWED (K5, K6): the objects are shaded by vis (rgb = min(255, A +
 // vis B)) and each plane row is added to the shadow sweep's partial already
-// in ppl; otherwise (K3) the objects are unshaded, vis is unused and each
+// in ppl; otherwise (K2, K3) the objects are unshaded, vis is unused and each
 // plane row is set. Its per-object partials are summed through the slab,
 // the camera's (and K3's loss, NTFB = 13) through block_tf_rows; m, 1/s, S,
 // the output cotangents, the ray cotangents (seeded by the caller) and the

@@ -41,11 +41,13 @@
 // and a few dozen shuffles per gated object per block for the sums. Stores
 // are 40 B per pixel (K1); K2 reads 68 B per pixel (9 saved planes, alpha
 // unread, and 8 cotangent planes), i.e. 84 / 142 MB at 1080p: about 25 /
-// 42 us at 3.35 TB/s. The kernels are compute- and
-// latency-bound (registers carry the saved planes, the cotangents and the
-// ray residuals), and at the sizes of the train path the torch work around
-// them (broad phase, pack, optimiser) is as large. A simple design that is
-// right comes first; making it fast is later work.
+// 42 us at 3.35 TB/s. A 16x16 tile of the train path gates less than one
+// object a sweep on average, so K2 and K3 are bound by what every block does
+// once and by latency. Both run the backward sweep of csrc/soft_block.cuh
+// (backward_sweep_slab): a gated object's per-warp sums wait in a
+// shared-memory slab, summed once a sweep; the camera's two-float sum runs
+// on 12 / 13 threads at once; what the sweep re-reads waits in a per-thread
+// shared-memory stash, so that 3 (K3) or 4 (K2) blocks fit an SM.
 //
 // Float semantics follow the plain versions op for op; compiled with
 // -fmad=false (see soft_common.cuh).
@@ -78,7 +80,7 @@ __device__ __forceinline__ void softmin_sweep(const SoftParams& p, const float* 
                                               const float* __restrict__ sph, const float* s_pl,
                                               const int* __restrict__ lst, int* gate_row, Vec3 d,
                                               Vec3 o, float* m, float* s, float acc[NACC]) {
-  forward_sweep(p, cam, sph, s_pl, lst, gate_row, d, o, m,
+  forward_sweep(p, cam, GlobalList{sph, lst, p.ns}, s_pl, gate_row, d, o, m,
                 [&](const Geo& g, const float* col, Vec3 sn) {
                   accumulate<NACC>(p, obj_out(p, g, col, sn, d), m, s, acc);
                 });
@@ -109,17 +111,30 @@ soft_fwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
   out[SO_S * plane + pix] = s;
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+// Blocks an SM that K2 is built for: 4, at most 64 registers a thread. It
+// spills 108 B there and is the fastest of 2 to 5 blocks on an H100 at 1080p
+// (PERF.md section 6): 0.142 ms at 4 (64 registers), 0.151 at 3 (80, 8 B of
+// spill stores), 0.185 at 2 (96, no spill), 0.164-0.188 at 5 (48, 268 B).
+constexpr int K2_MIN_BLOCKS = 4;
+
+// K2: the backward sweep of K3, K5 and K6 (backward_sweep_slab) unshaded,
+// against K1's saved m and s: the per-object sums wait in the slab, the
+// camera's go through block_tf_rows, and what the sweep re-reads (m, 1/s,
+// S, the seven output cotangents, the ray cotangents and the camera sum's
+// ray terms) waits in the stash, not in registers.
+__global__ void __launch_bounds__(MAX_THREADS, K2_MIN_BLOCKS)
 soft_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
                 const float* __restrict__ pl_g, const int* __restrict__ lists,
                 const int* __restrict__ offsets, const int* __restrict__ gates,
                 const float* __restrict__ sav, const float* __restrict__ g,
                 float* __restrict__ pvals, float* __restrict__ ppl, float* __restrict__ ptf) {
-  extern __shared__ float s_pl[];
+  extern __shared__ float s_pl[];  // [12, NP] planes, then the stash [ST_FIELDS, MAX_THREADS]
   __shared__ Reduce sm;
+  __shared__ Slab sb;
   stage_planes(p, pl_g, s_pl);
   const int tile = blockIdx.y * (p.wp / p.bw) + blockIdx.x;
-  const Ray r = block_ray(p, cam);
+  const Stash st(s_pl + PL_ROWS * p.np);
+  const Vec3 d = stash_ray(block_ray(p, cam), st);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   const size_t plane = (size_t)p.hp * p.wp;
   const size_t pix = (size_t)(blockIdx.y * p.bh + threadIdx.y) * p.wp + blockIdx.x * p.bw +
@@ -132,9 +147,18 @@ soft_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
   float S = gv[0] * sav[pix];
   for (int i = 1; i < 7; ++i) S = S + gv[i] * sav[i * plane + pix];
   S = S - g[SO_ALPHA * plane + pix] * w_bg;
-  backward_sweep<12>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
-                     gates + (size_t)tile * 2 * (p.ns + p.np), tile, __ldg(offsets + tile), r, o,
-                     m, inv_s, gv, S, 0.0f, &sm, pvals, ppl, ptf);
+  st.put(ST_M, m);
+  st.put(ST_INV_S, inv_s);
+  st.put(ST_S, S);
+  for (int i = 0; i < 7; ++i) st.put(ST_GV + i, gv[i]);
+  for (int i = 0; i < 3; ++i) {
+    st.put(ST_GD + i, 0.0f);
+    st.put(ST_GO + i, 0.0f);
+  }
+  backward_sweep_slab<12, false>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
+                                 gates + (size_t)tile * 2 * (p.ns + p.np), tile,
+                                 __ldg(offsets + tile), d, o, 1.0f, st, &sm, &sb, pvals, ppl,
+                                 ptf);
 }
 
 // Blocks an SM that K3 is built for: 3, at most 80 registers a thread. It
@@ -214,7 +238,8 @@ soft_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
 //    counts, ranked within a round by __match_any_sync: a stable counting
 //    sort, tile order within a key;
 //  4 spheres: one block a chunk of a key's sorted entries, one entry a
-//    thread, each entry's values read once, summed as block_sum sums;
+//    thread, each entry's values read once, summed in soft_core.py
+//    `block_sum_plain`'s order;
 //  5 final: one warp a sphere, a plane column or a camera slot sums the
 //    first passes' chunks, lane l chunks l, l + 32, ..., then a butterfly;
 //    a sphere's rows 0-3 add its shadow chunks' sum to its main chunks'.
@@ -494,7 +519,7 @@ soft_grad_reduce_spheres(ReduceParams rp, const float* __restrict__ pvals,
       v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
     }
   }
-  warp_sum<7>(v);  // block_sum's order: warp butterflies, then the warps in order
+  warp_sum<7>(v);  // block_sum_plain's order: warp butterflies, then the warps in order
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0)
     for (int i = 0; i < 7; ++i) s_sum[warp][i] = v[i];
@@ -580,8 +605,8 @@ extern "C" int rtwc_soft_bwd(const float* cam, const float* sph, const float* pl
                              const float* sav, const float* g, float* pvals, float* ppl,
                              float* ptf, const SoftParams* params, void* stream) {
   const SoftParams p = *params;
-  const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np;
-  if (int rc = prepare(soft_bwd_kernel, p, smem)) return rc;
+  const size_t smem = sizeof(float) * (PL_ROWS * (size_t)p.np + ST_FIELDS * MAX_THREADS);
+  if (int rc = prepare(soft_bwd_kernel, p, smem, sizeof(Reduce) + sizeof(Slab))) return rc;
   soft_bwd_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
                     (cudaStream_t)stream>>>(p, cam, sph, pl, lists, offsets, gates, sav, g,
                                             pvals, ppl, ptf);

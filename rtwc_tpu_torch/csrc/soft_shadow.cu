@@ -28,10 +28,10 @@
 // __syncthreads_and, so every branch below is block-uniform. The TPU kernel
 // keeps its object cache in VMEM (29 / 21 slots of 3 planes, sized from its
 // 16 MB); here a cache slot is 3 floats per thread (t_eff, dterm, sterm),
-// NC = 8 slots, in local memory in K4 and in shared memory in K6, and the 3
-// colour scalars of a slot in shared memory. The cache is filled in sweep-1
-// order; a block whose culled-in count exceeds NC takes the exact re-walk (a
-// block-uniform decision: the count is). Shadow-occluder gradients are
+// NC = 8 slots, in shared memory, and the 3 colour scalars of a slot too.
+// The cache is filled in sweep-1 order; a block whose culled-in count
+// exceeds NC takes the exact re-walk (a block-uniform decision: the count
+// is). Shadow-occluder gradients are
 // keyed by the shadow list, so K5 / K6 write them to a second compact table
 // ([E_sh, 4], row = shadow-list slot at sh_offsets[tile] + slot), beside
 // K2's [E, 8] sphere table; soft_grad_reduce (soft_render.cu) sums both in
@@ -52,7 +52,8 @@
 // - the slab (soft_block.cuh `Slab`): a gated object's per-warp sums wait
 //   in shared memory and the block sums them when 32 slots are full or the
 //   sweep ends, two barriers a sweep instead of two an object, each total
-//   by one thread in block_sum's order (bit-equal to it);
+//   by one thread in soft_core.py `block_sum_plain`'s order (warp
+//   butterflies, then the warps in order; bit-equal to it);
 // - the camera sum's cross-warp combine runs on 12 / 13 threads at once
 //   (block_tf_rows), where one thread did about 84 dependent steps while
 //   255 waited;
@@ -60,6 +61,17 @@
 //   the camera sum's inputs) waits in a per-thread shared-memory stash, and
 //   K6's clamp cache lives in shared memory, so that K5 and K6 fit the
 //   register budget of K5_MIN_BLOCKS / K6_MIN_BLOCKS blocks an SM.
+// K4 (and K4-stats), whose bound is its 56 B a pixel of stores:
+// - the TPU kernels read the tile's lists from SMEM by scalar prefetch; a
+//   K4 block copies its list row, its shadow list row and the listed
+//   spheres' parameters into shared memory at block start (stage_lists,
+//   one chain of dependent loads a block), so that no listed object costs
+//   a chain of dependent device-memory loads before its block vote;
+// - the clamp cache is in shared memory (a runtime slot index puts
+//   per-thread arrays in local memory), so that 5 blocks fit an SM at 48
+//   registers.
+// Without its stores K4 takes 88 % of its time at the headline (PERF.md
+// section 6), so the sweeps' arithmetic and block votes bound it.
 //
 // Float semantics follow the plain versions op for op; compiled with
 // -fmad=false (see soft_common.cuh).
@@ -86,25 +98,12 @@ struct ShFwd {
   int count, napp;  // culled-in main objects, applied occluders (block-uniform)
 };
 
-// The clamp cache: NC slots of (t_eff, dterm, sterm) a pixel. K4 keeps it in
-// per-thread arrays, which the runtime slot index puts in local memory.
-struct LocalCache {
-  float t_[NC], d_[NC], s_[NC];
-  __device__ explicit LocalCache(float*) {}
-  __device__ void put(int j, float te, float dt, float st) {
-    t_[j] = te;
-    d_[j] = dt;
-    s_[j] = st;
-  }
-  __device__ float t(int j) const { return t_[j]; }
-  __device__ float dterm(int j) const { return d_[j]; }
-  __device__ float sterm(int j) const { return s_[j]; }
-};
-
-// K6 keeps it in shared memory, [slot][value][MAX_THREADS] (3 NC x 256
-// floats, 24 KB a block): neighbouring threads on neighbouring banks, and
-// K6, which holds the cache across the shadow sweep and then runs the
-// backward, keeps it out of its registers and local memory.
+// The clamp cache: NC slots of (t_eff, dterm, sterm) a pixel, in shared
+// memory, [slot][value][MAX_THREADS] (3 NC x 256 floats, 24 KB a block):
+// neighbouring threads on neighbouring banks, and no register or local
+// memory holds it across the shadow sweep. The slot index is the count of
+// culled-in objects so far, a runtime value, which would put per-thread
+// arrays in local memory.
 struct SharedCache {
   float* col;  // this thread's column: s_cache + tid
   __device__ explicit SharedCache(float* s_cache)
@@ -121,11 +120,10 @@ struct SharedCache {
 
 // One step of sweep 1 (pallas_soft.py:1790-1818): the online softmin over
 // t_eff with the depth, normal and A / B accumulators, and the cache store.
-template <class Cache>
 __device__ __forceinline__ void fused_accumulate(const SoftParams& p, const Geo& g,
                                                  const float col[3], Vec3 sn, Vec3 d, float* m,
-                                                 float* s, float acc[10], int* count, Cache* c,
-                                                 float* s_ccol) {
+                                                 float* s, float acc[10], int* count,
+                                                 SharedCache* c, float* s_ccol) {
   float dterm, sterm, A[3], B[3];
   shade_terms(p, g.pt, sn, d, &dterm, &sterm);
   parts_from_terms(p, dterm, sterm, col, A, B);
@@ -165,20 +163,20 @@ __device__ __forceinline__ void shade_accumulate(const SoftParams& p, const Geo&
 }
 
 // K4's forward (also K6's): gate0 / gate1 get the block's main-sweep and
-// shadow-sweep decisions (thread 0 writes them). Cache: LocalCache (K4),
-// SharedCache on s_cache (K6).
-template <class Cache>
-__device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
-                           const float* __restrict__ sph, const float* s_pl,
-                           const int* __restrict__ lst, const int* __restrict__ shl, int* gate0,
-                           int* gate1, float* s_ccol, float* s_cache, Vec3 d, Vec3 o, ShFwd* f) {
+// shadow-sweep decisions (thread 0 writes them). The list rows and their
+// spheres come from `lst` and `shl`: StagedList in K4 and K4-stats,
+// GlobalList in K6. The clamp cache is on s_cache.
+template <class List>
+__device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam, const List& lst,
+                           const List& shl, const float* s_pl, int* gate0, int* gate1,
+                           float* s_ccol, float* s_cache, Vec3 d, Vec3 o, ShFwd* f) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   // ---- sweep 1
   float m = p.bg_logit, s = 1.0f;
   float acc[10] = {p.far, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  Cache cache(s_cache);
+  SharedCache cache(s_cache);
   int count = 0;
-  forward_sweep(p, cam, sph, s_pl, lst, gate0, d, o, &m,
+  forward_sweep(p, cam, lst, s_pl, gate0, d, o, &m,
                 [&](const Geo& g, const float* col, Vec3 sn) {
                   fused_accumulate(p, g, col, sn, d, &m, &s, acc, &count, &cache, s_ccol);
                 });
@@ -210,10 +208,10 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
       ++napp;
     }
   }
-  const int n_sh = __ldg(shl);
+  const int n_sh = shl.n();
   for (int jj = 0; jj < n_sh; ++jj) {
-    const int k = __ldg(shl + 1 + jj);
-    const Sphere sp = load_sphere(sph, p.ns, k);
+    const int k = shl.index(jj);
+    const Sphere sp = shl.sphere(jj, k);
     float args[4];
     if (!p.cull) {
       if (tid == 0) gate1[k] = 1;
@@ -260,7 +258,7 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
     }
   } else {  // more culled-in objects than slots: the exact re-walk, gated on the final m
     float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    forward_sweep(p, cam, sph, s_pl, lst, nullptr, d, o, &m,
+    forward_sweep(p, cam, lst, s_pl, nullptr, d, o, &m,
                   [&](const Geo& g, const float* col, Vec3 sn) {
                     shade_accumulate(p, g, col, sn, d, m, inv_s, vis, out);
                   });
@@ -359,22 +357,52 @@ __device__ __forceinline__ size_t pixel_index(const SoftParams& p) {
 
 }  // namespace
 
+// K4's dynamic shared memory, in this order: the plane table [12, NP], the
+// cache colours [NC, 3], the list row and the shadow list row [2,
+// list_stride] ints, their staged spheres [2, STAGED, list_stride - 1]
+// (StagedList), and the clamp cache [3 NC, MAX_THREADS]. About 25 KB a
+// block at the bench headline (20 spheres, 4 planes), 37 KB at 4K / 200.
+inline size_t sh_fwd_smem(int np, int list_stride) {
+  return sizeof(float) * (PL_ROWS * (size_t)np + 3 * NC) + sizeof(int) * 2 * (size_t)list_stride +
+         sizeof(float) * 2 * STAGED * (size_t)(list_stride - 1) +
+         sizeof(float) * 3 * NC * MAX_THREADS;
+}
+
+// Blocks an SM that K4 and K4-stats are built for: 5, at most 48 registers
+// a thread (4-8 B of spill stores). With 26 KB of shared memory a block at
+// the bench headline and 37 KB at 4K / 200, shared memory would allow 8 and
+// 6 blocks, threads 8: registers bind at both shapes. On an H100 at 4 / 5 /
+// 6 blocks (62 / 48 / 40 registers; 0 / 4 / 52 B of spill stores): 0.0856 /
+// 0.0807 / 0.0814 ms at the headline, 0.514 / 0.488 / 0.511 ms at 4K / 200
+// (PERF.md section 6).
+constexpr int K4_MIN_BLOCKS = 5;
+
+// K4 and K4-stats: sh_forward on the tile's lists and spheres staged in
+// shared memory at block start (stage_lists), with the clamp cache in
+// shared memory too, then the 14 planes (and with STATS the tile's counts).
 template <bool STATS>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS, K4_MIN_BLOCKS)
 soft_sh_fwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
                    const float* __restrict__ pl_g, const int* __restrict__ lists,
                    const int* __restrict__ shlists, float* __restrict__ out,
                    int* __restrict__ gates, int* __restrict__ counts) {
-  extern __shared__ float s_pl[];  // [12, NP] planes, then [NC, 3] cache colours
-  stage_planes(p, pl_g, s_pl);
+  extern __shared__ float s_pl[];  // sh_fwd_smem's layout
+  float* s_ccol = s_pl + PL_ROWS * p.np;
+  int* s_lst = reinterpret_cast<int*>(s_ccol + 3 * NC);
+  float* s_sph = reinterpret_cast<float*>(s_lst + 2 * p.list_stride);
+  float* s_cache = s_sph + 2 * STAGED * (p.list_stride - 1);
   const int tile = tile_index(p);
+  stage_lists(p, sph, lists + (size_t)tile * p.list_stride,
+              shlists + (size_t)tile * p.list_stride, s_lst, s_sph);
+  stage_planes(p, pl_g, s_pl);  // its barrier publishes the lists too
   const Ray r = block_ray(p, cam);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   int* gate0 = gates + (size_t)tile * 2 * (p.ns + p.np);
+  const int L = p.list_stride - 1;
   ShFwd f;
-  sh_forward<LocalCache>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
-                         shlists + (size_t)tile * p.list_stride, gate0, gate0 + p.ns + p.np,
-                         s_pl + PL_ROWS * p.np, nullptr, r.d, o, &f);
+  sh_forward(p, cam, StagedList{s_lst, s_sph, L},
+             StagedList{s_lst + p.list_stride, s_sph + STAGED * L, L}, s_pl, gate0,
+             gate0 + p.ns + p.np, s_ccol, s_cache, r.d, o, &f);
   const size_t plane = (size_t)p.hp * p.wp;
   const size_t pix = pixel_index(p);
   const float vals[N_PLANES_SH] = {f.rgb[0], f.rgb[1], f.rgb[2], f.depth, f.n[0], f.n[1], f.n[2],
@@ -459,8 +487,8 @@ soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   ShFwd f;
   // sh_forward ends with a __syncthreads after its last gate write
-  sh_forward<SharedCache>(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, s_ccol,
-                          s_cache, r.d, o, &f);
+  sh_forward(p, cam, GlobalList{sph, lst, p.ns}, GlobalList{sph, shl, p.ns}, s_pl, s_gate,
+             s_gate + p.ns + p.np, s_ccol, s_cache, r.d, o, &f);
   const Stash st(s_cache);
   const Vec3 d = stash_ray(r, st);
   const size_t plane = (size_t)p.hp * p.wp;
@@ -504,7 +532,7 @@ extern "C" int rtwc_soft_sh_fwd(const float* cam, const float* sph, const float*
                                 const int* lists, const int* shlists, float* out, int* gates,
                                 int* counts, const SoftParams* params, void* stream) {
   const SoftParams p = *params;
-  const size_t smem = sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC);
+  const size_t smem = sh_fwd_smem(p.np, p.list_stride);
   const dim3 grid(p.wp / p.bw, p.hp / p.bh), block(p.bw, p.bh);
   if (counts) {
     if (int rc = prepare(soft_sh_fwd_kernel<true>, p, smem)) return rc;

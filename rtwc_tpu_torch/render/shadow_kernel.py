@@ -15,7 +15,11 @@ point, and d(rgb)/d(vis) (the clamp-gated direct-light blend), from which
 K5 forms dL/dvis. The clamp correction reads a per-pixel cache of NC = 8
 slots (t_eff, dterm, sterm) filled in sweep-1 order; a tile with more
 culled-in objects than NC takes the exact re-walk. JAX's 29 / 21 slots come
-from the TPU's VMEM; `soft_cache_stats` reports NC in their place.
+from the TPU's VMEM; `soft_cache_stats` reports NC in their place. On the
+card K4 keeps that cache in shared memory, and stages the tile's two list
+rows and their spheres' parameters there at block start
+(`fwd_shared_bytes`), where JAX's kernels read the lists from SMEM by
+scalar prefetch; the values and their order are the plain version's.
 
 K5 and K6 write K2's partials plus a compact [E_sh, 4] table of shadow
 occluder gradients keyed by shadow-list slot (`sh_offsets[tile] + slot`),
@@ -45,8 +49,17 @@ from rtwc_tpu_torch.render.broad_phase import build_tile_lists
 (SO_VIS, SO_DVR, SO_DVG, SO_DVB) = range(10, 14)
 N_PLANES_SH = 14
 NC = 8                       # clamp-correction cache slots (csrc/soft_shadow.cu)
-SLAB = 32                    # K5 / K6 slab slots (csrc/soft_block.cuh SLAB_SLOTS)
+SLAB = 32                    # slab slots of the backward sweeps (csrc/soft_block.cuh SLAB_SLOTS)
+STAGED = 7                   # parameters of a staged sphere (csrc/soft_block.cuh STAGED)
 VIS_EARLY_OUT = O.f32(1e-7)  # the all-dark early-out threshold (pallas_soft.py:995)
+
+
+def fwd_shared_bytes(n_planes: int, list_stride: int) -> int:
+    """Dynamic shared memory a K4 / K4-stats block takes (csrc/soft_shadow.cu
+    `sh_fwd_smem`): the plane table, the cache colours, the list row and the
+    shadow list row with their staged spheres, and the clamp cache."""
+    return 4 * (P.PL_ROWS * n_planes + 3 * NC + 2 * list_stride + 2 * STAGED * (list_stride - 1)
+                + 3 * NC * C.MAX_THREADS)
 
 
 def build_lists(sph, pl, cam, spec: C.SoftSpec, cull: bool):

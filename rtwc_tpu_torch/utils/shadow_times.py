@@ -1,7 +1,7 @@
-"""Device times of the soft train path's heaviest kernels alone, for one
-checkout of the port: the shadowed K4, K5 and K6 at the bench headline and
-at 4K/200, K3 at 1080p, and the gradient reduction's whole function against
-its library calls at three shapes.
+"""Device times of the soft train path's kernels alone, for one checkout of
+the port: K1, K2 and K3 at 1080p, the shadowed K4, K4-stats, K5 and K6 at
+the bench headline and at 4K/200, and the gradient reduction's whole
+function against its library calls at three shapes.
 
     python rtwc_tpu_torch/utils/shadow_times.py [--root DIR]
 
@@ -13,21 +13,24 @@ inputs are those of `chip_smoke.py` phases 5 and 5b: the bench headline
 (1920x1080, `random_scene(20, max_spheres=20, max_planes=4, seed=0)`,
 shadows, tau 0.5, 16x16 tiles) and 3840x2160 with `random_scene(200)`; at
 both shapes K5 runs under the MSE cotangents of a zero target and K6
-against that target. K2 and K3 run at 1920x1080 on the first step of the
-`--spheres 20` fit: `examples.inverse_render`'s layout with its centres
+against that target. K1, K2 and K3 run at 1920x1080 on the first step of
+the `--spheres 20` fit: `examples.inverse_render`'s layout with its centres
 moved as `chip_smoke._fit_start` moves them, against the layout's own
-tau-0.5 render, so their MSE cotangents are a training step's. Each kernel
-time is `chip_smoke.py`'s `_kernel_device_ms` (the profiler's mean record)
-over 20 launches (5 at 4K). The reduction runs on K2's partials at 1080p,
-K5's at the headline and K6's at 4K/200; its time and its library calls'
-(float64 `index_add_` and sums, held to its sums first) are
-`chip_smoke.py`'s `_graph_ms`: CUDA events around a CUDA graph of 20 calls
-of the whole function, the median of 5 replays; its five kernels' shares
-are `_kernel_device_ms` a call. It reports whether K3's, K5's and K6's
-partial tables and the reduction's tables equal their plain versions', bit
-for bit, on these inputs. The kernels' registers and spill stores are
-`chip_smoke.py` phase 1's report. Needs one CUDA card (exit 2 without
-one); prints the card's name and power limit, then one JSON line.
+tau-0.5 render, so K2's and K3's MSE cotangents are a training step's.
+Each kernel has two times: `device_ms`, `chip_smoke.py`'s
+`_kernel_device_ms` (the profiler's mean record over 20 launches, 5 at
+4K), and `graph_ms`, `chip_smoke.py`'s `_graph_ms` (CUDA events around a
+CUDA graph of 20 calls of the wrapper, the median of 5 replays), which no
+stray profiler record can move. The reduction runs on K2's partials at
+1080p, K5's at the headline and K6's at 4K/200; its time and its library
+calls' (float64 `index_add_` and sums, held to its sums first) are
+`_graph_ms`; its five kernels' shares are `_kernel_device_ms` a call. It
+reports whether K2's, K3's, K5's and K6's partial tables, K4's planes and
+gates, K4-stats' counts and the reduction's tables equal their plain
+versions', bit for bit, on these inputs, and the registers and spill
+stores of the checkout's soft kernels (`chip_smoke._ptxas_report` on its
+`_build/lib*.log`). Needs one CUDA card (exit 2 without one); prints the
+card's name and power limit, then one JSON line.
 """
 from __future__ import annotations
 
@@ -94,7 +97,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]  # run by path
     sys.path.insert(0, CHECKOUT)
-    from chip_smoke import (_card_line, _fit_start, _graph_ms, _kernel_device_ms,
+    from chip_smoke import (_card_line, _fit_start, _graph_ms, _kernel_device_ms, _ptxas_report,
                             _reduce_library, _reduce_library_ms)  # import nothing of the port
     import torch
 
@@ -129,23 +132,38 @@ def main(argv=None) -> int:
                              dev), 5)}
     spec20, n20, bwd20, mse20, pidx20 = _unshadowed(SK, IR, cam, dev, _fit_start)
 
-    spec, sizes, _, bwd, mse, _, _ = cases["headline"][0]
+    spec, sizes, fwd, bwd, mse, _, _ = cases["headline"][0]
+    fwd20 = bwd20[:4]
     bit_equal = {}
     for what, kern, plain, a, kw in (
+            ("K2", SK.soft_bwd, SK.soft_bwd_plain, bwd20, dict(spec=spec20, n_entries=n20)),
             ("K3", SK.soft_mse, SK.soft_mse_plain, mse20, dict(spec=spec20, n_entries=n20)),
+            ("K4", SH.soft_sh_fwd, SH.soft_sh_fwd_plain, fwd, dict(spec=spec)),
+            ("K4-stats", SH.soft_sh_stats, SH.soft_sh_stats_plain, fwd, dict(spec=spec)),
             ("K5", SH.soft_sh_bwd, SH.soft_sh_bwd_plain, bwd, dict(spec=spec, **sizes)),
             ("K6", SH.soft_sh_mse, SH.soft_sh_mse_plain, mse, dict(spec=spec, **sizes))):
         got, want = kern(*a, **kw), plain(*a, **kw)
         bit_equal[what] = all(torch.equal(x, y) for x, y in zip(got, want))
-    times = {}
-    for label, ((spec, sizes, fwd, bwd, mse, _, _), reps) in cases.items():
-        for key, kname, fn in (
-                ("K4", "soft_sh_fwd_kernel", lambda: SH.soft_sh_fwd(*fwd, spec=spec)),
-                ("K5", "soft_sh_bwd_kernel", lambda: SH.soft_sh_bwd(*bwd, spec=spec, **sizes)),
-                ("K6", "soft_sh_mse_kernel", lambda: SH.soft_sh_mse(*mse, spec=spec, **sizes))):
-            times[f"{key} {label}"] = _kernel_device_ms(fn, reps=reps, name=kname)
-    times["K3 1080p"] = _kernel_device_ms(
-        lambda: SK.soft_mse(*mse20, spec=spec20, n_entries=n20), name="soft_mse_kernel")
+    calls = {"K1 1080p": ("soft_fwd_kernel", 20, lambda: SK.soft_fwd(*fwd20, spec=spec20)),
+             "K2 1080p": ("soft_bwd_kernel", 20,
+                          lambda: SK.soft_bwd(*bwd20, spec=spec20, n_entries=n20)),
+             "K3 1080p": ("soft_mse_kernel", 20,
+                          lambda: SK.soft_mse(*mse20, spec=spec20, n_entries=n20))}
+    for label, ((spec_c, sizes_c, fwd_c, bwd_c, mse_c, _, _), reps) in cases.items():
+        def bind(fn, a, **kw):
+            return lambda: fn(*a, **kw)
+        calls[f"K4 {label}"] = ("soft_sh_fwd_kernel", reps, bind(SH.soft_sh_fwd, fwd_c, spec=spec_c))
+        if label == "headline":
+            calls["K4-stats headline"] = ("soft_sh_fwd_kernel", reps,
+                                          bind(SH.soft_sh_stats, fwd_c, spec=spec_c))
+        calls[f"K5 {label}"] = ("soft_sh_bwd_kernel", reps,
+                                bind(SH.soft_sh_bwd, bwd_c, spec=spec_c, **sizes_c))
+        calls[f"K6 {label}"] = ("soft_sh_mse_kernel", reps,
+                                bind(SH.soft_sh_mse, mse_c, spec=spec_c, **sizes_c))
+    times, graph = {}, {}
+    for key, (kname, reps, fn) in calls.items():
+        times[key] = _kernel_device_ms(fn, reps=reps, name=kname)
+        graph[key] = _graph_ms(fn)[0]
 
     # the reduction's whole function and its library calls, as CUDA graphs
     parts = SK.soft_bwd(*bwd20, spec=spec20, n_entries=n20)
@@ -173,8 +191,15 @@ def main(argv=None) -> int:
                             "entries": n, "shadow_entries": nsh, "tiles": ppl.shape[0],
                             "per_kernel_ms": {k: _kernel_device_ms(port, name=k, per_call=True)
                                               for k in REDUCE_KERNELS}}
+    regs = {}
+    for lib in ("soft_render", "soft_shadow"):
+        for kernel, n_regs, spill in _ptxas_report(os.path.join(root, "rtwc_tpu_torch", "_build",
+                                                                f"lib{lib}.log")):
+            if "reduce" not in kernel:
+                regs[kernel] = f"{n_regs} registers; {spill}"
     print(json.dumps({"root": root, "card": card, "bit_equal_to_plain": bit_equal,
-                      "device_ms": times, "reduction": reduction}))
+                      "device_ms": times, "graph_ms": graph, "reduction": reduction,
+                      "ptxas": regs}))
     return 0
 
 

@@ -46,7 +46,7 @@ from rtwc_tpu_torch.render import shadow_kernel as SH
 from rtwc_tpu_torch.render import soft_kernel as SK
 from rtwc_tpu_torch.render import softmin as TSM
 from rtwc_tpu_torch.render.softmin import render_frame_soft as t_soft
-from test_torch_soft_kernel import rel_err
+from test_torch_soft_kernel import _slab_crowd, rel_err
 from test_torch_softmin import (CFG, LEAVES, TAU, assert_close_tree, camera64, fb_arrays,
                                 jax_camera, jax_scene, loss_of, scene64)
 
@@ -285,21 +285,6 @@ def test_cache_overflow_takes_the_exact_rewalk():
     _mse_grads_vs_jax(scene, cam, cfg, "cache overflow")
 
 
-def _slab_crowd(n=40, seed=3):
-    """n spheres packed into a short depth range in front of the floor: some
-    16x16 tiles gate in more objects than the SLAB slots that the card's K5
-    and K6 sum at once, so their sweeps fill the slab more than once; others
-    stay below it (chip_smoke.py phase 2c runs the same scene on the card)."""
-    rng = np.random.default_rng(seed)
-    s = JS.empty_scene(48, 2)
-    for _ in range(n):
-        s = JS.add_sphere(s, float(rng.uniform(2.0, 4.0)),
-                          (float(rng.uniform(-3, 3)), float(rng.uniform(-1.5, 1.5)),
-                           float(rng.uniform(20, 27))),
-                          tuple(float(c) for c in rng.uniform(30, 220, 3)), speed=1.0)
-    return JS.add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 60.0, 60.0)
-
-
 @pytest.mark.parametrize("crowd", ["slab", "cache"])
 def test_k5_k6_on_crowded_tiles_match_jax(crowd):
     """Tiles that gate more objects than the card's SLAB slab slots
@@ -442,16 +427,71 @@ def test_float64_renders_agree_on_the_slab_crowd():
 
 
 def test_slab_and_cache_sizes_match_the_cuda_source():
-    """The plain versions and chip_smoke.py read NC, SLAB and the
-    reduction's chunk from the modules; the kernels from csrc/."""
+    """The plain versions and chip_smoke.py read NC, SLAB, STAGED, K4's
+    shared memory a block and the reduction's chunk from the modules; the
+    kernels from csrc/. K4's size (`sh_fwd_smem`, evaluated here from its
+    source) equals `fwd_shared_bytes`; K2 and K4 are built for
+    K2_MIN_BLOCKS / K4_MIN_BLOCKS blocks an SM, and that many K4 blocks fit
+    an SM's 228 KB of shared memory at the bench headline (20 spheres, 4
+    planes), each with the 1 KB the runtime keeps a block."""
     src = os.path.join(os.path.dirname(SK.__file__), "..", "csrc")
-    with open(os.path.join(src, "soft_shadow.cu")) as f:
-        assert re.search(r"constexpr int NC = (\d+);", f.read()).group(1) == str(SH.NC)
-    with open(os.path.join(src, "soft_block.cuh")) as f:
-        assert re.search(r"constexpr int SLAB_SLOTS = (\d+);", f.read()).group(1) == str(SH.SLAB)
-    with open(os.path.join(src, "soft_render.cu")) as f:  # the reduction's chunk: one a thread
-        assert re.search(r"constexpr int RED_THREADS = (\d+),", f.read()).group(1) == \
-            str(SK.C.RED_CHUNK)
+
+    def read(name):
+        with open(os.path.join(src, name)) as f:
+            return f.read()
+
+    shadow, block, render = read("soft_shadow.cu"), read("soft_block.cuh"), read("soft_render.cu")
+    assert re.search(r"constexpr int NC = (\d+);", shadow).group(1) == str(SH.NC)
+    assert re.search(r"constexpr int SLAB_SLOTS = (\d+);", block).group(1) == str(SH.SLAB)
+    assert re.search(r"constexpr int STAGED = (\d+);", block).group(1) == str(SH.STAGED)
+    assert re.search(r"constexpr int MAX_THREADS = (\d+);", block).group(1) == str(SK.C.MAX_THREADS)
+    # the reduction's chunk: one a thread
+    assert re.search(r"constexpr int RED_THREADS = (\d+),", render).group(1) == str(SK.C.RED_CHUNK)
+    body = re.search(r"inline size_t sh_fwd_smem\(int np, int list_stride\) \{\s*return (.*?);\s*\}",
+                     shadow, re.S).group(1)
+    expr = " ".join(re.sub(r"sizeof\((?:float|int)\)", "4", body).replace("(size_t)", "").split())
+    for n_planes, stride in ((4, 21), (4, 201), (1, 2), (1024, 257)):
+        env = dict(np=n_planes, list_stride=stride, PL_ROWS=SK.P.PL_ROWS, NC=SH.NC,
+                   STAGED=SH.STAGED, MAX_THREADS=SK.C.MAX_THREADS)
+        assert eval(expr, {}, env) == SH.fwd_shared_bytes(n_planes, stride), (n_planes, stride)
+    for name, kernel, text in (("K2", "soft_bwd_kernel", render),
+                               ("K4", "soft_sh_fwd_kernel", shadow)):
+        blocks = int(re.search(rf"constexpr int {name}_MIN_BLOCKS = (\d+);", text).group(1))
+        assert f"__launch_bounds__(MAX_THREADS, {name}_MIN_BLOCKS)\n{kernel}(" in text
+        assert 2 <= blocks <= 8
+        if name == "K4":
+            assert blocks * (SH.fwd_shared_bytes(4, 21) + 1024) <= 228 * 1024
+
+
+def test_bound_bytes_count_what_the_kernels_touch():
+    """chip_smoke.py's bounds count the bytes a kernel touches, not the
+    tables it is given. On the slab crowd: `_list_bytes` is each list row's
+    n + 1 ints, plus one gate int a listed sphere and a plane; every
+    partial row that the plain K5 wrote nonzero, under seeded random
+    cotangents, is among the rows `_partial_bytes` counts, which are fewer
+    than the zeroed tables hold."""
+    import chip_smoke as CS
+
+    cfg = CFG_SH.replace(max_spheres=48)
+    ts, tc = _port(_slab_crowd(), jax_camera())
+    spec = SK.SoftSpec(cfg, TAU)
+    sph, pl, camv = SK._packed(ts, tc)
+    lists, shl = SH.build_lists(sph, pl, camv, spec, True)
+    out, gates = SH.soft_sh_fwd(sph, pl, camv, lists, shl, spec=spec)
+    (offsets, pidx), (sh_offsets, pshidx) = SK.list_entries(lists), SK.list_entries(shl)
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=tuple(out.shape)).astype(np.float32))
+    parts = SH.soft_sh_bwd(sph, pl, camv, lists, shl, offsets, sh_offsets, gates, out, g,
+                           spec=spec, n_entries=pidx.shape[0], n_sh_entries=pshidx.shape[0])
+    pvals, psh, ppl, ptf = parts
+    npl, ns, T = int(camv[0, SK.P.C_NPL]), sph.shape[1], lists.shape[0]
+    rows = [int(row[0]) for lst in (lists, shl) for row in lst[:, 0]]
+    assert CS._list_bytes(npl, lists, shl, gate_rows=False) == 4 * sum(n + 1 for n in rows)
+    assert CS._list_bytes(npl, lists, shl) == 4 * sum(2 * n + 1 + npl for n in rows)
+    written = (32 * int((pvals != 0).any(1).sum()) + 16 * int((psh != 0).any(1).sum())
+               + 48 * int((ppl[:, :npl] != 0).any(2).sum()) + 8 * 12 * T)
+    assert not ptf[:, 12:].any() and not ppl[:, npl:].any()
+    counted = CS._partial_bytes(gates, ns, npl, 12, shadowed=True)
+    assert written <= counted < 4 * sum(t.numel() for t in parts), (written, counted)
 
 
 def test_occluder_outside_the_frustum_gets_grad_through_its_shadow():

@@ -192,3 +192,109 @@ def test_shaded_object_adjoint_matches_jax_with_vis():
                                   0.2, 1.0, 0.0))):
         cts = [rng.normal(size=shape).astype(np.float32) for _ in range(8)]
         _check_vjp(kind, scal, rays, cts, CFG, TAU, vis=vis)
+
+
+def _hidden_crowd(cfg, n=12, seed=5):
+    """fit_from_shadow's floor and visible sphere (slot 0) with n occluders
+    in slots 1..n, each at a random height above the camera frustum (as the
+    fit's occluder is) on the line from the light to a random floor point in
+    view, so that their penumbrae fall on the floor the camera sees and
+    overlap there."""
+    import rtwc_tpu.scene as JS
+
+    rng = np.random.default_rng(seed)
+    lx, ly, lz = cfg.light_pos
+    s = JS.empty_scene(n + 1, 1)
+    s = JS.add_plane(s, (0.0, -4.0, 40.0), (0.0, 1.0, 0.0), (120.0, 120.0, 120.0), 120.0, 120.0)
+    s = JS.add_sphere(s, 4.0, (-8.0, 0.0, 45.0), (220.0, 60.0, 60.0), speed=1.0)
+    for _ in range(n):
+        y = float(rng.uniform(22.0, 30.0))
+        f = (ly - y) / (ly + 4.0)  # the share of the way from the light to the floor
+        fx, fz = float(rng.uniform(-8.0, 8.0)), float(rng.uniform(12.0, 36.0))
+        s = JS.add_sphere(s, float(rng.uniform(1.5, 3.0)),
+                          (lx + f * (fx - lx), y, lz + f * (fz - lz)),
+                          tuple(float(c) for c in rng.uniform(30, 220, 3)), speed=1.0)
+    return s
+
+
+def _occluder_case(name):
+    """(JAX scene, camera, config, target [H, W, 3], the sphere slots whose
+    gradients to compare). The 40-sphere slab crowd against mse_case's
+    uniform(0, 255) target, every slot: all its spheres are also on camera,
+    so camera-ray terms weigh in its leaves. The hidden crowd (_hidden_crowd)
+    against the same target, and fit_from_shadow's scene at 96x32 with the
+    hidden occluder moved by the fit's starting offset against the render at
+    its true place: only the hidden slots, whose gradients come through
+    their shadows alone."""
+    import rtwc_tpu.scene as JS
+    import rtwc_tpu_torch.camera as TC
+    from rtwc_tpu_torch.examples import fit_from_shadow as FS
+    from rtwc_tpu_torch.render import soft_kernel as SK
+    from test_torch_shadow_kernel import CFG_SH, _slab_crowd
+    from test_torch_softmin import jax_camera
+
+    cam = jax_camera()
+    rand = np.random.default_rng(1).uniform(0.0, 255.0, (CFG.height, CFG.width, 3))
+    if name == "slab_crowd":
+        return _slab_crowd(), cam, CFG_SH.replace(max_spheres=48), rand.astype(np.float32), None
+    cfg, ts = FS.build(96, 32)
+    if name == "hidden_crowd":
+        cfg = cfg.replace(max_spheres=13)
+        return _hidden_crowd(cfg), cam, cfg, rand.astype(np.float32), np.arange(1, 13)
+    with torch.no_grad():
+        tgt = SK.render_frame_soft_kernel(ts, TC.default_camera(), cfg, tau=TAU).rgb.numpy()
+    s = JS.Scene(
+        spheres=JS.Spheres(**{f: jnp.asarray(getattr(ts.spheres, f).numpy()) for f in
+                              ("center", "radius", "color", "speed", "mover", "active")}),
+        planes=JS.Planes(**{f: jnp.asarray(getattr(ts.planes, f).numpy()) for f in
+                            ("center", "normal", "color", "width", "height", "active")}))
+    moved = np.asarray(FS.TRUE_OCCLUDER, np.float32) + np.array([3.0, 0.0, 4.0], np.float32)
+    s = s.replace(spheres=s.spheres.replace(center=s.spheres.center.at[FS.OCCLUDER].set(moved)))
+    return s, cam, cfg, tgt, np.array([FS.OCCLUDER])
+
+
+@pytest.mark.parametrize("case", ["slab_crowd", "hidden_crowd", "fit_from_shadow"])
+def test_shadow_ray_discriminant_is_no_farther_from_float64_than_jax(case):
+    """The shadow ray's sphere test keeps JAX's b^2 - 4c (soft_common.cuh
+    `shadow_sphere_preA`, `shadow_sphere_f_vjp`; soft_objects.py), whose
+    terms cancel at an occluder's silhouette, where the penumbra sigmoid
+    on dss amplifies the rounding. The plain K4 / K5 (the generic path)
+    against JAX's float32 `render_soft_mse_loss` and the port's torch soft
+    renderer in float64 (the arbiter of test_float64_renders_agree_on_the_
+    slab_crowd): no value of the compared spheres' centre and radius
+    gradients lies farther from float64 than JAX's farthest value of the
+    same leaf plus GRAD_ATOL (ROADMAP queue 3's rule for FMA contraction).
+    In the hidden crowd and the fit no camera ray reaches the compared
+    spheres (the unshadowed render is the same without them), so these
+    values are shadow-ray terms alone; at least three of them (the fit: its
+    one) carry a gradient above 1e-6."""
+    from rtwc_tpu.render.pallas_soft import render_soft_mse_loss as j_mse
+    from rtwc_tpu_torch.render import soft_kernel as SK
+    from test_torch_shadow_kernel import GRAD_ATOL, _grads, _mse_grads64, _mse_losses, _port
+
+    scene, cam, cfg, tgt, slots = _occluder_case(case)
+    s64, _ = _mse_grads64(scene, cam, tgt, cfg)
+    if slots is not None:
+        ts, tc = _port(scene, cam)
+        off = ts.spheres.active.clone()
+        off[slots] = 0.0
+        lit = cfg.replace(shadows=False)
+        with torch.no_grad():
+            a = SK.render_frame_soft_kernel(ts, tc, lit, tau=TAU).rgb
+            b = SK.render_frame_soft_kernel(
+                ts.replace(spheres=ts.spheres.replace(active=off)), tc, lit, tau=TAU).rgb
+        assert torch.equal(a, b), f"{case}: a camera ray reaches a compared sphere"
+        reached = (np.abs(s64.spheres.center.grad.numpy()[slots]).max(1) > 1e-6).sum()
+        assert reached >= min(len(slots), 3), f"{case}: {reached} occluders carry a gradient"
+    gj = jax.grad(lambda s: j_mse(s, cam, jnp.asarray(tgt), cfg, tau=TAU))(scene)
+    _, ps, _ = _grads(scene, cam, cfg, _mse_losses(tgt, cfg)[1])
+    pick = slice(None) if slots is None else slots
+    for leaf in ("center", "radius"):
+        e = getattr(s64.spheres, leaf).grad.numpy()[pick]
+        port = np.abs(np.asarray(getattr(ps.spheres, leaf), np.float64)[pick] - e)
+        jax_worst = np.abs(np.asarray(getattr(gj.spheres, leaf), np.float64)[pick] - e).max()
+        print(f"{case} spheres.{leaf}: port farthest {port.max()!r} from float64, "
+              f"JAX {jax_worst!r}; largest |float64| {np.abs(e).max()!r}")
+        assert (port <= jax_worst + GRAD_ATOL).all(), (
+            f"{case} spheres.{leaf}: port {port.max()} from float64 at "
+            f"{np.argwhere(port > jax_worst + GRAD_ATOL)[:5].tolist()}, JAX {jax_worst}")

@@ -368,6 +368,53 @@ def test_k2_bwd_cull_off_matches():
     assert_close_tree(ac.rot, bc.rot, rtol=1e-4, what="camera rot")
 
 
+def _slab_crowd(n=40, seed=3):
+    """n spheres packed into a short depth range in front of the floor: some
+    16x16 tiles gate in more objects than the SLAB slots that the card's
+    backward sweeps sum at once, so their sweeps fill the slab more than
+    once; others stay below it (chip_smoke.py phases 2b and 2c run the same
+    scene on the card)."""
+    rng = np.random.default_rng(seed)
+    s = JS.empty_scene(48, 2)
+    for _ in range(n):
+        s = JS.add_sphere(s, float(rng.uniform(2.0, 4.0)),
+                          (float(rng.uniform(-3, 3)), float(rng.uniform(-1.5, 1.5)),
+                           float(rng.uniform(20, 27))),
+                          tuple(float(c) for c in rng.uniform(30, 220, 3)), speed=1.0)
+    return JS.add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 60.0, 60.0)
+
+
+def test_k2_k3_on_the_slab_crowd_match_jax():
+    """The slab crowd without shadows: tiles that gate more objects than the
+    card's SLAB slab slots, so K2 and K3 flush the slab in mid-sweep there.
+    The plain K2 (the generic path) and K3, against mse_case's uniform(0,
+    255) target (the target that showed the shadowed slab crowd's drift)
+    and a zero target, against JAX's unshadowed Pallas path, every leaf at
+    test_torch_shadow_kernel's `_assert_grads` tolerances (rtol 2e-2, atol
+    5e-6)."""
+    from test_torch_shadow_kernel import _assert_grads
+
+    cfg = CFG.replace(max_spheres=48)
+    scene, cam = _slab_crowd(), jax_camera()
+    ts, tc = _torch_inputs(scene, cam)
+    spec = SK.SoftSpec(cfg, TAU)
+    sph, pl, camv = SK._packed(ts, tc)
+    _, gates = SK.soft_fwd(sph, pl, camv, SK.build_lists(sph, camv, spec, True), spec=spec)
+    gated = gates[:, 0].sum(1)
+    assert int(gated.max()) > SK.SH.SLAB >= int(gated.min())
+    gj = jax.grad(lambda s, c: loss_of(j_render(s, c, cfg, tau=TAU), jnp), argnums=(0, 1))(scene, cam)
+    _, ps, pc = _port_grads(scene, cam, SK.render_frame_soft_kernel, cfg=cfg)
+    _assert_grads(gj, ps, pc, "K2 slab crowd")
+    rand = np.random.default_rng(1).uniform(0.0, 255.0, (cfg.height, cfg.width, 3))
+    for name, tgt in (("random", rand.astype(np.float32)),
+                      ("zero", np.zeros((cfg.height, cfg.width, 3), np.float32))):
+        gj = jax.grad(lambda s, c: j_mse(s, c, jnp.asarray(tgt), cfg, tau=TAU),
+                      argnums=(0, 1))(scene, cam)
+        _, fs, fc = _port_grads(scene, cam, None, loss=lambda s, c: SK.render_soft_mse_loss(
+            s, c, torch.from_numpy(tgt), cfg, tau=TAU))
+        _assert_grads(gj, fs, fc, f"K3 slab crowd, {name} target")
+
+
 # -- K3 ------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
