@@ -9,9 +9,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      csrc/calibrate.cu with nvcc for sm_90a, one nvcc each, all at once;
      print build times and each kernel's ptxas registers and spills
   2  the K7 kernel against its plain torch version on the card, on the
-     same packed tables and broad-phase lists, in seven cases; then one
-     frame of the whole step (kernel path) against the plain reference
-     renderer, cell by cell
+     same packed tables and broad-phase lists: planes bit-equal
+     (torch.equal) and framebuffers within tolerance, in ten cases (the
+     engine's 1920x500 at 2x supersampling, 3840x1000 with 100 spheres,
+     and 720 planes, whose table takes K7's shared memory past 48 KB,
+     among them) and six that stress its shadow cull (`_cull_scenes`:
+     grazing occluders, shadow origins inside a sphere, the light inside a
+     warp's box of hit points, occluders behind the light, a clump past
+     the staging and the occluder list's capacities; the engine's scene
+     after spawns doubled its capacity), each with the cull's admitted
+     occluders and full-sweep warps; then one frame of the whole step
+     (kernel path) against the plain reference renderer, cell by cell
   2b the soft kernels against their plain versions on the card, in nine
      cases (a slab overflow among them: the 40-sphere crowd at 96x32, where
      tiles gate more objects than SLAB) and one with culling off: K1's
@@ -56,8 +64,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      its defaults in process; each new kernel must have launched; then the
      entry point in a subprocess, which must print FIT OK and exit 0
   4  `python -m rtwc_tpu_torch` in a subprocess
-  5  timings (CUDA events, host clock, profiler): K7 vs plain, broad phase,
-     engine frames/s and rays/s, a per-frame host breakdown; K1, K2, K3 and
+  5  timings (CUDA events, host clock, profiler): K7 vs plain (also as a
+     CUDA graph of 20 calls) at 400x150, 1080p/20 and 4K/200 with shadows
+     and 3840x1000/100 without and with, broad phase, engine frames/s and
+     rays/s (1920x500 at 2x supersampling also with shadows), a per-frame
+     host breakdown; K1, K2, K3 and
      the reduction vs plain at 1920x1080 with 20 spheres (each soft kernel
      also as a CUDA graph of 20 calls, `_graph_ms`), the generic and
      fused train steps vs the same steps on the plain versions, and the
@@ -89,6 +100,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 Then a JSON line describing the kernels (each with its bound: the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's lists and gate tables, K4's, K5's and K6's also at 4K/200;
+K7's from its lists and one occluder test for each hit pixel the shadow
+changes (`_hard_work`), at 1080p/20, 4K/200 and 3840x1000/100 in `shapes`;
 the chain kernel's is its FMAs over
 SMs x 128 x the maximum clock; `launches` counts one main-path step at the
 row's shape, each count set to 0 just before it: a generic or fused train
@@ -517,6 +530,26 @@ def _bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _hard_work(hard_kernel, args, cfg, bh: int = 16, bw: int = 16):
+    """(bytes, float32 operations) of one K7 launch on these inputs: the
+    tables, the list rows it reads and the 8 planes it writes; per pixel the
+    ray, its tile's list, the live planes and the shading, and with shadows
+    one occluder test for each hit pixel whose colour the shadow changes
+    (the least a sweep can do: a lit pixel's occluders can all be culled,
+    a shadowed one needs the test that finds its blocker)."""
+    sph, pl, counts, cam, lists = args
+    out = hard_kernel.hard_render_plain(*args, config=cfg, bh=bh, bw=bw)
+    per_pixel = (OPS["raygen"] + lists[:, 0, 0].double() * OPS["hard_sphere"]
+                 + int(counts[0, 1]) * OPS["hard_plane"] + OPS["hard_shade"])
+    ops = bh * bw * float(per_pixel.sum())
+    if cfg.shadows:
+        lit = hard_kernel.hard_render_plain(*args, config=cfg.replace(shadows=False), bh=bh,
+                                            bw=bw)
+        shadowed = (out[:3] != lit[:3]).any(0) & (out[3] < hard_kernel.MISS_DISTANCE)
+        ops += float(shadowed.sum()) * OPS["hard_shadow"]
+    return _nbytes(sph, pl, counts, cam, out) + _list_bytes(0, lists, gate_rows=False), ops
+
+
 def _soft_work(lists, gates, npl: int, px: int, shl=None, counts=None, nc: int = 8):
     """Per-kernel float32 operations of one soft launch, from the lists and
     the gate tables it ran with (and, for the shadowed kernels, the shadow
@@ -604,6 +637,122 @@ def _dark_scene():
 
     return add_plane(_shadow_scene_96(4, 3), (0.0, 20.0, 20.0), (0.0, -1.0, 0.0),
                      (80.0, 80.0, 80.0), 400.0, 400.0)
+
+
+def _cull_scenes(width: int, height: int):
+    """K7's shadow-cull cases, {label: (scene, config)} on the host, each
+    with shadows, a floor and the default camera: spheres tangent to the
+    shadow rays of floor points; a sphere around the camera, the light
+    outside it, so that every shadow ray starts inside it (both roots must
+    be >= 0 to block); the light just above the floor beside a sphere,
+    inside some warp's box of hit points; spheres above the light (behind
+    it, seen from the floor) and one between; and a clump of 300 small
+    spheres that one tile lists whole (more than K7 stages at once) and
+    that the floor's warps under its shadow admit whole (more than a warp's
+    occluder list holds: those warps take the full sweep)."""
+    import numpy as np
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
+
+    def floor(s):
+        return add_plane(s, (0.0, -3.0, 30.0), (0.0, 1.0, 0.0), (100.0, 100.0, 100.0), 80.0,
+                         80.0)
+
+    def ball(s, r, c, rng):
+        return add_sphere(s, float(r), tuple(float(v) for v in c),
+                          tuple(float(v) for v in rng.uniform(30, 220, 3)), speed=1.0)
+
+    cfg = RenderConfig(width=width, height=height, shadows=True)
+    light = np.array(cfg.light_pos, np.float64)
+    rng = np.random.default_rng(5)
+    cases = {}
+    s = empty_scene(8, 2)
+    for x in (-6.0, 0.0, 6.0):
+        for z in (22.0, 32.0):
+            p = np.array([x, -3.0, z])
+            l_dir = (light - p) / np.linalg.norm(light - p)
+            n = np.cross(l_dir, [1.0, 0.0, 0.0])
+            r = rng.uniform(0.5, 2.0)
+            s = ball(s, r, p + l_dir * rng.uniform(3.0, 8.0) + n / np.linalg.norm(n) * r, rng)
+    cases["grazing occluders"] = (floor(s), cfg)
+    s = ball(empty_scene(4, 2), 50.0, (0.0, 0.0, 25.0), rng)
+    s = ball(ball(s, 3.0, (-3.0, 2.0, 25.0), rng), 2.0, (4.0, 0.0, 30.0), rng)
+    cases["shadow origins inside a sphere"] = (floor(s), cfg)
+    s = ball(ball(empty_scene(8, 2), 2.0, (0.0, 0.0, 30.0), rng), 1.0, (3.0, -1.0, 36.0), rng)
+    s = ball(s, 0.6, (2.0, -2.4, 34.0), rng)  # on the floor beside the light: casts on it
+    for x in (-12.0, 12.0, 20.0):
+        s = ball(s, 2.0, (x, 6.0, 40.0), rng)
+    cases["the light inside a warp's hull"] = (floor(s), cfg.replace(light_pos=(0.0, -2.5, 33.0)))
+    s = ball(empty_scene(12, 2), 2.0, (0.0, 4.0, 30.0), rng)
+    for _ in range(8):
+        s = ball(s, rng.uniform(1.0, 3.0), (rng.uniform(-10, 10), rng.uniform(14, 24),
+                                            rng.uniform(20, 40)), rng)
+    cases["occluders behind the light"] = (floor(s), cfg.replace(light_pos=(0.0, 10.0, 30.0)))
+    s = empty_scene(320, 2)
+    for _ in range(300):
+        v = rng.normal(size=3)
+        s = ball(s, 0.05, np.array([0.0, 2.0, 28.0]) + v / np.linalg.norm(v) * rng.uniform(0, 0.4),
+                 rng)
+    cases["a clump past the staging and occluder capacities"] = (floor(s), cfg)
+    return cases
+
+
+def _many_planes(n: int):
+    """The default scene's spheres over n small tiles of floor in a grid."""
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.scene import add_plane, default_scene, grow_scene
+
+    s = grow_scene(default_scene(RenderConfig(max_planes=1)), max_planes=n)
+    side = int(n ** 0.5) + 1
+    for i in range(n - 1):
+        x, z = -20.0 + 40.0 * (i % side) / side, 10.0 + 40.0 * (i // side) / side
+        s = add_plane(s, (x, -3.0 - 0.01 * (i % 7), z), (0.0, 1.0, 0.0),
+                      (60.0 + i % 150, 100.0, 100.0), 1.5, 1.5)
+    return s
+
+
+def _grown_scene(dev, width: int = 400, height: int = 150):
+    """The engine's scene after spawns that doubled its capacity: 8 sphere
+    slots grown by the engine's forced 1 Hz spawn over 10 frames."""
+    from rtwc_tpu_torch.config import EngineConfig, RenderConfig
+    from rtwc_tpu_torch.engine import Engine
+    from rtwc_tpu_torch.io import FramebufferSink
+
+    eng = Engine(RenderConfig(width=width, height=height, max_spheres=8),
+                 EngineConfig(spawn=True, show_fps=False, seed=1), presenter=FramebufferSink(),
+                 interactive=False, device=dev)
+    eng.telemetry.interval = 0.0
+    eng.run(max_frames=10)
+    if eng.scene.spheres.capacity <= 8:
+        raise AssertionError("the engine's spawns did not grow the scene's capacity")
+    return eng.scene
+
+
+def _cull_stats(HK, args, cfg, bh: int = 16, bw: int = 16) -> dict:
+    """K7's shadow cull on these inputs (the plain version's, which the
+    kernel's equals), by warp: live spheres, warps with a hit, admitted
+    occluders a warp (mean, max), warps past the occluder list (the full
+    sweep), warps whose box of hit points holds the light, the longest list."""
+    import torch
+
+    sph, pl, counts, cam, lists = args
+    o3, d3, t_best, _, _ = HK._trace(sph, pl, counts, cam, lists, cfg, bh, bw, None)
+    p3, _, _ = HK._light(cfg, o3, d3, t_best)
+    hit = t_best < HK.MISS_DISTANCE
+    _, count, any_hit = HK.shadow_occluders(p3, hit, sph, int(counts[0, 0]), cfg.light_pos,
+                                            bh, bw)
+    inf = torch.tensor(float("inf"), device=sph.device)
+    holds = any_hit.clone()
+    for v, lc in zip(p3, cfg.light_pos):
+        holds &= ((HK._by_warp(torch.where(hit, v, inf), bh, bw).amin(1) <= lc)
+                  & (HK._by_warp(torch.where(hit, v, -inf), bh, bw).amax(1) >= lc))
+    lit = count[any_hit].double()
+    return {"live_spheres": int(counts[0, 0]), "warps_with_a_hit": int(any_hit.sum()),
+            "mean_admitted": float(lit.mean()) if lit.numel() else 0.0,
+            "max_admitted": int(lit.max()) if lit.numel() else 0,
+            "full_sweep_warps": int((lit > HK.OCC_CAP).sum()),
+            "warps_holding_the_light": int(holds.sum()),
+            "longest_list": int(lists[:, 0, 0].max())}
 
 
 def _cast_scene(scene, dtype):
@@ -1110,10 +1259,22 @@ def main() -> int:
         ("e default 401x151 shadows", default_scene(base, device=dev), default_camera(),
          RenderConfig(width=401, height=151, shadows=True)),
         ("f empty 400x150", empty_scene(8, 2, device=dev), default_camera(), base),
+        ("g random 100 3840x1000", random_scene(100, seed=0, device=dev), default_camera(),
+         RenderConfig(width=3840, height=1000)),
+        ("h random 100 3840x1000 shadows", random_scene(100, seed=0, device=dev),
+         default_camera(), RenderConfig(width=3840, height=1000, shadows=True)),
+        # K7's dynamic shared memory past 48 KB with its static occluder lists
+        ("i 720 planes 400x150 shadows", _many_planes(720).to(dev), default_camera(),
+         base.replace(shadows=True, max_planes=720)),
     ]
+    # the shadow cull's cases at 400x150, and the engine's grown scene
+    cases += [(f"cull: {label}", scene.to(dev), default_camera(), cfg)
+              for label, (scene, cfg) in _cull_scenes(400, 150).items()]
+    cases.append(("cull: the engine's grown scene", _grown_scene(dev), default_camera(),
+                  base.replace(shadows=True)))
     bh = bw = 16
     max_err = 0.0
-    packed = {}
+    packed, cull_stats = {}, {}
     for label, scene, cam, cfg in cases:
         sph, pl, counts = P.pack_scene(scene)
         camv = P.pack_camera(cam, dev)
@@ -1127,11 +1288,25 @@ def main() -> int:
         if not (torch.isfinite(ker).all() and ker.shape == plain.shape):
             raise AssertionError(f"{label}: non-finite or misshapen kernel output")
         max_err = max(max_err, _compare_fb(fp, fk, label))
+        if not torch.equal(ker, plain):
+            n_diff = int((ker != plain).sum())
+            raise AssertionError(f"{label}: K7's planes differ from the plain version's in "
+                                 f"{n_diff} values")
+        if cfg.shadows:
+            cull_stats[label] = _cull_stats(hard_kernel, args, cfg, bh, bw)
+            print(f"phase 2: {label}: K7 bit-equal to its plain version; shadow cull "
+                  f"{json.dumps(cull_stats[label])}")
+        else:
+            print(f"phase 2: {label}: K7 bit-equal to its plain version")
         if label.startswith("f"):
             if fk.hit.any() or (fk.rgb != 0).any():
                 raise AssertionError("empty scene must render all background")
             print("phase 2: f empty scene renders all background")
         packed[label] = (args, cfg)
+    clump = cull_stats["cull: a clump past the staging and occluder capacities"]
+    if not (clump["full_sweep_warps"] > 0 and clump["longest_list"] > hard_kernel.MAX_THREADS
+            and cull_stats["cull: the light inside a warp's hull"]["warps_holding_the_light"]):
+        raise AssertionError(f"the cull cases miss what they are named for: {cull_stats}")
 
     # the whole step on the card: kernel path vs the plain reference renderer,
     # with and without camera pitch (the broad-phase cones must follow it)
@@ -1619,19 +1794,30 @@ def main() -> int:
 
     # -- phase 5 -----------------------------------------------------------------
     tag = f"[{card}]"
-    timing = {}
+    timing, k7_graph = {}, {}
     for label in ("a default 400x150", "c random 20 1920x1080 shadows",
-                  "d random 200 3840x2160 shadows"):
+                  "d random 200 3840x2160 shadows", "g random 100 3840x1000",
+                  "h random 100 3840x1000 shadows"):
         args, cfg = packed[label]
-        k_ms = _time_ms(lambda: hard_kernel.hard_render_packed(*args, config=cfg, bh=bh, bw=bw))
-        p_ms = _time_ms(lambda: hard_kernel.hard_render_plain(*args, config=cfg, bh=bh, bw=bw))
+
+        def k7(args=args, cfg=cfg):
+            return hard_kernel.hard_render_packed(*args, config=cfg, bh=bh, bw=bw)
+        k_ms = _time_ms(k7)
+        p_ms = _time_ms(lambda: hard_kernel.hard_render_plain(*args, config=cfg, bh=bh, bw=bw),
+                        reps=5, warm=1)
         sph, _, _, camv, _ = args
         b_ms = _time_ms(lambda: hard_kernel.tile_lists(sph, camv, cfg, bh, bw))
-        dev_ms = _kernel_device_ms(lambda: hard_kernel.hard_render_packed(
-            *args, config=cfg, bh=bh, bw=bw))
+        dev_ms = _kernel_device_ms(k7)
+        k7_graph[label] = _graph_ms(k7)[0]
         timing[label] = (k_ms, p_ms, b_ms, dev_ms)
-        print(f"phase 5: {label}: K7 kernel {k_ms!r} ms (device time alone {dev_ms!r} ms), "
-              f"plain {p_ms!r} ms, broad phase {b_ms!r} ms {tag}")
+        print(f"phase 5: {label}: K7 kernel {k_ms!r} ms (device time alone {dev_ms!r} ms, "
+              f"profiler mean; {k7_graph[label]!r} ms a call of a CUDA graph of 20), plain "
+              f"{p_ms!r} ms, broad phase {b_ms!r} ms"
+              + (f"; warps taking the full shadow sweep {cull_stats[label]['full_sweep_warps']}"
+                 f" of {cull_stats[label]['warps_with_a_hit']} with a hit, admitted occluders "
+                 f"a warp {cull_stats[label]['mean_admitted']!r} (mean) of "
+                 f"{cull_stats[label]['live_spheres']} live" if cfg.shadows else "")
+              + f" {tag}")
 
     def engine_rate(rcfg, scene, n=60, warm=5):
         eng = Engine(rcfg, no_spawn, scene=scene, presenter=FramebufferSink(),
@@ -1657,7 +1843,9 @@ def main() -> int:
             ("1920x500 100 spheres rgb_ascii",
              RenderConfig(width=1920, height=500, mode=RenderMode.RGB_ASCII),
              random_scene(100, seed=0)),
-            ("1920x500 100 spheres rgb_ascii supersample 2", hi, random_scene(100, seed=0))):
+            ("1920x500 100 spheres rgb_ascii supersample 2", hi, random_scene(100, seed=0)),
+            ("1920x500 100 spheres rgb_ascii supersample 2 shadows", hi.replace(shadows=True),
+             random_scene(100, seed=0))):
         fps, rps = engine_rate(rcfg, scene)
         rates[label] = (fps, rps)
         print(f"phase 5: engine {label}: {fps!r} frames/s, {rps!r} rays/s {tag}")
@@ -2016,13 +2204,9 @@ def main() -> int:
 
     # -- the kernels line: every kernel with its bound ---------------------------
     px = 16 * 16
-    args_c, cfg_c = packed["c random 20 1920x1080 shadows"]
-    sph_c, pl_c, counts_c, cam_c, lists_c = args_c
-    n_obj = int(counts_c.sum())
-    hard_ops = px * float((OPS["raygen"] + lists_c[:, 0, 0].double() * OPS["hard_sphere"]
-                           + int(counts_c[0, 1]) * OPS["hard_plane"] + OPS["hard_shade"]
-                           + n_obj * OPS["hard_shadow"]).sum())
-    hard_out = hard_kernel.hard_render_packed(*args_c, config=cfg_c, bh=bh, bw=bw)
+    hard_work = {label: _hard_work(hard_kernel, *packed[label])
+                 for label in ("c random 20 1920x1080 shadows", "d random 200 3840x2160 shadows",
+                               "g random 100 3840x1000", "h random 100 3840x1000 shadows")}
     npl20, npl_h, npl_4 = (int(c[0, P.C_NPL]) for c in (camv, cam_h, cam_4))
     ns20, ns_h, ns_4 = sph.shape[1], sph_h.shape[1], sph_4.shape[1]
     w20 = _soft_work(lists, gates, npl20, px)
@@ -2039,8 +2223,7 @@ def main() -> int:
     # gate rows; K5 reads both, the saved planes but alpha (0-6, 8-13) and
     # the same eight cotangent planes.
     work = {
-        "K7": (_nbytes(*args_c[:4], hard_out) + _list_bytes(0, lists_c, gate_rows=False),
-               hard_ops),
+        "K7": hard_work["c random 20 1920x1080 shadows"],
         "K1": (_nbytes(sph, pl, camv, out) + _list_bytes(npl20, lists), w20["fwd"]),
         "K2": (_nbytes(sph, pl, camv, offsets, out[:7], out[8:10], g_mse[:8])
                + _list_bytes(npl20, lists) + _partial_bytes(gates, ns20, npl20, 12),
@@ -2173,6 +2356,18 @@ def main() -> int:
                   f"{dev_4k[key]!r} ms")
         if key == "K4":
             entry["graph_device_ms_4k200"] = graph_timing["K4 4k"]
+        if key == "K7":
+            entry["graph_device_ms"] = k7_graph["c random 20 1920x1080 shadows"]
+            entry["shapes"] = {}
+            for label, (nbytes, ops) in hard_work.items():
+                kb_ms, kb_by = _bound(nbytes, ops)
+                entry["shapes"][label] = {
+                    "device_ms": timing[label][3], "graph_device_ms": k7_graph[label],
+                    "ms": timing[label][0], "plain_ms": timing[label][1], "bound_ms": kb_ms,
+                    "bound_by": kb_by, "shadow_cull": cull_stats.get(label)}
+                print(f"phase 5b: K7 at {label}: bound {kb_ms!r} ms ({kb_by}; "
+                      f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP), device "
+                      f"{timing[label][3]!r} ms, graph {k7_graph[label]!r} ms")
         if key == "reduce":
             r_ms, r_p, r_d = soft_timing["reduce sh"]
             rb_ms, rb_by = _bound(*work["reduce sh"])

@@ -48,23 +48,12 @@ __device__ __forceinline__ Plane load_plane(const float* s_pl, int np, int k) {
 }
 
 // Where a forward sweep finds its tile's list row (n, then n sphere
-// indices) and the listed spheres. GlobalList (K1, K3, K6) reads both from
-// device memory as the sweep reaches them: per object a load of the entry,
-// then the sphere's 7 parameters, then the block's vote. StagedList (K4,
-// K4-stats) reads them from shared memory, where stage_lists put them at
-// block start. Both give the same floats in the same order.
-struct GlobalList {
-  const float* __restrict__ sph;
-  const int* __restrict__ lst;
-  int ns;
-  __device__ int n() const { return __ldg(lst); }
-  __device__ int index(int kk) const { return __ldg(lst + 1 + kk); }
-  __device__ Sphere sphere(int, int k) const { return load_sphere(sph, ns, k); }
-};
-
-// The staged layout: the list row at s_lst [list_stride] ints; entry kk's
-// parameters at s_sph[f * (list_stride - 1) + kk], f = 0..STAGED - 1 in
-// load_sphere's order (cx, cy, cz, r, colour).
+// indices) and the listed spheres: in shared memory, where stage_lists put
+// them at block start, so that no listed object costs a chain of dependent
+// device-memory loads before its block vote. The staged layout: the list
+// row at s_lst [list_stride] ints; entry kk's parameters at s_sph[f *
+// (list_stride - 1) + kk], f = 0..STAGED - 1 in load_sphere's order (cx,
+// cy, cz, r, colour).
 constexpr int STAGED = 7;
 
 struct StagedList {
@@ -73,7 +62,7 @@ struct StagedList {
   int stride;  // list_stride - 1: the most entries a row holds
   __device__ int n() const { return s_lst[0]; }
   __device__ int index(int kk) const { return s_lst[1 + kk]; }
-  __device__ Sphere sphere(int kk, int) const {
+  __device__ Sphere sphere(int kk) const {
     Sphere s;
     s.cx = s_sph[kk];
     s.cy = s_sph[stride + kk];
@@ -86,23 +75,24 @@ struct StagedList {
   }
 };
 
-// Copies the tile's list row lst and shadow list row shl (n, then n
-// entries each) and their spheres into shared memory: s_lst and s_lst +
-// list_stride, s_sph and s_sph + STAGED * (list_stride - 1), StagedList's
-// layout. Thread e takes entry e of the two rows laid end to end, so the
-// entries' loads are coalesced and all the spheres' loads are in flight at
-// once: one chain of dependent loads a block, not one an object. No
-// barrier: the caller's next one (stage_planes') publishes them.
+// Copies the tile's list row lst and, with SHADOW_ROW, its shadow list row
+// shl (n, then n entries each) and their spheres into shared memory: s_lst
+// and s_lst + list_stride, s_sph and s_sph + STAGED * (list_stride - 1),
+// StagedList's layout. Thread e takes entry e of the two rows laid end to
+// end, so the entries' loads are coalesced and all the spheres' loads are
+// in flight at once: one chain of dependent loads a block, not one an
+// object. No barrier: the caller's next one (stage_planes') publishes them.
+template <bool SHADOW_ROW>
 __device__ __forceinline__ void stage_lists(const SoftParams& p, const float* __restrict__ sph,
                                             const int* __restrict__ lst,
                                             const int* __restrict__ shl, int* s_lst,
                                             float* s_sph) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int L = p.list_stride - 1;
-  const int n0 = __ldg(lst), n1 = __ldg(shl);
+  const int n0 = __ldg(lst), n1 = SHADOW_ROW ? __ldg(shl) : 0;
   if (tid == 0) {
     s_lst[0] = n0;
-    s_lst[p.list_stride] = n1;
+    if (SHADOW_ROW) s_lst[p.list_stride] = n1;
   }
   for (int e = tid; e < n0 + n1; e += blockDim.x * blockDim.y) {
     const int i = e < n0 ? 0 : 1, kk = e < n0 ? e : e - n0;
@@ -177,16 +167,17 @@ __device__ __forceinline__ void accumulate(const SoftParams& p, const ObjOut& v,
 // or gate_row[ns + k] (planes) unless gate_row is null. visit(g, col, sn)
 // gets every object taken: its shading-free geometry, its colour and its
 // shading normal; it may move *m. The list and its spheres come from
-// `list`, a GlobalList or a StagedList.
-template <typename List, typename Visit>
+// `list`, staged by stage_lists.
+template <typename Visit>
 __device__ __forceinline__ void forward_sweep(const SoftParams& p, const float* __restrict__ cam,
-                                              const List& list, const float* s_pl, int* gate_row,
-                                              Vec3 d, Vec3 o, const float* m, Visit&& visit) {
+                                              const StagedList& list, const float* s_pl,
+                                              int* gate_row, Vec3 d, Vec3 o, const float* m,
+                                              Visit&& visit) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_list = list.n();
   for (int kk = 0; kk < n_list; ++kk) {
     const int k = list.index(kk);
-    const Sphere sp = list.sphere(kk, k);
+    const Sphere sp = list.sphere(kk);
     if (p.cull) {
       float t2, dss;
       const float lb = sphere_lb_ex(p, sp, d, o, &t2, &dss);

@@ -16,9 +16,10 @@
 // and the forward and backward sweeps in soft_block.cuh.
 //
 // Design. One thread per pixel, one block per broad-phase tile (bh x bw
-// pixels, threadIdx.x along the width), as K7. The block reads its own list
-// row; sphere parameters come through __ldg with a block-uniform index (a
-// broadcast), the plane table is staged in shared memory. Culling is
+// pixels, threadIdx.x along the width), as K7. K1 and K3 copy their tile's
+// list row and the listed spheres into shared memory at block start
+// (stage_lists), K2 reads them through __ldg with a block-uniform index (a
+// broadcast); the plane table is staged in shared memory. Culling is
 // block-uniform, like JAX's per-tile `jnp.max(...) > -16`: each thread tests
 // its pixel against the running max and __syncthreads_or decides for the
 // block. K1 writes that decision into the gate table, K2 reads it for the
@@ -77,29 +78,46 @@ namespace {
 // objects, accumulating the first NACC of (rgb, t_clip, normal).
 template <int NACC>
 __device__ __forceinline__ void softmin_sweep(const SoftParams& p, const float* __restrict__ cam,
-                                              const float* __restrict__ sph, const float* s_pl,
-                                              const int* __restrict__ lst, int* gate_row, Vec3 d,
-                                              Vec3 o, float* m, float* s, float acc[NACC]) {
-  forward_sweep(p, cam, GlobalList{sph, lst, p.ns}, s_pl, gate_row, d, o, m,
+                                              const StagedList& list, const float* s_pl,
+                                              int* gate_row, Vec3 d, Vec3 o, float* m, float* s,
+                                              float acc[NACC]) {
+  forward_sweep(p, cam, list, s_pl, gate_row, d, o, m,
                 [&](const Geo& g, const float* col, Vec3 sn) {
                   accumulate<NACC>(p, obj_out(p, g, col, sn, d), m, s, acc);
                 });
 }
 
+// The staged list row and its spheres (stage_lists) of K1 and K3: list_stride
+// ints, then STAGED (list_stride - 1) floats.
+inline size_t staged_row_smem(int list_stride) {
+  return sizeof(int) * (size_t)list_stride + sizeof(float) * STAGED * (size_t)(list_stride - 1);
+}
+
 }  // namespace
 
-__global__ void __launch_bounds__(MAX_THREADS)
+// Blocks an SM that K1 is built for: 8, at most 32 registers a thread (24 B
+// of spill stores). On an H100 at 1080p it took 0.0507-0.0512 ms at 8
+// blocks, 0.0528 at 6 (40 registers), 0.0527-0.0529 at 5 (48, no spill;
+// the parent's register budget), 0.0566 at 4 (PERF.md section 6).
+constexpr int K1_MIN_BLOCKS = 8;
+
+// K1: the softmin sweep on the tile's list row and spheres, staged in shared
+// memory at block start (stage_lists), then the 10 planes.
+__global__ void __launch_bounds__(MAX_THREADS, K1_MIN_BLOCKS)
 soft_fwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
                 const float* __restrict__ pl_g, const int* __restrict__ lists,
                 float* __restrict__ out, int* __restrict__ gates) {
-  extern __shared__ float s_pl[];
-  stage_planes(p, pl_g, s_pl);
+  extern __shared__ float s_pl[];  // [12, NP] planes, then the staged row (staged_row_smem)
+  int* s_lst = reinterpret_cast<int*>(s_pl + PL_ROWS * p.np);
+  float* s_sph = reinterpret_cast<float*>(s_lst + p.list_stride);
   const int tile = blockIdx.y * (p.wp / p.bw) + blockIdx.x;
+  stage_lists<false>(p, sph, lists + (size_t)tile * p.list_stride, nullptr, s_lst, s_sph);
+  stage_planes(p, pl_g, s_pl);  // its barrier publishes the list too
   const Ray r = block_ray(p, cam);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   float m = p.bg_logit, s = 1.0f;
   float acc[7] = {0.0f, 0.0f, 0.0f, p.far, 0.0f, 0.0f, 0.0f};
-  softmin_sweep<7>(p, cam, sph, s_pl, lists + (size_t)tile * p.list_stride,
+  softmin_sweep<7>(p, cam, StagedList{s_lst, s_sph, p.list_stride - 1}, s_pl,
                    gates + (size_t)tile * 2 * (p.ns + p.np), r.d, o, &m, &s, acc);
   const float inv_s = 1.0f / s;
   const size_t plane = (size_t)p.hp * p.wp;
@@ -176,22 +194,27 @@ soft_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __rest
                 const float* __restrict__ pl_g, const int* __restrict__ lists,
                 const int* __restrict__ offsets, const float* __restrict__ tgt,
                 float* __restrict__ pvals, float* __restrict__ ppl, float* __restrict__ ptf) {
-  // [12, NP] floats, NS + NP gate ints, then the stash [ST_FIELDS, MAX_THREADS]
+  // [12, NP] floats, NS + NP gate ints, the staged row (staged_row_smem),
+  // then the stash [ST_FIELDS, MAX_THREADS]
   extern __shared__ float s_pl[];
   __shared__ Reduce sm;
   __shared__ Slab sb;
   int* s_gate = reinterpret_cast<int*>(s_pl + PL_ROWS * p.np);
-  const Stash st(reinterpret_cast<float*>(s_gate + p.ns + p.np));
+  int* s_lst = s_gate + p.ns + p.np;
+  float* s_sph = reinterpret_cast<float*>(s_lst + p.list_stride);
+  const Stash st(s_sph + STAGED * (p.list_stride - 1));
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int e = tid; e < p.ns + p.np; e += blockDim.x * blockDim.y) s_gate[e] = 0;
-  stage_planes(p, pl_g, s_pl);
   const int tile = blockIdx.y * (p.wp / p.bw) + blockIdx.x;
   const int* lst = lists + (size_t)tile * p.list_stride;
+  stage_lists<false>(p, sph, lst, nullptr, s_lst, s_sph);
+  stage_planes(p, pl_g, s_pl);  // its barrier publishes the list too
   const Ray r = block_ray(p, cam);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   float m = p.bg_logit, s = 1.0f;
   float acc[3] = {0.0f, 0.0f, 0.0f};
-  softmin_sweep<3>(p, cam, sph, s_pl, lst, s_gate, r.d, o, &m, &s, acc);
+  softmin_sweep<3>(p, cam, StagedList{s_lst, s_sph, p.list_stride - 1}, s_pl, s_gate, r.d, o,
+                   &m, &s, acc);
   __syncthreads();  // the gates, written by thread 0, are read by all below
   const Vec3 d = stash_ray(r, st);
   const float inv_s = 1.0f / s;
@@ -593,7 +616,7 @@ extern "C" int rtwc_soft_fwd(const float* cam, const float* sph, const float* pl
                              const int* lists, float* out, int* gates, const SoftParams* params,
                              void* stream) {
   const SoftParams p = *params;
-  const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np;
+  const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np + staged_row_smem(p.list_stride);
   if (int rc = prepare(soft_fwd_kernel, p, smem)) return rc;
   soft_fwd_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
                     (cudaStream_t)stream>>>(p, cam, sph, pl, lists, out, gates);
@@ -619,7 +642,7 @@ extern "C" int rtwc_soft_mse(const float* cam, const float* sph, const float* pl
                              void* stream) {
   const SoftParams p = *params;
   const size_t smem = sizeof(float) * PL_ROWS * (size_t)p.np + sizeof(int) * (size_t)(p.ns + p.np) +
-                      sizeof(float) * ST_FIELDS * MAX_THREADS;
+                      staged_row_smem(p.list_stride) + sizeof(float) * ST_FIELDS * MAX_THREADS;
   if (int rc = prepare(soft_mse_kernel, p, smem, sizeof(Reduce) + sizeof(Slab))) return rc;
   soft_mse_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
                     (cudaStream_t)stream>>>(p, cam, sph, pl, lists, offsets, tgt, pvals, ppl,

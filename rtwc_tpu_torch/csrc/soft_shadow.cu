@@ -63,8 +63,8 @@
 //   register budget of K5_MIN_BLOCKS / K6_MIN_BLOCKS blocks an SM.
 // K4 (and K4-stats), whose bound is its 56 B a pixel of stores:
 // - the TPU kernels read the tile's lists from SMEM by scalar prefetch; a
-//   K4 block copies its list row, its shadow list row and the listed
-//   spheres' parameters into shared memory at block start (stage_lists,
+//   K4 (and a K6) block copies its list row, its shadow list row and the
+//   listed spheres' parameters into shared memory at block start (stage_lists,
 //   one chain of dependent loads a block), so that no listed object costs
 //   a chain of dependent device-memory loads before its block vote;
 // - the clamp cache is in shared memory (a runtime slot index puts
@@ -164,12 +164,12 @@ __device__ __forceinline__ void shade_accumulate(const SoftParams& p, const Geo&
 
 // K4's forward (also K6's): gate0 / gate1 get the block's main-sweep and
 // shadow-sweep decisions (thread 0 writes them). The list rows and their
-// spheres come from `lst` and `shl`: StagedList in K4 and K4-stats,
-// GlobalList in K6. The clamp cache is on s_cache.
-template <class List>
-__device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam, const List& lst,
-                           const List& shl, const float* s_pl, int* gate0, int* gate1,
-                           float* s_ccol, float* s_cache, Vec3 d, Vec3 o, ShFwd* f) {
+// spheres come from `lst` and `shl`, staged by stage_lists. The clamp cache
+// is on s_cache.
+__device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
+                           const StagedList& lst, const StagedList& shl, const float* s_pl,
+                           int* gate0, int* gate1, float* s_ccol, float* s_cache, Vec3 d,
+                           Vec3 o, ShFwd* f) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   // ---- sweep 1
   float m = p.bg_logit, s = 1.0f;
@@ -211,7 +211,7 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam, c
   const int n_sh = shl.n();
   for (int jj = 0; jj < n_sh; ++jj) {
     const int k = shl.index(jj);
-    const Sphere sp = shl.sphere(jj, k);
+    const Sphere sp = shl.sphere(jj);
     float args[4];
     if (!p.cull) {
       if (tid == 0) gate1[k] = 1;
@@ -392,8 +392,8 @@ soft_sh_fwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
   float* s_sph = reinterpret_cast<float*>(s_lst + 2 * p.list_stride);
   float* s_cache = s_sph + 2 * STAGED * (p.list_stride - 1);
   const int tile = tile_index(p);
-  stage_lists(p, sph, lists + (size_t)tile * p.list_stride,
-              shlists + (size_t)tile * p.list_stride, s_lst, s_sph);
+  stage_lists<true>(p, sph, lists + (size_t)tile * p.list_stride,
+                    shlists + (size_t)tile * p.list_stride, s_lst, s_sph);
   stage_planes(p, pl_g, s_pl);  // its barrier publishes the lists too
   const Ray r = block_ray(p, cam);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
@@ -468,26 +468,32 @@ soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
                    const int* __restrict__ sh_offsets, const float* __restrict__ tgt,
                    float* __restrict__ pvals, float* __restrict__ psh, float* __restrict__ ppl,
                    float* __restrict__ ptf) {
-  // [12, NP] planes, [NC, 3] cache colours, 2 (NS + NP) gate ints, then the
-  // clamp cache [NC, 3, threads], whose space the stash [ST_FIELDS, threads]
-  // takes once the forward is done
+  // [12, NP] planes, [NC, 3] cache colours, 2 (NS + NP) gate ints, the list
+  // rows and their staged spheres (StagedList, as K4's), then the clamp
+  // cache [NC, 3, threads], whose space the stash [ST_FIELDS, threads] takes
+  // once the forward is done
   extern __shared__ float s_pl[];
   __shared__ Reduce sm;
   __shared__ Slab sb;
   float* s_ccol = s_pl + PL_ROWS * p.np;
   int* s_gate = reinterpret_cast<int*>(s_ccol + 3 * NC);
-  float* s_cache = reinterpret_cast<float*>(s_gate + 2 * (p.ns + p.np));
+  int* s_lst = s_gate + 2 * (p.ns + p.np);
+  float* s_sph = reinterpret_cast<float*>(s_lst + 2 * p.list_stride);
+  const int L = p.list_stride - 1;
+  float* s_cache = s_sph + 2 * STAGED * L;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int e = tid; e < 2 * (p.ns + p.np); e += blockDim.x * blockDim.y) s_gate[e] = 0;
-  stage_planes(p, pl_g, s_pl);
   const int tile = tile_index(p);
   const int* lst = lists + (size_t)tile * p.list_stride;
   const int* shl = shlists + (size_t)tile * p.list_stride;
+  stage_lists<true>(p, sph, lst, shl, s_lst, s_sph);
+  stage_planes(p, pl_g, s_pl);  // its barrier publishes the lists too
   const Ray r = block_ray(p, cam);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
   ShFwd f;
   // sh_forward ends with a __syncthreads after its last gate write
-  sh_forward(p, cam, GlobalList{sph, lst, p.ns}, GlobalList{sph, shl, p.ns}, s_pl, s_gate,
+  sh_forward(p, cam, StagedList{s_lst, s_sph, L},
+             StagedList{s_lst + p.list_stride, s_sph + STAGED * L, L}, s_pl, s_gate,
              s_gate + p.ns + p.np, s_ccol, s_cache, r.d, o, &f);
   const Stash st(s_cache);
   const Vec3 d = stash_ray(r, st);
@@ -566,7 +572,8 @@ extern "C" int rtwc_soft_sh_mse(const float* cam, const float* sph, const float*
                                 float* ppl, float* ptf, const SoftParams* params, void* stream) {
   const SoftParams p = *params;
   const size_t smem = sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC) +
-                      sizeof(int) * 2 * (size_t)(p.ns + p.np) +
+                      sizeof(int) * 2 * (size_t)(p.ns + p.np + p.list_stride) +
+                      sizeof(float) * 2 * STAGED * (size_t)(p.list_stride - 1) +
                       sizeof(float) * (3 * NC > ST_FIELDS ? 3 * NC : ST_FIELDS) * MAX_THREADS;
   if (int rc = prepare(soft_sh_mse_kernel, p, smem, sizeof(Reduce) + sizeof(Slab))) return rc;
   soft_sh_mse_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,

@@ -4,9 +4,10 @@ Replaces rtwc_tpu/render/pallas_kernel.py::_ray_kernel_body (the Pallas
 kernel at pallas_kernel.py:290, launched by `pallas_render_packed`). The
 CUDA kernel is csrc/hard_render.cu (one thread per pixel, one block per
 broad-phase tile); its source note says what bounds it and what its
-design does about that. In short: each ray does O(list + planes) work, or
-O(all objects) with shadows, and stores 32 B, so at display sizes the
-frame is bound by the host loop and the torch ops around the kernel.
+design does about that. In short: each ray does O(list + planes) work,
+plus with shadows O(the occluders its warp's shadow cull admits + planes),
+and stores 32 B, so at display sizes the frame is bound by the host loop
+and the torch ops around the kernel.
 
 - `hard_render_packed` is the counterpart of `pallas_render_packed`: it
   takes packed tables and the broad-phase lists, checks them, and on a
@@ -15,7 +16,9 @@ frame is bound by the host loop and the torch ops around the kernel.
   version.
 - `hard_render_plain` is the same algorithm in torch ops, vectorised over
   pixels, looping in Python over list slots, planes and (with shadows)
-  live spheres. It never builds [H, W, NS] tensors.
+  live spheres, each masked by the kernel's per-warp shadow cull
+  (`shadow_occluders`). It never builds [H, W, NS] tensors. On the card
+  the kernel's planes equal it bit for bit.
 - `render_frame_kernel` is the counterpart of `render_frame_pallas`.
 - `LAUNCHES` counts kernel launches (never plain runs).
 """
@@ -31,11 +34,23 @@ from rtwc_tpu_torch.render import _cuda
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render.broad_phase import round_up, sphere_tile_lists, tile_grid
 from rtwc_tpu_torch.render.reference import MISS_DISTANCE, Framebuffer, _FLT_EPSILON
+from rtwc_tpu_torch.render.soft_objects import rsqrt
 
 O_R, O_G, O_B, O_DEPTH, O_NX, O_NY, O_NZ, O_SHADING = range(8)
 N_OUT = 8
-# Largest plane table the kernel stages in (static-limit) shared memory.
+# Largest plane table the kernel stages in shared memory.
 MAX_PLANES = 1024
+# The kernel's largest block (one thread a pixel, whole warps) and its
+# shadow cull (csrc/hard_render.cu K7_THREADS, OCC_CAP, CULL_REL, CULL_ABS,
+# SHADOW_BIAS): each warp of a tile (32 pixels in the tile's row-major
+# order) keeps an occluder list of OCC_CAP spheres, and admits a sphere
+# when its centre lies within r + r_box + CULL_REL * (the scene's
+# distances) + CULL_ABS of the segment from the light to the centre of its
+# hit points' bounding box.
+MAX_THREADS = 256
+OCC_CAP = 64
+CULL_REL, CULL_ABS = 1e-2, 2e-3
+SHADOW_BIAS = 1e-3
 
 # Number of CUDA launches of the K7 kernel in this process.
 LAUNCHES = 0
@@ -102,8 +117,9 @@ def _check_inputs(sph, pl, counts, cam, lists, config, bh, bw, band_h):
     if tuple(lists.shape) != (n_tiles, 1, ns + 1):
         raise ValueError(f"lists must be [{n_tiles}, 1, {ns + 1}] for ({bh}, {bw}) "
                          f"tiles, got {tuple(lists.shape)}")
-    if bh < 1 or bw < 1 or bh * bw > 1024:
-        raise ValueError(f"tile ({bh}, {bw}) must hold 1..1024 pixels (one thread each)")
+    if bh < 1 or bw < 1 or bh * bw > MAX_THREADS or (bh * bw) % 32:
+        raise ValueError(f"tile ({bh}, {bw}) must hold a multiple of 32 pixels, at most "
+                         f"{MAX_THREADS} (one thread each)")
     if npl > MAX_PLANES:
         raise ValueError(f"the kernel stages at most {MAX_PLANES} planes, got {npl}")
     return Hp, Wp
@@ -161,19 +177,44 @@ def _pow_int(x: torch.Tensor, n: int) -> torch.Tensor:
     return result if result is not None else torch.ones_like(x)
 
 
-def hard_render_plain(sph, pl, counts, cam, lists, *, config: RenderConfig,
-                      bh: int, bw: int, band_h: int | None = None) -> torch.Tensor:
-    """The kernel's algorithm in torch ops on any device, same op order:
-    vectorised over the [Hp, Wp] pixels; a Python loop over list slots
-    k < max(count) gathers lists[tile(pixel), 1 + k] and masks k < count;
-    then all live planes; with shadows, all live spheres and planes."""
+def _sphere_t(scx, scy, scz, r, o, d):
+    """(t, valid) of the ray o + t d against a sphere (hard_render.cu sphere_t)."""
+    ocx, ocy, ocz = o[0] - scx, o[1] - scy, o[2] - scz
+    b = 2.0 * (d[0] * ocx + d[1] * ocy + d[2] * ocz)
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    disc = b * b - 4.0 * cc
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t1 = 0.5 * (-b + sq)
+    t2 = 0.5 * (-b - sq)
+    valid = (disc >= 0.0) & (t1 >= 0.0) & (t2 >= 0.0)
+    return torch.minimum(t1, t2), valid
+
+
+def _plane_t(pl, k, o, d):
+    """(t, valid) of the ray o + t d against live plane k (hard_render.cu plane_t)."""
+    pcx, pcy, pcz, pnx, pny, pnz, hw, hh = (pl[row, k] for row in range(8))
+    denom = d[0] * pnx + d[1] * pny + d[2] * pnz
+    num = (pcx - o[0]) * pnx + (pcy - o[1]) * pny + (pcz - o[2]) * pnz
+    safe = torch.where(denom.abs() < _FLT_EPSILON, -1.0, denom)
+    t = num / safe
+    hx = o[0] + d[0] * t
+    hz = o[2] + d[2] * t
+    valid = ((denom < -_FLT_EPSILON) & (t > 0.0) & ((hx - pcx).abs() < hw)
+             & ((hz - pcz).abs() < hh))
+    return t, valid
+
+
+def _trace(sph, pl, counts, cam, lists, config, bh, bw, band_h):
+    """The kernel's ray generation and closest hit, vectorised over the
+    [Hp, Wp] pixels: a Python loop over list slots k < max(count) gathers
+    lists[tile(pixel), 1 + k] and masks k < count, then all live planes.
+    Returns (o, d, t_best, (snx, sny, snz), (cr, cg, cb))."""
     dev = sph.device
     Hp, Wp = _out_extent(config, bh, bw, band_h)
     W, H = config.width, config.height
     e1, e2 = projection_elements(config)
-    miss = MISS_DISTANCE
     c = [float(v) for v in cam[0].tolist()]
-    n_sph, n_pl = (int(v) for v in counts.reshape(-1).tolist())
+    n_pl = int(counts.reshape(-1)[1])
 
     rows = torch.arange(Hp, device=dev)
     cols = torch.arange(Wp, device=dev)
@@ -191,35 +232,12 @@ def hard_render_plain(sph, pl, counts, cam, lists, *, config: RenderConfig,
     dx = c[P.C_RX] * vx + c[P.C_RY] * vy + c[P.C_RZ]
     dy = c[P.C_UX] * vx + c[P.C_UY] * vy + c[P.C_UZ]
     dz = c[P.C_FX] * vx + c[P.C_FY] * vy + c[P.C_FZ]
-    inv_len = torch.rsqrt(dx * dx + dy * dy + dz * dz)
+    inv_len = rsqrt(dx * dx + dy * dy + dz * dz)
     dx, dy, dz = dx * inv_len, dy * inv_len, dz * inv_len
-
-    def sphere_t(scx, scy, scz, r, o, d):
-        ocx, ocy, ocz = o[0] - scx, o[1] - scy, o[2] - scz
-        b = 2.0 * (d[0] * ocx + d[1] * ocy + d[2] * ocz)
-        cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
-        disc = b * b - 4.0 * cc
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
-        t1 = 0.5 * (-b + sq)
-        t2 = 0.5 * (-b - sq)
-        valid = (disc >= 0.0) & (t1 >= 0.0) & (t2 >= 0.0)
-        return torch.minimum(t1, t2), valid
-
-    def plane_t(k, o, d):
-        pcx, pcy, pcz, pnx, pny, pnz, hw, hh = (pl[row, k] for row in range(8))
-        denom = d[0] * pnx + d[1] * pny + d[2] * pnz
-        num = (pcx - o[0]) * pnx + (pcy - o[1]) * pny + (pcz - o[2]) * pnz
-        safe = torch.where(denom.abs() < _FLT_EPSILON, -1.0, denom)
-        t = num / safe
-        hx = o[0] + d[0] * t
-        hz = o[2] + d[2] * t
-        valid = ((denom < -_FLT_EPSILON) & (t > 0.0) & ((hx - pcx).abs() < hw)
-                 & ((hz - pcz).abs() < hh))
-        return t, valid
 
     o3, d3 = (ox, oy, oz), (dx, dy, dz)
     zeros = torch.zeros((Hp, Wp), dtype=torch.float32, device=dev)
-    t_best = torch.full((Hp, Wp), miss, dtype=torch.float32, device=dev)
+    t_best = torch.full((Hp, Wp), MISS_DISTANCE, dtype=torch.float32, device=dev)
     snx, sny, snz, cr, cg, cb = (zeros.clone() for _ in range(6))
 
     tile = (rows // bh)[:, None] * (Wp // bw) + (cols // bw)[None, :]
@@ -228,13 +246,13 @@ def hard_render_plain(sph, pl, counts, cam, lists, *, config: RenderConfig,
     for kk in range(int(tab[:, 0].max().item()) if tab.shape[0] else 0):
         k = tab[:, 1 + kk].long()[tile]
         scx, scy, scz, r = (sph[row][k] for row in (P.S_CX, P.S_CY, P.S_CZ, P.S_R))
-        t, valid = sphere_t(scx, scy, scz, r, o3, d3)
+        t, valid = _sphere_t(scx, scy, scz, r, o3, d3)
         win = valid & (t < t_best) & (kk < cnt)
         t_best = torch.where(win, t, t_best)
         px = ox + dx * t - scx
         py = oy + dy * t - scy
         pz = oz + dz * t - scz
-        n_inv = torch.rsqrt(px * px + py * py + pz * pz)
+        n_inv = rsqrt(px * px + py * py + pz * pz)
         snx = torch.where(win, px * n_inv, snx)
         sny = torch.where(win, py * n_inv, sny)
         snz = torch.where(win, pz * n_inv, snz)
@@ -242,7 +260,7 @@ def hard_render_plain(sph, pl, counts, cam, lists, *, config: RenderConfig,
         cg = torch.where(win, sph[P.S_COLG][k], cg)
         cb = torch.where(win, sph[P.S_COLB][k], cb)
     for k in range(n_pl):
-        t, valid = plane_t(k, o3, d3)
+        t, valid = _plane_t(pl, k, o3, d3)
         win = valid & (t < t_best)
         t_best = torch.where(win, t, t_best)
         snx = torch.where(win, pl[P.P_NX, k], snx)
@@ -251,35 +269,106 @@ def hard_render_plain(sph, pl, counts, cam, lists, *, config: RenderConfig,
         cr = torch.where(win, pl[P.P_COLR, k], cr)
         cg = torch.where(win, pl[P.P_COLG, k], cg)
         cb = torch.where(win, pl[P.P_COLB, k], cb)
-    hit = t_best < miss
+    return o3, d3, t_best, (snx, sny, snz), (cr, cg, cb)
 
+
+def _by_warp(x: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
+    """[Hp, Wp] -> [G, 32], the kernel's warps: tile t = (row // bh) *
+    (Wp // bw) + col // bw, its pixels in row-major order, 32 a warp; warp
+    w of tile t is group t * (bh * bw // 32) + w."""
+    Hp, Wp = x.shape
+    return x.reshape(Hp // bh, bh, Wp // bw, bw).transpose(1, 2).reshape(-1, 32)
+
+
+def _warp_of_pixel(Hp: int, Wp: int, bh: int, bw: int, device) -> torch.Tensor:
+    """[Hp, Wp] int64: the `_by_warp` group of each pixel."""
+    idx = torch.arange(Hp * Wp, device=device).reshape(Hp, Wp)
+    group = torch.empty(Hp * Wp, dtype=torch.int64, device=device)
+    group[_by_warp(idx, bh, bw).reshape(-1)] = torch.arange(
+        Hp * Wp // 32, device=device).repeat_interleave(32)
+    return group.reshape(Hp, Wp)
+
+
+def shadow_occluders(p3, hit, sph, n_sph: int, light, bh: int, bw: int):
+    """The kernel's shadow cull, warp by warp (`_by_warp`), in its
+    operations: the bounding box of the warp's hit points p3 (where
+    `hit`), then each live sphere's centre against the segment from the
+    light to the box's centre (hard_render.cu). Returns (admit [G, n_sph]
+    bool: the spheres the warp's shadow rays test, every live sphere for a
+    warp that admits more than OCC_CAP; count [G]: the spheres admitted;
+    any_hit [G]). A warp without a hit admits nothing."""
+    dev = sph.device
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    mn = [_by_warp(torch.where(hit, v, inf), bh, bw).amin(1) for v in p3]
+    mx = [_by_warp(torch.where(hit, v, -inf), bh, bw).amax(1) for v in p3]
+    any_hit = _by_warp(hit, bh, bw).any(1)
+    lx, ly, lz = (float(v) for v in light)
+    bcx, bcy, bcz = (0.5 * (a + b) for a, b in zip(mn, mx))
+    ex, ey, ez = (b - a for a, b in zip(mn, mx))
+    r_box = (0.5 * torch.sqrt(ex * ex + ey * ey + ez * ez))[:, None]
+    ux, uy, uz = ((bcx - lx)[:, None], (bcy - ly)[:, None], (bcz - lz)[:, None])
+    uu = ux * ux + uy * uy + uz * uz
+    u_len = torch.sqrt(uu)
+    lt = torch.tensor([lx, ly, lz], dtype=torch.float32, device=dev)
+    l_len = torch.sqrt(lt[0] * lt[0] + lt[1] * lt[1] + lt[2] * lt[2])
+    scx, scy, scz, r = (sph[row, :n_sph][None, :] for row in (P.S_CX, P.S_CY, P.S_CZ, P.S_R))
+    wx, wy, wz = scx - lx, scy - ly, scz - lz
+    wu = wx * ux + wy * uy + wz * uz
+    s = torch.clamp(torch.where(uu > 0.0, wu / uu, 0.0), 0.0, 1.0)
+    qx, qy, qz = wx - s * ux, wy - s * uy, wz - s * uz
+    q2 = qx * qx + qy * qy + qz * qz
+    w_len = torch.sqrt(wx * wx + wy * wy + wz * wz)
+    reach = r + r_box + (CULL_REL * (w_len + u_len + r_box + l_len) + CULL_ABS)
+    admit = (q2 <= reach * reach) & any_hit[:, None]
+    count = admit.sum(1)
+    return admit | (count > OCC_CAP)[:, None], count, any_hit
+
+
+def _light(config, o3, d3, t_best):
+    """The hit points, the unit light directions and |light - p|^2."""
     lx, ly, lz = config.light_pos
-    px = ox + dx * t_best
-    py = oy + dy * t_best
-    pz = oz + dz * t_best
+    px = o3[0] + d3[0] * t_best
+    py = o3[1] + d3[1] * t_best
+    pz = o3[2] + d3[2] * t_best
     ldx, ldy, ldz = lx - px, ly - py, lz - pz
     d2 = ldx * ldx + ldy * ldy + ldz * ldz
+    l_inv = rsqrt(torch.clamp(d2, min=1e-20))
+    return (px, py, pz), (ldx * l_inv, ldy * l_inv, ldz * l_inv), d2
+
+
+def hard_render_plain(sph, pl, counts, cam, lists, *, config: RenderConfig,
+                      bh: int, bw: int, band_h: int | None = None) -> torch.Tensor:
+    """The kernel's algorithm in torch ops on any device, same op order:
+    `_trace`'s closest hit, then Blinn-Phong and, with shadows, each
+    pixel's shadow ray against the spheres its warp's cull admits
+    (`shadow_occluders`) and every live plane."""
+    n_sph, n_pl = (int(v) for v in counts.reshape(-1).tolist())
+    o3, d3, t_best, (snx, sny, snz), (cr, cg, cb) = _trace(
+        sph, pl, counts, cam, lists, config, bh, bw, band_h)
+    dx, dy, dz = d3
+    hit = t_best < MISS_DISTANCE
+    p3, (ldx, ldy, ldz), d2 = _light(config, o3, d3, t_best)
     inv_d2 = 1.0 / d2
-    l_inv = torch.rsqrt(torch.clamp(d2, min=1e-20))
-    ldx, ldy, ldz = ldx * l_inv, ldy * l_inv, ldz * l_inv
     ndotl = torch.clamp(snx * ldx + sny * ldy + snz * ldz, 0.0, 1.0)
 
-    light_vis = torch.ones((Hp, Wp), dtype=torch.float32, device=dev)
+    light_vis = torch.ones_like(t_best)
     if config.shadows:
-        so3 = (px + ldx * 1e-3, py + ldy * 1e-3, pz + ldz * 1e-3)
+        admit = shadow_occluders(p3, hit, sph, n_sph, config.light_pos, bh, bw)[0]
+        warp = _warp_of_pixel(*t_best.shape, bh, bw, t_best.device)
+        so3 = tuple(p + ld * SHADOW_BIAS for p, ld in zip(p3, (ldx, ldy, ldz)))
         sd3 = (ldx, ldy, ldz)
-        sh_t = torch.full((Hp, Wp), miss, dtype=torch.float32, device=dev)
+        sh_t = torch.full_like(t_best, MISS_DISTANCE)
         for k in range(n_sph):
-            t, valid = sphere_t(sph[P.S_CX, k], sph[P.S_CY, k], sph[P.S_CZ, k],
-                                sph[P.S_R, k], so3, sd3)
-            sh_t = torch.where(valid & (t < sh_t), t, sh_t)
+            t, valid = _sphere_t(sph[P.S_CX, k], sph[P.S_CY, k], sph[P.S_CZ, k],
+                                 sph[P.S_R, k], so3, sd3)
+            sh_t = torch.where(valid & admit[:, k][warp] & (t < sh_t), t, sh_t)
         for k in range(n_pl):
-            t, valid = plane_t(k, so3, sd3)
+            t, valid = _plane_t(pl, k, so3, sd3)
             sh_t = torch.where(valid & (t < sh_t), t, sh_t)
         light_vis = torch.where(sh_t < torch.sqrt(d2), 0.0, 1.0)
 
     hx, hy, hz = ldx - dx, ldy - dy, ldz - dz
-    h_inv = torch.rsqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
+    h_inv = rsqrt(torch.clamp(hx * hx + hy * hy + hz * hz, min=1e-20))
     ndoth = torch.clamp(snx * hx * h_inv + sny * hy * h_inv + snz * hz * h_inv, 0.0, 1.0)
     spec_i = _pow_int(ndoth, int(config.specular_hardness))
     diff_term = config.light_diffuse_power * inv_d2 * ndotl * light_vis

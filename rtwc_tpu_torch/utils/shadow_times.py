@@ -1,7 +1,7 @@
-"""Device times of the soft train path's kernels alone, for one checkout of
-the port: K1, K2 and K3 at 1080p, the shadowed K4, K4-stats, K5 and K6 at
-the bench headline and at 4K/200, and the gradient reduction's whole
-function against its library calls at three shapes.
+"""Device times of the port's kernels alone, for one checkout: K7 (the hard
+display forward) at five shapes, K1, K2 and K3 at 1080p, the shadowed K4,
+K4-stats, K5 and K6 at the bench headline and at 4K/200, and the gradient
+reduction's whole function against its library calls at three shapes.
 
     python rtwc_tpu_torch/utils/shadow_times.py [--root DIR]
 
@@ -13,7 +13,14 @@ inputs are those of `chip_smoke.py` phases 5 and 5b: the bench headline
 (1920x1080, `random_scene(20, max_spheres=20, max_planes=4, seed=0)`,
 shadows, tau 0.5, 16x16 tiles) and 3840x2160 with `random_scene(200)`; at
 both shapes K5 runs under the MSE cotangents of a zero target and K6
-against that target. K1, K2 and K3 run at 1920x1080 on the first step of
+against that target. K7 runs on `chip_smoke.py` phase 2's packed tables
+and 16x16 broad-phase lists: 400x150 `default_scene`, 1920x1080
+`random_scene(20)` with shadows, 3840x2160 `random_scene(200)` with
+shadows, and the engine's 1920x500 supersampled twice (3840x1000,
+`random_scene(100)`) without and with shadows; where the checkout's
+`hard_kernel` has a shadow cull, it also reports `chip_smoke._cull_stats`:
+the occluders a warp's cull admits (mean, most) and the warps that take
+the full sweep. K1, K2 and K3 run at 1920x1080 on the first step of
 the `--spheres 20` fit: `examples.inverse_render`'s layout with its centres
 moved as `chip_smoke._fit_start` moves them, against the layout's own
 tau-0.5 render, so K2's and K3's MSE cotangents are a training step's.
@@ -25,16 +32,20 @@ stray profiler record can move. The reduction runs on K2's partials at
 1080p, K5's at the headline and K6's at 4K/200; its time and its library
 calls' (float64 `index_add_` and sums, held to its sums first) are
 `_graph_ms`; its five kernels' shares are `_kernel_device_ms` a call. It
-reports whether K2's, K3's, K5's and K6's partial tables, K4's planes and
-gates, K4-stats' counts and the reduction's tables equal their plain
-versions', bit for bit, on these inputs, and the registers and spill
-stores of the checkout's soft kernels (`chip_smoke._ptxas_report` on its
-`_build/lib*.log`). Needs one CUDA card (exit 2 without one); prints the
-card's name and power limit, then one JSON line.
+reports whether K7's planes, K1's planes and gates, K2's, K3's, K5's and
+K6's partial tables, K4's planes and gates, K4-stats' counts and the
+reduction's tables equal their plain versions', bit for bit, on these
+inputs; a digest (sha256, first 16 hex digits) of K7's and K1's outputs,
+so that two checkouts can be compared bit for bit; and the registers and
+spill stores of the checkout's K7 and soft kernels
+(`chip_smoke._ptxas_report` on its `_build/lib*.log`). Needs one CUDA card
+(exit 2 without one); prints the card's name and power limit, then one
+JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -63,6 +74,41 @@ def _case(SK, SH, cfg, scene, cam, dev):
     fwd = (sph, pl, camv, lists, shl)
     return (spec, sizes, fwd, fwd + (offsets, sh_offsets, gates, out, g),
             fwd + (offsets, sh_offsets, tgt), pidx, pshidx)
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _k7_cases(HK, P, dev):
+    """{label: (K7's launch arguments, config)} on the packed tables and
+    16x16 lists of chip_smoke.py phase 2 (and the engine's 3840x1000)."""
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.scene import default_scene, random_scene
+
+    base = RenderConfig(width=400, height=150)
+    shapes = {
+        "400x150": (default_scene(base, device=dev), base),
+        "1080p/20 shadows": (random_scene(20, seed=0, device=dev),
+                             RenderConfig(width=1920, height=1080, shadows=True)),
+        "4K/200 shadows": (random_scene(200, max_spheres=256, device=dev),
+                           RenderConfig(width=3840, height=2160, shadows=True)),
+        "3840x1000/100": (random_scene(100, seed=0, device=dev),
+                          RenderConfig(width=3840, height=1000)),
+        "3840x1000/100 shadows": (random_scene(100, seed=0, device=dev),
+                                  RenderConfig(width=3840, height=1000, shadows=True)),
+    }
+    cases = {}
+    for label, (scene, cfg) in shapes.items():
+        sph, pl, counts = P.pack_scene(scene)
+        camv = P.pack_camera(default_camera(), dev)
+        lists = HK.tile_lists(sph, camv, cfg, 16, 16)
+        cases[label] = ((sph, pl, counts.reshape(1, 2), camv, lists), cfg)
+    return cases
 
 
 def _unshadowed(SK, IR, cam, dev, fit_start):
@@ -97,8 +143,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]  # run by path
     sys.path.insert(0, CHECKOUT)
-    from chip_smoke import (_card_line, _fit_start, _graph_ms, _kernel_device_ms, _ptxas_report,
-                            _reduce_library, _reduce_library_ms)  # import nothing of the port
+    from chip_smoke import (_card_line, _cull_stats, _fit_start, _graph_ms, _kernel_device_ms,
+                            _ptxas_report, _reduce_library,
+                            _reduce_library_ms)  # import nothing of the port
     import torch
 
     if not torch.cuda.is_available():
@@ -109,6 +156,7 @@ def main(argv=None) -> int:
     from rtwc_tpu_torch.camera import default_camera
     from rtwc_tpu_torch.config import RenderConfig
     from rtwc_tpu_torch.examples import inverse_render as IR
+    from rtwc_tpu_torch.render import hard_kernel as HK
     from rtwc_tpu_torch.render import pack as P
     from rtwc_tpu_torch.render import shadow_kernel as SH
     from rtwc_tpu_torch.render import soft_kernel as SK
@@ -134,7 +182,19 @@ def main(argv=None) -> int:
 
     spec, sizes, fwd, bwd, mse, _, _ = cases["headline"][0]
     fwd20 = bwd20[:4]
-    bit_equal = {}
+    bit_equal, digest, cull = {}, {}, {}
+    k7 = _k7_cases(HK, P, dev)
+    for label, (a, cfg) in k7.items():
+        got = HK.hard_render_packed(*a, config=cfg, bh=16, bw=16)
+        bit_equal[f"K7 {label}"] = torch.equal(got, HK.hard_render_plain(*a, config=cfg, bh=16,
+                                                                          bw=16))
+        digest[f"K7 {label}"] = _digest(got)
+        if cfg.shadows and hasattr(HK, "shadow_occluders"):
+            cull[label] = _cull_stats(HK, a, cfg)
+    k1_out = SK.soft_fwd(*fwd20, spec=spec20)
+    digest["K1 1080p"] = _digest(*k1_out)
+    bit_equal["K1"] = all(torch.equal(x, y) for x, y in
+                          zip(k1_out, SK.soft_fwd_plain(*fwd20, spec=spec20)))
     for what, kern, plain, a, kw in (
             ("K2", SK.soft_bwd, SK.soft_bwd_plain, bwd20, dict(spec=spec20, n_entries=n20)),
             ("K3", SK.soft_mse, SK.soft_mse_plain, mse20, dict(spec=spec20, n_entries=n20)),
@@ -144,11 +204,15 @@ def main(argv=None) -> int:
             ("K6", SH.soft_sh_mse, SH.soft_sh_mse_plain, mse, dict(spec=spec, **sizes))):
         got, want = kern(*a, **kw), plain(*a, **kw)
         bit_equal[what] = all(torch.equal(x, y) for x, y in zip(got, want))
-    calls = {"K1 1080p": ("soft_fwd_kernel", 20, lambda: SK.soft_fwd(*fwd20, spec=spec20)),
-             "K2 1080p": ("soft_bwd_kernel", 20,
-                          lambda: SK.soft_bwd(*bwd20, spec=spec20, n_entries=n20)),
-             "K3 1080p": ("soft_mse_kernel", 20,
-                          lambda: SK.soft_mse(*mse20, spec=spec20, n_entries=n20))}
+    calls = {f"K7 {label}": ("hard_render_kernel", 5 if label.startswith("4K") else 20,
+                             (lambda a=a, cfg=cfg: HK.hard_render_packed(*a, config=cfg, bh=16,
+                                                                         bw=16)))
+             for label, (a, cfg) in k7.items()}
+    calls["K1 1080p"] = ("soft_fwd_kernel", 20, lambda: SK.soft_fwd(*fwd20, spec=spec20))
+    calls["K2 1080p"] = ("soft_bwd_kernel", 20,
+                         lambda: SK.soft_bwd(*bwd20, spec=spec20, n_entries=n20))
+    calls["K3 1080p"] = ("soft_mse_kernel", 20,
+                         lambda: SK.soft_mse(*mse20, spec=spec20, n_entries=n20))
     for label, ((spec_c, sizes_c, fwd_c, bwd_c, mse_c, _, _), reps) in cases.items():
         def bind(fn, a, **kw):
             return lambda: fn(*a, **kw)
@@ -192,14 +256,14 @@ def main(argv=None) -> int:
                             "per_kernel_ms": {k: _kernel_device_ms(port, name=k, per_call=True)
                                               for k in REDUCE_KERNELS}}
     regs = {}
-    for lib in ("soft_render", "soft_shadow"):
+    for lib in ("hard_render", "soft_render", "soft_shadow"):
         for kernel, n_regs, spill in _ptxas_report(os.path.join(root, "rtwc_tpu_torch", "_build",
                                                                 f"lib{lib}.log")):
             if "reduce" not in kernel:
                 regs[kernel] = f"{n_regs} registers; {spill}"
     print(json.dumps({"root": root, "card": card, "bit_equal_to_plain": bit_equal,
-                      "device_ms": times, "graph_ms": graph, "reduction": reduction,
-                      "ptxas": regs}))
+                      "digest": digest, "device_ms": times, "graph_ms": graph,
+                      "k7_shadow_cull": cull, "reduction": reduction, "ptxas": regs}))
     return 0
 
 
