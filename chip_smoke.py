@@ -97,6 +97,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   6d `python -m rtwc_tpu_torch.bench` in a subprocess: exit 0, one JSON line
      of finite numbers, the no-credit and culled-floor speed-of-light
      percentages at most 105, every kernel of its path launched
+  7  the row-band sharded paths (rtwc_tpu_torch.dist): K7 at 1920x1080 with
+     20 spheres and shadows as 2 and 4 bands (every band bit-equal to its
+     plain version, the stitched bands torch.equal to the whole frame,
+     render_frame_sharded over 4 bands equal to the frame, 4 launches);
+     K1-K6 and the reduction on rows 540-1079 of the bench headline, as
+     phases 2b / 2c; one sharded step of each train path on 2 bands,
+     launches counted; the fused shadowed animated step at the scaling
+     entry point's defaults (1920x1080, random_scene(100)) on 2 bands
+     against 1: loss 1e-6 relative, every gradient rtol 2e-2 / atol 1e-6;
+     `python -m rtwc_tpu_torch.benchmarks.scaling --ranks 2` (1 process,
+     then 2 gloo ranks sharing the card): losses and parameters bit-equal
+     across ranks, K6 and the reduction once a step in each, the first
+     loss 1e-6 of the one rank's; ms a step and rays/s with the card line
+     (the whole output in chip_smoke_out/scaling.log)
 Then a JSON line describing the kernels (each with its bound: the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's lists and gate tables, K4's, K5's and K6's also at 4K/200;
@@ -107,7 +121,7 @@ SMs x 128 x the maximum clock; `launches` counts one main-path step at the
 row's shape, each count set to 0 just before it: a generic or fused train
 step, one engine frame at 1920x1080 for K7, one soft_tile_diagnostics call
 for K4-stats; `launches_elsewhere` the other counted runs with their
-shapes; the soft kernels add `floor_ms`, the calibrated floor of phase 6c
+shapes; `launches_sharded` those of phase 7's sharded paths; the soft kernels add `floor_ms`, the calibrated floor of phase 6c
 from this run's calibration, and `graph_device_ms`; the reduction's `library_ms` is its whole
 function in float64 PyTorch calls, index_add_ and sums, held to the
 kernel's sums, `library_device_ms` the same calls' device time, from CUDA
@@ -157,7 +171,13 @@ OPS = dict(raygen=20, lb_sphere=40, lb_plane=43, geo_sphere=40, geo_plane=47, sh
            acc7=31, acc10=40, final=20, light_ray=20, pre_a=23, pre_b=12, pre_plane=35,
            trans=23, corr=62, blend=18, cot=28, vjp_sphere=345, vjp_plane=360,
            sh_vjp_sphere=260, sh_vjp_plane=300, block_sum=5, tf_slot=40, loss=12,
-           hard_sphere=30, hard_plane=25, hard_shade=70, hard_shadow=30)
+           hard_sphere=32, hard_plane=25, hard_shade=70, hard_shadow=30)
+
+
+# kernels-line keys -> soft_core.LAUNCHES keys of the kernels a sharded
+# train step runs once a band (phase 7)
+SHARDED_KEYS = {"K1": "soft_fwd", "K2": "soft_bwd", "K3": "soft_mse", "reduce": "soft_grad_reduce",
+                "K4": "soft_sh_fwd", "K5": "soft_sh_bwd", "K6": "soft_sh_mse"}
 
 
 def _card_line() -> str:
@@ -293,15 +313,18 @@ def _close_tables(a, b, what):
     return worst
 
 
-def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
+def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True, band=None):
     """Phase 2b for one case: K1, K2, K3 and the reduction against their
     plain versions on the same inputs, K3 against K1 + K2, determinism.
     cull=False runs every kernel without its culling (all live spheres
-    listed, no gates). Returns K1's (planes, gates)."""
+    listed, no gates); band = (row0, band_h) renders that band of rows
+    (phase 7). Returns K1's (planes, gates)."""
     import torch
 
-    spec = SK.SoftSpec(cfg, tau, cull=cull, bwd_cull=cull)
+    spec = SK.SoftSpec(cfg, tau, cull=cull, bwd_cull=cull, band_h=band and band[1])
     sph, pl, camv = SK._packed(scene.to(dev), cam)
+    if band:
+        camv = SK._at_row(camv, band[0])
     lists = SK.build_lists(sph, camv, spec, cull)
     offsets, pidx = SK.list_entries(lists)
     n, ns = pidx.shape[0], sph.shape[1]
@@ -323,8 +346,8 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
         k1 = max(k1, d)
         if not torch.allclose(out_k[sl], out_p[sl], atol=atol, rtol=rtol):
             raise AssertionError(f"{label}: K1 {name} outside atol {atol} rtol {rtol}: max {d!r}")
-    if not torch.equal(gates_k, gates_p):
-        raise AssertionError(f"{label}: K1 gates differ from the plain version's")
+    if not (torch.equal(gates_k, gates_p) and torch.equal(out_k, out_p)):
+        raise AssertionError(f"{label}: K1's planes or gates differ from the plain version's")
 
     gen = torch.Generator().manual_seed(1234)
     g = torch.randn(out_p.shape, generator=gen).to(dev)
@@ -335,7 +358,7 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True):
     k2 = _close_tables(_tables(r2k), _tables(r2p), f"{label}: K2 + reduction")
 
     Hp, Wp = spec.extent
-    H, W = cfg.height, cfg.width
+    H, W = spec.rows, cfg.width
     tgt = (torch.rand((3, Hp, Wp), generator=gen) * 255.0).to(dev)
     p3k = SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
     p3p = SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
@@ -832,14 +855,17 @@ def _rot_grad_arbiter(scene, camera, cfg):
     return g64, family
 
 
-def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
+def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True, band=None):
     """Phase 2c for one case: K4, K4-stats, K5, K6 and the reduction against
     their plain versions on the same inputs, K6 against K4 + K5, two
-    launches bit-equal. Returns (K4's planes, gates, K4-stats' counts)."""
+    launches bit-equal; band = (row0, band_h) renders that band of rows
+    (phase 7). Returns (K4's planes, gates, K4-stats' counts)."""
     import torch
 
-    spec = SK.SoftSpec(cfg, tau, cull=cull, bwd_cull=cull)
+    spec = SK.SoftSpec(cfg, tau, cull=cull, bwd_cull=cull, band_h=band and band[1])
     sph, pl, camv = SK._packed(scene.to(dev), cam)
+    if band:
+        camv = SK._at_row(camv, band[0])
     lists, shl = SH.build_lists(sph, pl, camv, spec, cull)
     offsets, pidx = SK.list_entries(lists)
     sh_offsets, pshidx = SK.list_entries(shl)
@@ -882,7 +908,7 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True):
     k5 = _close_tables(_tables(r5k), _tables(r5p), f"{label}: K5 + reduction")
 
     Hp, Wp = spec.extent
-    H, W = cfg.height, cfg.width
+    H, W = spec.rows, cfg.width
     tgt = (torch.rand((3, Hp, Wp), generator=gen) * 255.0).to(dev)
     mse_args = (sph, pl, camv, lists, shl, offsets, sh_offsets, tgt)
     p6k = SH.soft_sh_mse(*mse_args, spec=spec, **sizes)
@@ -1179,6 +1205,174 @@ def _phase_6d(tag):
     if not all(launches.get(k, 0) >= 1 for k in used):
         raise AssertionError(f"bench launches {launches}: a kernel of its path never ran")
     return res
+
+
+def _phase_7(dev, tag, errs):
+    """Phase 7: the row-band sharded paths (rtwc_tpu_torch.dist) on the card.
+    7a K7 at 1920x1080 with 20 spheres and shadows as 2 and 4 bands, each
+    band bit-equal to its plain version, the stitched bands torch.equal to
+    the whole frame, and render_frame_sharded over 4 bands equal to
+    render_frame_kernel; 7b K1-K3 and K4-K6 with the reduction on one band
+    of the bench headline (rows 540-1079) against their plain versions, as
+    phases 2b / 2c; 7c one sharded step of each train path on a 2-band mesh
+    in this process, launches counted; the fused shadowed step at the
+    scaling entry point's defaults on 2 bands against 1 (loss, every
+    gradient); `python -m rtwc_tpu_torch.benchmarks.scaling --ranks 2`
+    (1 rank, then 2 gloo ranks sharing the card): bit-equal losses and
+    parameters across ranks, K6 and the reduction once a step in each
+    rank, the first loss equal to the one rank's. Returns the launches of
+    one sharded step by kernel key, and K7's over 4 bands."""
+    import torch
+
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.dist import make_mesh, make_sharded_train_step, render_frame_sharded
+    from rtwc_tpu_torch.dist.mesh import _leaves
+    from rtwc_tpu_torch.render import hard_kernel as HK
+    from rtwc_tpu_torch.render import pack as P
+    from rtwc_tpu_torch.render import shadow_kernel as SH
+    from rtwc_tpu_torch.render import soft_kernel as SK
+    from rtwc_tpu_torch.scene import random_scene
+
+    # 7a: K7 a band
+    cfg = RenderConfig(width=1920, height=1080, shadows=True)
+    scene, cam = random_scene(20, seed=0, device=dev), default_camera()
+    sph, pl, counts = P.pack_scene(scene)
+    camv = P.pack_camera(cam, dev)
+    whole = HK.hard_render_packed(sph, pl, counts.reshape(1, 2), camv,
+                                  HK.tile_lists(sph, camv, cfg, 16, 16), config=cfg, bh=16,
+                                  bw=16)[:, :cfg.height, :cfg.width]
+    for n in (2, 4):
+        rows = cfg.height // n
+        bands = []
+        for b in range(n):
+            cam_b = SK._at_row(camv, b * rows)
+            args = (sph, pl, counts.reshape(1, 2), cam_b,
+                    HK.tile_lists(sph, cam_b, cfg, 16, 16, rows=rows))
+            ker = HK.hard_render_packed(*args, config=cfg, bh=16, bw=16, band_h=rows)
+            if not torch.equal(ker, HK.hard_render_plain(*args, config=cfg, bh=16, bw=16,
+                                                         band_h=rows)):
+                raise AssertionError(f"phase 7: K7 band {b} of {n} differs from its plain version")
+            bands.append(ker[:, :rows, :cfg.width])
+        if not torch.equal(torch.cat(bands, 1), whole):
+            raise AssertionError(f"phase 7: K7's {n} stitched bands differ from the whole frame")
+    single = HK.render_frame_kernel(scene, cam, cfg)
+    HK.LAUNCHES = 0
+    fb = render_frame_sharded(scene, cam, cfg, make_mesh(4), backend="pallas")
+    torch.cuda.synchronize()
+    k7_bands = HK.LAUNCHES
+    for f in ("rgb", "normal", "depth", "shading", "hit", "coverage", "alpha"):
+        if not torch.equal(getattr(fb, f), getattr(single, f)):
+            raise AssertionError(f"phase 7: render_frame_sharded's {f} differs from the frame's")
+    if k7_bands != 4:
+        raise AssertionError(f"phase 7: K7 launched {k7_bands} times for 4 bands")
+    print(f"phase 7: K7 1920x1080 random_scene(20) shadows as 2 and 4 bands (540 / 270 rows, "
+          f"partial last tiles): every band bit-equal to its plain version, the stitched bands "
+          f"torch.equal to the whole frame; render_frame_sharded over 4 bands equal to "
+          f"render_frame_kernel, K7 launched {k7_bands} times")
+
+    # 7b: K1-K6 and the reduction on one band of the bench headline
+    cfg_hl = RenderConfig(width=1920, height=1080, max_spheres=20, max_planes=4, shadows=True,
+                          **SOFT_KW)
+    scene_hl = random_scene(20, max_spheres=20, max_planes=4, seed=0)
+    for key in SK.LAUNCHES:
+        SK.LAUNCHES[key] = 0
+    _soft_case(SK, "band 540-1079 of the headline, unshadowed", scene_hl, cam,
+               cfg_hl.replace(shadows=False), 0.5, dev, errs, band=(540, 540))
+    _shadow_case(SK, SH, "band 540-1079 of the headline", scene_hl, cam, cfg_hl, 0.5, dev,
+                 errs, band=(540, 540))
+    torch.cuda.synchronize()
+    print(f"phase 7: band kernel launches in 7b's checks: "
+          f"{ {k: v for k, v in SK.LAUNCHES.items() if v} }")
+
+    # 7c: one sharded step of each train path on a 2-band mesh, counted
+    scene_hld, tgt = scene_hl.to(dev), torch.zeros((1080, 1920, 3), device=dev)
+    paths = {("shadows", "fused"): {"soft_sh_mse": 2, "soft_grad_reduce": 2},
+             ("shadows", "generic"): {"soft_sh_fwd": 2, "soft_sh_bwd": 2, "soft_grad_reduce": 2},
+             ("unshadowed", "fused"): {"soft_mse": 2, "soft_grad_reduce": 2},
+             ("unshadowed", "generic"): {"soft_fwd": 2, "soft_bwd": 2, "soft_grad_reduce": 2}}
+    launches = {}
+    for (sh, kind), want in paths.items():
+        step = make_sharded_train_step(cfg_hl.replace(shadows=sh == "shadows"), make_mesh(2),
+                                       tau=0.5, backend="pallas",
+                                       loss_scale=1.0 / 255.0 if kind == "fused" else 1.0 / 256.0)
+        params = (scene_hld, cam)
+        state = step.init(params)
+        for key in SK.LAUNCHES:
+            SK.LAUNCHES[key] = 0
+        _, _, loss = step(params, state, tgt)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in SK.LAUNCHES.items() if v}
+        if got != want or not torch.isfinite(loss):
+            raise AssertionError(f"phase 7: {sh} {kind} sharded step launched {got}, loss {loss}")
+        for k, v in got.items():
+            launches.setdefault(k, {})[f"{sh} {kind}"] = v
+        print(f"phase 7: one {sh} {kind} sharded step, 1920x1080 random_scene(20), 2 bands in "
+              f"this process: launches {got}, loss {float(loss)!r}")
+
+    # the fused shadowed step at the scaling entry point's defaults: 2 bands against 1
+    cfg_s = RenderConfig(width=1920, height=1080, max_spheres=100, max_planes=4, shadows=True,
+                         **SOFT_KW)
+    scene_s = random_scene(100, max_spheres=100, max_planes=4, seed=0, device=dev)
+    lr = 2.0 ** 16
+
+    def sgd_grads(n):
+        step = make_sharded_train_step(
+            cfg_s, make_mesh(n), tau=0.5, backend="pallas", animate=True,
+            optimizer=lambda leaves: torch.optim.SGD(list(leaves.values()), lr=lr))
+        params = (scene_s, cam)
+        new, _, loss = step(params, step.init(params), tgt, 1.0 / 60.0)
+        old_l, new_l = _leaves(params), _leaves(new)
+        return float(loss), {k: ((old_l[k].to(dev) - new_l[k].to(dev)) / lr).double()
+                             for k in old_l}
+
+    (l1, g1), (l2, g2) = sgd_grads(1), sgd_grads(2)
+    if abs(l2 - l1) > 1e-6 * abs(l1):
+        raise AssertionError(f"phase 7: 2-band loss {l2!r} vs 1-band {l1!r}")
+    worst = {}
+    for k in g1:
+        d = (g2[k] - g1[k]).abs()
+        if bool((d > 1e-6 + 2e-2 * torch.maximum(g2[k].abs(), g1[k].abs())).any()):
+            raise AssertionError(f"phase 7: 2-band gradient {k} differs from the 1-band one")
+        worst[k] = float(d.max() / g1[k].abs().max()) if bool(g1[k].abs().max() > 0) else 0.0
+    print(f"phase 7: fused shadowed animated step at the scaling defaults (1920x1080, "
+          f"random_scene(100), tau 0.5), 2 bands vs 1: loss {l2!r} vs {l1!r}; every gradient "
+          f"within rtol 2e-2 / atol 1e-6; largest difference over the leaf's largest value "
+          f"{json.dumps({k: v for k, v in worst.items() if v})}; camera gradient 2 bands "
+          f"{g2['camera.rot'].tolist()} vs 1 band {g1['camera.rot'].tolist()}")
+
+    # the scaling entry point: one rank, then two gloo ranks sharing the card
+    iters = 5
+    cmd = [sys.executable, "-m", "rtwc_tpu_torch.benchmarks.scaling", "--ranks", "2", "--iters",
+           str(iters)]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "scaling.log"), "w") as f:
+        f.write(proc.stderr + "\n" + proc.stdout)
+    if proc.returncode != 0:
+        raise AssertionError(f"scaling exited {proc.returncode}: {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    rows = {r["mesh"]: r for r in rec["results"]}
+    per_rank = {"soft_sh_mse": 1.0, "soft_grad_reduce": 1.0}
+    for n, row in rows.items():
+        if not (row["losses_bit_equal"] and row["params_bit_equal"]):
+            raise AssertionError(f"phase 7: {n} ranks disagree: {row}")
+        if any(lc != per_rank for lc in row["launches_per_step"]):
+            raise AssertionError(f"phase 7: {n} ranks launched {row['launches_per_step']} a step")
+    if sorted(rows) != [1, 2] or abs(rows[2]["losses"][0] - rows[1]["losses"][0]) > \
+            1e-6 * abs(rows[1]["losses"][0]):
+        raise AssertionError(f"phase 7: first losses {rows}")
+    for n, row in sorted(rows.items()):
+        print(f"phase 7: {' '.join(cmd[1:])}: mesh {n} ({n} process{'es' if n > 1 else ''}"
+              f"{', gloo, sharing cuda:0, simulated' if row.get('simulated') else ''}): "
+              f"{row['ms_per_step']!r} ms a step, {row['rays_per_s']!r} rays/s, losses "
+              f"{row['losses'][0]!r} -> {row['losses'][-1]!r}, bit-equal across ranks, "
+              f"parameters bit-equal after {2 + iters} steps, launches a step "
+              f"{row['launches_per_step']} {tag}")
+    print(f"phase 7: scaling entry point exit 0 in {secs:.1f} s")
+    return launches, k7_bands
 
 
 def main() -> int:
@@ -2168,6 +2362,8 @@ def main() -> int:
     lap("6c")
     bench_res = _phase_6d(tag)
     lap("6d")
+    sharded, k7_bands = _phase_7(dev, tag, errs)
+    lap("7")
 
     # -- launches per main-path step at each row's shape: every count set to
     # 0, one step (one engine frame for K7), the counts read
@@ -2347,6 +2543,15 @@ def main() -> int:
                  "floor_ms": floors.get(floor_key), "device_ms": d_ms,
                  "graph_device_ms": graph_timing.get(key), "shape": shape,
                  "launches_elsewhere": [{"run": r, "launches": c} for r, c in elsewhere]}
+        if key == "K7":
+            entry["launches_sharded"] = {
+                "run": "render_frame_sharded over 4 bands, 1920x1080 random_scene(20), shadows "
+                       "(phase 7)", "launches": k7_bands}
+        elif key in SHARDED_KEYS:
+            entry["launches_sharded"] = {
+                "run": "one sharded train step of each path on 2 bands in one process, "
+                       "1920x1080 random_scene(20), tau 0.5 (phase 7)",
+                "launches": sharded[SHARDED_KEYS[key]]}
         if key in work_4k:
             entry["bound_ms_4k200"], entry["bound_by_4k200"] = _bound(*work_4k[key])
             entry["device_ms_4k200"] = dev_4k[key]

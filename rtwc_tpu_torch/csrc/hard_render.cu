@@ -49,7 +49,8 @@
 // bound by the host loop and the torch ops around the kernel.
 //
 // Float semantics follow the JAX kernel and the plain torch version in
-// render/hard_kernel.py op for op: IEEE division and sqrtf, a correctly
+// render/hard_kernel.py op for op, but for the camera ray's sphere test
+// (camera_sphere_t, the soft kernels' discriminant): IEEE division and sqrtf, a correctly
 // rounded 1.0f / sqrtf where JAX has lax.rsqrt (the hardware rsqrtf is off
 // by up to 2 ulp, and the plain version's 1 / torch.sqrt is exact), specular
 // power by repeated squaring. The file is compiled with -fmad=false so that
@@ -128,6 +129,25 @@ __device__ __forceinline__ float pow_int(float x, int n) {
 
 __device__ __forceinline__ float rsqrt_(float x) { return 1.0f / sqrtf(x); }
 
+// A camera ray against a sphere: the discriminant as 4 (r^2 - q . q), q = oc
+// - (d . oc) d (soft_common.cuh sphere_solve). b^2 - 4c cancels at t ~ 90
+// and puts the normal off by up to 7e-4, 1e-2 of rgb after shading.
+__device__ __forceinline__ bool camera_sphere_t(float scx, float scy, float scz, float r,
+                                                float ox, float oy, float oz, float dx,
+                                                float dy, float dz, float* t_out) {
+  const float ocx = ox - scx, ocy = oy - scy, ocz = oz - scz;
+  const float h = dx * ocx + dy * ocy + dz * ocz;
+  const float qx = ocx - h * dx, qy = ocy - h * dy, qz = ocz - h * dz;
+  const float disc = 4.0f * (r * r - (qx * qx + qy * qy + qz * qz));
+  const float b = 2.0f * h;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t1 = 0.5f * (-b + sq);
+  const float t2 = 0.5f * (-b - sq);
+  *t_out = fminf(t1, t2);
+  return (disc >= 0.0f) && (t1 >= 0.0f) && (t2 >= 0.0f);
+}
+
+// A shadow ray against a sphere: b^2 - 4c, as JAX's kernel (a decision only).
 __device__ __forceinline__ bool sphere_t(float scx, float scy, float scz, float r, float ox,
                                          float oy, float oz, float dx, float dy, float dz,
                                          float* t_out) {
@@ -223,7 +243,8 @@ hard_render_kernel(HardParams p, const float* __restrict__ cam, const float* __r
       const float scx = s_sph[S_CX * STAGE + kk], scy = s_sph[S_CY * STAGE + kk];
       const float scz = s_sph[S_CZ * STAGE + kk];
       float t;
-      if (sphere_t(scx, scy, scz, s_sph[S_R * STAGE + kk], ox, oy, oz, dx, dy, dz, &t) &&
+      if (camera_sphere_t(scx, scy, scz, s_sph[S_R * STAGE + kk], ox, oy, oz, dx, dy, dz,
+                          &t) &&
           t < t_best) {
         t_best = t;
         const float px = ox + dx * t - scx;

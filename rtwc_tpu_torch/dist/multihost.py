@@ -1,0 +1,61 @@
+"""Multi-process runtime bootstrap.
+
+Counterpart: rtwc_tpu/dist/multihost.py. Every process calls
+initialize_multihost() first; make_mesh() then spans every process of the
+default group, and the train step's one all-reduce crosses the process
+boundary. The rendezvous is a TCP store at the coordinator's address,
+given explicitly or by torchrun's MASTER_ADDR / MASTER_PORT / WORLD_SIZE /
+RANK.
+"""
+from __future__ import annotations
+
+import logging
+import os
+
+import torch
+import torch.distributed as dist
+
+log = logging.getLogger("rtwc_tpu_torch")
+
+
+def initialize_multihost(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+    backend: str | None = None,
+) -> bool:
+    """Initialise torch.distributed's default group when this process is
+    one of several. Returns False, doing nothing, when no coordinator is
+    given and torchrun's variables are not set, so a single process never
+    pays for it; True once the group is up (or already was).
+
+    coordinator_address: "host:port" of rank 0's store (else MASTER_ADDR /
+    MASTER_PORT); num_processes and process_id else WORLD_SIZE and RANK.
+    backend: "gloo" (None) or "nccl". NCCL takes one card a rank: it is
+    refused, with a ValueError, when this host's ranks (LOCAL_WORLD_SIZE,
+    else all of them) outnumber its cards; ranks sharing a card use gloo,
+    whose collectives take CUDA tensors through the host.
+    """
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    if coordinator_address is None and "MASTER_ADDR" not in env:
+        return False
+    world = int(num_processes if num_processes is not None else env.get("WORLD_SIZE", "1"))
+    rank = int(process_id if process_id is not None else env.get("RANK", "0"))
+    backend = backend or "gloo"
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown torch.distributed backend {backend!r}")
+    if backend == "nccl":
+        local = int(env.get("LOCAL_WORLD_SIZE", world))
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if local > cards:
+            raise ValueError(f"nccl needs a card a rank: {local} ranks on this host, {cards} "
+                             f"cards (ranks that share a card take backend='gloo')")
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank % cards)))
+    # env:// joins the store torchrun's agent may already host at MASTER_PORT
+    init = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    log.info("multihost: rank %d/%d, backend %s", dist.get_rank(), dist.get_world_size(),
+             dist.get_backend())
+    return True

@@ -34,7 +34,7 @@ from rtwc_tpu_torch.render import _cuda
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render.broad_phase import round_up, sphere_tile_lists, tile_grid
 from rtwc_tpu_torch.render.reference import MISS_DISTANCE, Framebuffer, _FLT_EPSILON
-from rtwc_tpu_torch.render.soft_objects import rsqrt
+from rtwc_tpu_torch.render.soft_objects import rsqrt, sphere_solve
 
 O_R, O_G, O_B, O_DEPTH, O_NX, O_NY, O_NZ, O_SHADING = range(8)
 N_OUT = 8
@@ -178,11 +178,29 @@ def _pow_int(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _sphere_t(scx, scy, scz, r, o, d):
-    """(t, valid) of the ray o + t d against a sphere (hard_render.cu sphere_t)."""
+    """(t, valid) of the shadow ray o + t d against a sphere (hard_render.cu
+    sphere_t): b^2 - 4c, as JAX's kernel; only the hit / miss decision is
+    used."""
     ocx, ocy, ocz = o[0] - scx, o[1] - scy, o[2] - scz
     b = 2.0 * (d[0] * ocx + d[1] * ocy + d[2] * ocz)
     cc = ocx * ocx + ocy * ocy + ocz * ocz - r * r
     disc = b * b - 4.0 * cc
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t1 = 0.5 * (-b + sq)
+    t2 = 0.5 * (-b - sq)
+    valid = (disc >= 0.0) & (t1 >= 0.0) & (t2 >= 0.0)
+    return torch.minimum(t1, t2), valid
+
+
+def _camera_sphere_t(scx, scy, scz, r, o, d):
+    """(t, valid) of the camera ray o + t d against a sphere
+    (hard_render.cu camera_sphere_t): the discriminant as 4 (r^2 - q . q),
+    q = oc - (d . oc) d (soft_objects.sphere_solve). JAX's b^2 - 4c cancels
+    at t ~ 90, putting t off by up to 6e-6 relative, and the normal, p - c,
+    by that over r: up to 7e-4, which Blinn-Phong turns into 1e-2 of rgb
+    (ROADMAP queue 3, K7 away from the default light)."""
+    h, _, _, _, disc = sphere_solve(d[0], d[1], d[2], o[0] - scx, o[1] - scy, o[2] - scz, r)
+    b = 2.0 * h
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
     t1 = 0.5 * (-b + sq)
     t2 = 0.5 * (-b - sq)
@@ -246,7 +264,7 @@ def _trace(sph, pl, counts, cam, lists, config, bh, bw, band_h):
     for kk in range(int(tab[:, 0].max().item()) if tab.shape[0] else 0):
         k = tab[:, 1 + kk].long()[tile]
         scx, scy, scz, r = (sph[row][k] for row in (P.S_CX, P.S_CY, P.S_CZ, P.S_R))
-        t, valid = _sphere_t(scx, scy, scz, r, o3, d3)
+        t, valid = _camera_sphere_t(scx, scy, scz, r, o3, d3)
         win = valid & (t < t_best) & (kk < cnt)
         t_best = torch.where(win, t, t_best)
         px = ox + dx * t - scx

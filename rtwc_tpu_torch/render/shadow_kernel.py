@@ -345,7 +345,7 @@ def soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spe
                         device=dev)
     (m, _, inv_s, depth, n, rgb, dv, vis), _ = _sh_forward(c, spec, sph, pl, cam, lists, shl,
                                                            ray, tile, gates)
-    H, W = spec.config.height, spec.config.width
+    H, W = spec.rows, spec.config.width
     rows = torch.arange(Hp, device=dev)[:, None]
     cols = torch.arange(Wp, device=dev)[None, :]
     mask = ((rows < H) & (cols < W)).float()

@@ -36,7 +36,10 @@ LAUNCHES = {"soft_fwd": 0, "soft_bwd": 0, "soft_mse": 0, "soft_grad_reduce": 0,
 @dataclasses.dataclass(frozen=True)
 class SoftSpec:
     """What one soft launch is built for (the static arguments of JAX's
-    `_build_soft_packed`)."""
+    `_build_soft_packed`). band_h renders that many image rows, starting at
+    the row in cam[0, C_ROW0] (the tile sharding's band, dist/mesh.py); the
+    ray generation keeps config.height, and the fused MSE is a mean over the
+    band's rows."""
 
     config: RenderConfig
     tau: float
@@ -44,14 +47,20 @@ class SoftSpec:
     bw: int = 16
     cull: bool = True
     bwd_cull: bool = True
+    band_h: int | None = None
+
+    @property
+    def rows(self) -> int:
+        """Image rows of one launch: the band's, or the whole image's."""
+        return self.config.height if self.band_h is None else self.band_h
 
     @property
     def extent(self):
-        return (round_up(self.config.height, self.bh), round_up(self.config.width, self.bw))
+        return (round_up(self.rows, self.bh), round_up(self.config.width, self.bw))
 
     @property
     def grid(self):
-        return tile_grid(self.config.height, self.config.width, self.bh, self.bw)
+        return tile_grid(self.rows, self.config.width, self.bh, self.bw)
 
     @property
     def consts(self) -> O.SoftConsts:
@@ -145,15 +154,16 @@ def _params(spec: SoftSpec, sph, pl, lists) -> SoftParams:
     c = spec.consts
     Hp, Wp = spec.extent
     H, W = spec.config.height, spec.config.width
+    rows = spec.rows
     return SoftParams(
         width=W, height=H, hp=Hp, wp=Wp, bh=spec.bh, bw=spec.bw,
         ns=sph.shape[1], np=pl.shape[1], list_stride=lists.shape[2], cull=0,
-        hardness=c.hard, device=_device_index(sph), loss_h=H, loss_w=W,
+        hardness=c.hard, device=_device_index(sph), loss_h=rows, loss_w=W,
         e1=c.e1, e2=c.e2, far=c.far, k=c.k, mp=c.mp, inv_tau=c.inv_tau,
         bg_logit=c.bg_logit, light=(ctypes.c_float * 3)(*c.light),
         ldc=(ctypes.c_float * 3)(*c.ldc), lsc=(ctypes.c_float * 3)(*c.lsc),
         osc=(ctypes.c_float * 3)(*c.osc), dpow=c.dpow, spow=c.spow, amb=c.amb,
-        loss_scale=O.f32(2.0 / (255.0 * 255.0 * 3.0 * H * W)), ks=c.ks, sh_floor=c.sh_floor)
+        loss_scale=O.f32(2.0 / (255.0 * 255.0 * 3.0 * rows * W)), ks=c.ks, sh_floor=c.sh_floor)
 
 
 def _launch(name: str, key: str, tensors, prm, dev_t: torch.Tensor):
@@ -224,11 +234,14 @@ def _packed(scene, camera):
     return sph, pl, cam
 
 
-def _spec(config: RenderConfig, tau, bh, bw, cull, bwd_cull, name) -> SoftSpec:
+def _spec(config: RenderConfig, tau, bh, bw, cull, bwd_cull, name, band_h=None) -> SoftSpec:
     tau = config.soft_tau if tau is None else tau
     if tau <= 0.0:
         raise ValueError(f"{name} needs tau > 0")
-    return SoftSpec(config=config, tau=float(tau), bh=bh, bw=bw, cull=cull, bwd_cull=bwd_cull)
+    if band_h is not None and not 0 < band_h <= config.height:
+        raise ValueError(f"{name}: band_h {band_h} must lie in [1, {config.height}]")
+    return SoftSpec(config=config, tau=float(tau), bh=bh, bw=bw, cull=cull, bwd_cull=bwd_cull,
+                    band_h=band_h)
 
 
 # -- the plain versions' building blocks ------------------------------------------

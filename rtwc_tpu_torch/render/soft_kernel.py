@@ -38,8 +38,10 @@ or raise. `LAUNCHES` (render/soft_core.py) counts kernel launches by name,
 never plain runs, the shadowed kernels' too.
 
 The autograd Functions `SoftRender` / `SoftMSE` and the entry points
-`render_frame_soft_kernel` / `render_soft_mse_loss` are here, and only here
-does `config.shadows` choose: K1 + K2 or K3 without shadows, the shadowed
+`render_frame_soft_kernel` / `render_soft_mse_loss`, and for the row-band
+sharding of dist/mesh.py `soft_band_packed` / `soft_band_mse_loss`
+(pallas_soft.py:2661-2695), are here, and only here does `config.shadows`
+choose: K1 + K2 or K3 without shadows, the shadowed
 kernels of render/shadow_kernel.py (K4 + K5 or K6) with them, and the
 reduction after either.
 """
@@ -245,7 +247,7 @@ def soft_mse_plain(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entri
     m, s, acc = _forward_sweep(c, spec, sph, pl, cam, lists, ray, tile, (zero, zero, zero), gates)
     inv_s = 1.0 / s
     out = [a * inv_s for a in acc]
-    H, W = spec.config.height, spec.config.width
+    H, W = spec.rows, spec.config.width
     rows = torch.arange(Hp, device=cam.device)[:, None]
     cols = torch.arange(Wp, device=cam.device)[None, :]
     mask = ((rows < H) & (cols < W)).float()
@@ -437,7 +439,7 @@ class SoftRender(torch.autograd.Function):
 def _mse_via_forward(sph, pl, cam, tgt, spec: SoftSpec):
     """The un-differentiated loss: the forward kernel (K1, or K4 with
     shadows) and the mean in torch."""
-    H, W = spec.config.height, spec.config.width
+    H, W = spec.rows, spec.config.width
     out = _forward_planes(sph, pl, cam, spec)[0]
     d = (out[SO_R:SO_B + 1, :H, :W] - tgt[:, :H, :W]) / torch.tensor(
         255.0, dtype=torch.float32, device=out.device)
@@ -458,7 +460,7 @@ class SoftMSE(torch.autograd.Function):
         ctx.spec = spec
         if not any(ctx.needs_input_grad[:4]):
             return _mse_via_forward(sph, pl, cam, tgt, spec)
-        H, W = spec.config.height, spec.config.width
+        H, W = spec.rows, spec.config.width
         inv_n = 1.0 / (3.0 * H * W)
         lists, shl = _lists(sph, pl, cam, spec, spec.cull)
         offsets, pidx = list_entries(lists)
@@ -481,7 +483,7 @@ class SoftMSE(torch.autograd.Function):
         spec = ctx.spec
         dtgt = None
         if ctx.needs_input_grad[3]:
-            H, W = spec.config.height, spec.config.width
+            H, W = spec.rows, spec.config.width
             inv_n = 1.0 / (3.0 * H * W)
             sav = _forward_planes(sph, pl, cam, spec)[0]
             dtgt = torch.zeros_like(tgt)
@@ -521,11 +523,47 @@ def render_soft_mse_loss(scene, camera, target, config: RenderConfig, tau: float
     in JAX."""
     spec = _spec(config, tau, bh, bw, cull and bwd_cull, cull and bwd_cull,
                  "render_soft_mse_loss")
+    return _mse_loss(*_packed(scene, camera), target, spec)
+
+
+def _mse_loss(sph, pl, cam, target, spec: SoftSpec) -> torch.Tensor:
+    """SoftMSE of the launch's rows against target [rows, W, 3], padded to
+    the tiles; without autograd, K1 (K4) and the loss in torch."""
     Hp, Wp = spec.extent
     tgt = target.to(torch.float32).permute(2, 0, 1)
-    tgt = torch.nn.functional.pad(tgt, (0, Wp - config.width, 0, Hp - config.height))
-    sph, pl, cam = _packed(scene, camera)
+    tgt = torch.nn.functional.pad(tgt, (0, Wp - spec.config.width, 0, Hp - spec.rows))
     tgt = tgt.contiguous()
     if not torch.is_grad_enabled():  # SoftMSE would still see needs_input_grad
         return _mse_via_forward(sph, pl, cam, tgt, spec)
     return SoftMSE.apply(sph, pl, cam, tgt, spec)
+
+
+def _at_row(cam: torch.Tensor, row0: int) -> torch.Tensor:
+    """cam with the band's first image row in C_ROW0 (differentiable in the
+    other slots)."""
+    cam = cam.clone()
+    cam[0, P.C_ROW0] = float(row0)
+    return cam
+
+
+def soft_band_packed(sph, pl, cam, row0: int, *, config: RenderConfig, tau: float,
+                     band_h: int, bh: int = 16, bw: int = 16) -> torch.Tensor:
+    """Render `band_h` image rows starting at image row `row0` from packed
+    tables (cam carries the live counts in C_NSPH / C_NPL) on K1 / K2, or
+    K4 / K5 with config.shadows: the [10, band_h, W] plane stack (SO_*; 14
+    planes with shadows, as in JAX), differentiable in sph, pl and cam
+    (pallas_soft.py:2661-2674). The band's padded rows take no cotangent.
+    Used by the tile-sharded train step (dist/mesh.py)."""
+    spec = _spec(config, tau, bh, bw, True, True, "soft_band_packed", band_h=band_h)
+    return SoftRender.apply(sph, pl, _at_row(cam, row0), spec)[:, :band_h, :config.width]
+
+
+def soft_band_mse_loss(sph, pl, cam, row0: int, tgt_band, *, config: RenderConfig,
+                       tau: float, band_h: int, bh: int = 16, bw: int = 16) -> torch.Tensor:
+    """mean(((rgb - tgt_band) / 255)^2) over a band of `band_h` image rows
+    starting at image row `row0`, from packed tables (soft_band_packed's
+    contract), with the cotangents derived inside K3, or K6 with
+    config.shadows (pallas_soft.py:2677-2695). tgt_band is [band_h, W, 3].
+    The per-band means of equal bands average to the image's mean."""
+    spec = _spec(config, tau, bh, bw, True, True, "soft_band_mse_loss", band_h=band_h)
+    return _mse_loss(sph, pl, _at_row(cam, row0), tgt_band, spec)

@@ -1,0 +1,63 @@
+"""One rank of tests/test_torch_dist.py's gloo meshes (not a test module).
+
+    python tests/_torch_dist_worker.py <coordinator> <world> <rank> <out.npz> <backend> <shadows>
+
+Joins the group through rtwc_tpu_torch.dist.initialize_multihost, takes
+one SGD step of the sharded train step (one band a rank) on the CPU with
+every torch.distributed.all_reduce call counted, and saves the loss, the
+gradients the step applied ((old - new) / lr), the parameters after it and
+the all-reduce count and sizes, and the whole frame that
+render_frame_sharded gathers from the ranks' bands (K7's plain version)
+to out.npz. Imports nothing of JAX.
+"""
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+LR = 2.0 ** 16
+
+
+def main() -> int:
+    coordinator, world, rank, out, backend, shadows = sys.argv[1:7]
+    torch.set_num_threads(1)
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.dist import (initialize_multihost, make_mesh,
+                                     make_sharded_train_step, render_frame_sharded)
+    from rtwc_tpu_torch.dist.mesh import _leaves
+    from rtwc_tpu_torch.render import render_frame_soft
+    from rtwc_tpu_torch.scene import default_scene
+
+    if not initialize_multihost(coordinator, int(world), int(rank), "gloo"):
+        raise RuntimeError("initialize_multihost declined")
+    cfg = RenderConfig(width=64, height=32, max_spheres=16, max_planes=4,
+                       soft_miss_penalty=300.0, soft_mask_k=10.0, shadows=shadows == "1")
+    scene, cam = default_scene(cfg), default_camera()
+    target = render_frame_soft(scene, cam, cfg, tau=0.5).rgb.detach() + 10.0
+    sizes = []
+    all_reduce = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        sizes.append(tensor.numel())
+        return all_reduce(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    step = make_sharded_train_step(
+        cfg, make_mesh(), tau=0.5, backend=backend,
+        optimizer=lambda leaves: torch.optim.SGD(list(leaves.values()), lr=LR))
+    params = (scene, cam)
+    new, _, loss = step(params, step.init(params), target)
+    old_l, new_l = _leaves(params), _leaves(new)
+    fb = render_frame_sharded(scene, cam, cfg, make_mesh(), backend="pallas")
+    np.savez(out, loss=loss.numpy(), n_all_reduce=len(sizes), sizes=np.asarray(sizes),
+             **{f"fb.{f}": getattr(fb, f).numpy() for f in ("rgb", "depth", "normal", "hit")},
+             **{f"grad.{k}": ((old_l[k] - new_l[k]) / LR).numpy() for k in old_l},
+             **{f"param.{k}": v.numpy() for k, v in new_l.items()})
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,9 @@ launch counter, the wrapper's input checks and an import without nvcc.
 Framebuffer tolerance and flip accounting: see tests/test_torch_render.py
 (hit or shadow flips on < 0.5 % of pixels; elsewhere allclose(atol=2e-3,
 rtol=1e-4) on pixels both call a hit). The CUDA kernel itself runs only
-on a card: chip_smoke.py holds it against this plain version there."""
+on a card: chip_smoke.py holds it against this plain version there.
+Away from the default light the comparison with JAX follows a float64
+rule instead (test_kernel_path_off_the_default_light_against_float64)."""
 import os
 import subprocess
 import sys
@@ -25,7 +27,9 @@ from rtwc_tpu.render.pallas_kernel import hard_band_packed as j_band
 from rtwc_tpu.render.pallas_kernel import render_frame_pallas
 from rtwc_tpu_torch.render import _cuda, hard_kernel
 from rtwc_tpu_torch.render import pack as TP
-from test_torch_render import CASES, CFG, compare_fb, shadow_flips
+from rtwc_tpu_torch.camera import projection_elements
+from rtwc_tpu_torch.render import reference as TR
+from test_torch_render import CASES, CFG, FLIP_FRAC_MAX, POSED, compare_fb, shadow_flips
 
 torch.set_num_threads(2)
 
@@ -55,6 +59,84 @@ def test_kernel_path_matches_jax_reference(name):
     ref = JR.render_frame(jscene, jcam, cfg)
     compare_fb(ref, hard_kernel.render_frame_kernel(tscene, tcam, cfg),
                shadow_flips(jscene, jcam, cfg, ref))
+
+
+def _random3(cfg):
+    return JS.random_scene(10, 1, max_spheres=16, max_planes=4, seed=3)
+
+
+def _random16(cfg):
+    return JS.random_scene(16, max_spheres=16, max_planes=4, seed=7)
+
+
+OFF_LIGHT = {
+    "light_among_spheres": (_random3, JC.default_camera, CFG.replace(light_pos=(2.0, 6.0, 25.0))),
+    "light_to_the_side": (_random3, JC.default_camera, CFG.replace(light_pos=(-20.0, 12.0, 10.0))),
+    "posed_random": (_random3, lambda: POSED, CFG),
+    "random16_seed7": (_random16, JC.default_camera, CFG),
+    "random16_seed7_side_shadows": (_random16, JC.default_camera,
+                                    CFG.replace(light_pos=(-20.0, 12.0, 10.0), shadows=True)),
+}
+OFF_LIGHT_SLACK = 2e-3
+
+
+def _float64_rgb(tscene, cam, cfg):
+    """(rgb [H, W, 3], t [H, W]) of the port's reference renderer in float64
+    on K7's rays: vx, vy rounded to float32 as the kernel computes them,
+    the packed float32 basis, then float64."""
+    W, H = cfg.width, cfg.height
+    e1, e2 = projection_elements(cfg)
+    col = torch.arange(W, dtype=torch.float32)
+    row = torch.arange(H, dtype=torch.float32)
+    vx = ((2.0 * col - W) / torch.tensor(float(W))) * e1
+    vy = ((H - 2.0 * row) / torch.tensor(float(H))) * e2
+    c = cam[0].double()
+    d = (vx.double()[None, :, None] * c[[TP.C_RX, TP.C_UX, TP.C_FX]]
+         + vy.double()[:, None, None] * c[[TP.C_RY, TP.C_UY, TP.C_FY]]
+         + c[[TP.C_RZ, TP.C_UZ, TP.C_FZ]])
+    d = d / torch.sqrt((d * d).sum(-1, keepdim=True))
+    scene64 = tscene.to(torch.float64)
+    t, normal, color, _ = TR.trace_hard(scene64, c[:3], d)
+    return TR.shade(scene64, c[:3], d, t, normal, color, cfg).numpy(), t.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(OFF_LIGHT))
+def test_kernel_path_off_the_default_light_against_float64(name):
+    """Away from the default light (OFF_LIGHT: a light among the spheres
+    or to their side, a posed camera over a random scene, random_scene(16,
+    seed=7), once with the side light and shadows) JAX's own float32 rgb
+    moves by up to 5e-2 from float64 where the light grazes a sphere: its
+    camera ray's b^2 - 4c cancels at t ~ 90, and the normal p - c carries
+    the error over r into Blinn-Phong. The port solves the camera ray as
+    4 (r^2 - q . q) (hard_kernel._camera_sphere_t) and stays within 2e-3
+    of float64, so the values where the two differ by more than
+    compare_fb's tolerance are JAX's error. The rule is the float64 one
+    (ROADMAP queue 3, "FMA contraction"): flips under 0.5 %; on the other
+    hit pixels no port rgb value farther from float64 than JAX's farthest
+    value in the image plus OFF_LIGHT_SLACK; and at every value where port
+    and JAX differ by more than compare_fb's tolerance, the port the closer
+    to float64. The arbiter is the port's reference renderer
+    (render/reference.py) in float64 on the kernel's own rays: their NDC
+    coordinates in float32, as every float32 render takes them, the camera
+    basis as packed, and from there float64 (`_float64_rgb`)."""
+    make_scene, make_cam, cfg = OFF_LIGHT[name]
+    jscene, jcam = make_scene(cfg), make_cam()
+    tscene, tcam = TS.scene_from_numpy(jscene), TC.camera_from_numpy(jcam)
+    jfb = render_frame_pallas(jscene, jcam, cfg)
+    fb = hard_kernel.render_frame_kernel(tscene, tcam, cfg)
+    ref = JR.render_frame(jscene, jcam, cfg)
+    flips = (np.asarray(jfb.hit) != fb.hit.numpy()) | shadow_flips(jscene, jcam, cfg, ref)
+    assert flips.mean() < FLIP_FRAC_MAX, f"{flips.mean():.2%} of pixels flip"
+    rgb64, t64 = _float64_rgb(tscene, TP.pack_camera(tcam), cfg)
+    keep = np.asarray(jfb.hit) & fb.hit.numpy() & (t64 <= cfg.far) & ~flips
+    j = np.asarray(jfb.rgb, np.float64)[keep]
+    p = fb.rgb.numpy().astype(np.float64)[keep]
+    e = rgb64[keep]
+    jax_far = np.abs(j - e).max()
+    assert np.abs(p - e).max() <= jax_far + OFF_LIGHT_SLACK, (np.abs(p - e).max(), jax_far)
+    off = np.abs(p - j) > 2e-3 + 1e-4 * np.abs(j)
+    closer = np.abs(p - e) <= np.abs(j - e)
+    assert closer[off].all(), f"{(off & ~closer).sum()} of {off.sum()} values"
 
 
 @pytest.mark.parametrize("tile", [(16, 16), (8, 32)], ids=["16x16", "8x32"])

@@ -111,11 +111,25 @@ def test_shadow_lists_superset_of_jax_at_zero_pitch(name, tiles):
 @pytest.mark.parametrize("name", list(SCENES))
 @pytest.mark.parametrize("view", list(CAMERAS))
 def test_excluded_occluders_do_not_block(name, view):
+    _check_excluded(name, view)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_excluded_occluders_do_not_block_in_a_band(name):
+    """The same for a band of the tile sharding (dist/mesh.py) that starts
+    and ends inside a 16-row tile: the hull's depth bounds follow the
+    band's own tiles."""
+    _check_excluded(name, "posed", band=(8, 20))
+
+
+def _check_excluded(name, view, band=None):
     cfg = CFG.replace(far=100.0) if name == "far occluder" else CFG
     ts = TS.scene_from_numpy(SCENES[name]())
     tc = TC.camera_from_numpy(CAMERAS[view])
-    spec = SK.SoftSpec(cfg, TAU)
+    spec = SK.SoftSpec(cfg, TAU, band_h=band and band[1])
     sph, pl, cam = SK._packed(ts, tc)
+    if band:
+        cam = SK._at_row(cam, band[0])
     lists, shl = SH.build_lists(sph, pl, cam, spec, True)
     out, _ = SH.soft_sh_fwd(sph, pl, cam, lists, shl, spec=spec)
     c = spec.consts
