@@ -5,8 +5,9 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   0  card name and power limit (nvidia-smi), torch and CUDA versions
-  1  build csrc/hard_render.cu, csrc/soft_render.cu, csrc/soft_shadow.cu and
-     csrc/calibrate.cu with nvcc for sm_90a, one nvcc each, all at once;
+  1  build csrc/hard_render.cu, csrc/soft_render.cu, csrc/soft_shadow.cu,
+     csrc/calibrate.cu and csrc/broad_phase.cu with nvcc for sm_90a, one
+     nvcc each, all at once;
      print build times and each kernel's ptxas registers and spills
   2  the K7 kernel against its plain torch version on the card, on the
      same packed tables and broad-phase lists: planes bit-equal
@@ -49,8 +50,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      renders there, within 1.5e-2 at 400x150 with a posed camera
   3  the display path, counted: the engine with a FramebufferSink on the
      card, 400x150 in all five modes, a forced spawn with a capacity
-     doubling, 1920x500 with 100 spheres and 2x supersampling; K7's launch
-     count must equal the frames rendered
+     doubling, 1920x500 with 100 spheres and 2x supersampling; each frame
+     replays the display's CUDA graph, and K7's launch count must equal
+     two for each capture (its eager first frame and the capture)
   3b the train paths, counted: an in-process fit whose K1 / K2 launches
      must equal its steps; `python -m rtwc_tpu_torch.examples.inverse_render`
      in process at 1920x1080 with 20 spheres (generic path: K1, K2, the
@@ -111,6 +113,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      across ranks, K6 and the reduction once a step in each, the first
      loss 1e-6 of the one rank's; ms a step and rays/s with the card line
      (the whole output in chip_smoke_out/scaling.log)
+  8  the single-dispatch steps: the list kernel (csrc/broad_phase.cu)
+     torch.equal to broad_phase.py (view lists, shadow lists, aux planes)
+     and the entry tables' kernel to their plain version, at the headline,
+     4K/200, the display's 3840x1000/100 lists, a pitched posed camera, the
+     bands of rows 540-1079 and 270-539, phase 2's six cull scenes (hard and
+     soft), the 40-sphere slab crowd, an empty scene and disable=True; an
+     eager step of each train path and an eager display frame under
+     torch.cuda.set_sync_debug_mode("error"); 10 graph-replayed steps of
+     the shadowed fused headline and of the unshadowed generic step from
+     _fit_start torch.equal to eager ones (losses and every parameter), 50
+     engine frames at 1920x500 x2 with shadows, a capacity doubling and a
+     spawn among them, the graph's cells torch.equal to the eager engine's;
+     launches a replay; eager and graph ms a step at the headline, 4K/200
+     and an empty scene, in turns, and lists_pack_ms
 Then a JSON line describing the kernels (each with its bound: the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's lists and gate tables, K4's, K5's and K6's also at 4K/200;
@@ -326,14 +342,15 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True, band=None)
     if band:
         camv = SK._at_row(camv, band[0])
     lists = SK.build_lists(sph, camv, spec, cull)
-    offsets, pidx = SK.list_entries(lists)
-    n, ns = pidx.shape[0], sph.shape[1]
+    ent = SK.entry_tables(lists)
+    offsets, pidx, counts = ent.offsets, ent.pidx, ent.counts
+    n, ns = int(counts[0]), sph.shape[1]
 
     def red(parts):
-        return SK.soft_grad_reduce(parts[0], pidx, parts[1], parts[2], ns)
+        return SK.soft_grad_reduce(parts[0], pidx, parts[1], parts[2], ns, counts=counts)
 
     def red_plain(parts):
-        return SK.soft_grad_reduce_plain(parts[0][:n], pidx, parts[1], parts[2], ns)
+        return SK.soft_grad_reduce_plain(parts[0], pidx, parts[1], parts[2], ns, counts=counts)
 
     out_k, gates_k = SK.soft_fwd(sph, pl, camv, lists, spec=spec)
     out_p, gates_p = SK.soft_fwd_plain(sph, pl, camv, lists, spec=spec)
@@ -352,16 +369,16 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True, band=None)
     gen = torch.Generator().manual_seed(1234)
     g = torch.randn(out_p.shape, generator=gen).to(dev)
     bwd_args = (sph, pl, camv, lists, offsets, gates_p, out_p, g)
-    p2k = SK.soft_bwd(*bwd_args, spec=spec, n_entries=n)
-    p2p = SK.soft_bwd_plain(*bwd_args, spec=spec, n_entries=n)
+    p2k = SK.soft_bwd(*bwd_args, spec=spec)
+    p2p = SK.soft_bwd_plain(*bwd_args, spec=spec)
     r2k, r2p = red(p2k), red_plain(p2p)
     k2 = _close_tables(_tables(r2k), _tables(r2p), f"{label}: K2 + reduction")
 
     Hp, Wp = spec.extent
     H, W = spec.rows, cfg.width
     tgt = (torch.rand((3, Hp, Wp), generator=gen) * 255.0).to(dev)
-    p3k = SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
-    p3p = SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)
+    p3k = SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec)
+    p3p = SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec)
     r3k, r3p = red(p3k), red_plain(p3p)
     k3 = _close_tables(_tables(r3k), _tables(r3p), f"{label}: K3 + reduction")
     # K2's and K3's slab sums keep block_sum_plain's order: their partial
@@ -384,15 +401,14 @@ def _soft_case(SK, label, scene, cam, cfg, tau, dev, errs, cull=True, band=None)
     scale = 2.0 / (255.0 * 255.0 * 3.0 * H * W)
     g_mse[:3, :H, :W] = torch.tensor(scale, dtype=torch.float32, device=dev) * (
         out_k[:3, :H, :W] - tgt[:, :H, :W])
-    r12 = red(SK.soft_bwd(sph, pl, camv, lists, offsets, gates_k, out_k, g_mse, spec=spec,
-                          n_entries=n))
+    r12 = red(SK.soft_bwd(sph, pl, camv, lists, offsets, gates_k, out_k, g_mse, spec=spec))
     k3_vs = _close_tables(_tables(r3k), _tables(r12), f"{label}: K3 vs K1 + K2")
 
     # two launches on the same inputs give bit-equal tables
     again = (SK.soft_fwd(sph, pl, camv, lists, spec=spec),
-             red(SK.soft_bwd(*bwd_args, spec=spec, n_entries=n)),
-             red(SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n)),
-             SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n))
+             red(SK.soft_bwd(*bwd_args, spec=spec)),
+             red(SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec)),
+             SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec))
     same = (torch.equal(again[0][0], out_k) and torch.equal(again[0][1], gates_k)
             and all(torch.equal(a, b) for a, b in zip(again[1], r2k))
             and all(torch.equal(a, b) for a, b in zip(again[2], r3k))
@@ -440,23 +456,21 @@ def _plain_autograd(SK):
         @staticmethod
         def backward(ctx, g):
             sph, pl, cam, out, gates, lists = ctx.saved_tensors
-            offsets, pidx = SK.list_entries(lists)
-            n = pidx.shape[0]
-            parts = SK.soft_bwd_plain(sph, pl, cam, lists, offsets, gates, out, g.contiguous(),
-                                      spec=ctx.spec, n_entries=n)
-            dsph, dpl, dtf = SK.soft_grad_reduce_plain(parts[0][:n], pidx, parts[1], parts[2],
-                                                       sph.shape[1])
+            ent = SK.entry_tables(lists)
+            parts = SK.soft_bwd_plain(sph, pl, cam, lists, ent.offsets, gates, out, g.contiguous(),
+                                      spec=ctx.spec)
+            dsph, dpl, dtf = SK.soft_grad_reduce_plain(parts[0], ent.pidx, parts[1], parts[2],
+                                                       sph.shape[1], counts=ent.counts)
             return dsph, dpl, SK._dcam(dtf), None
 
     class PlainMSE(torch.autograd.Function):
         @staticmethod
         def forward(ctx, sph, pl, cam, tgt, spec):
             lists = SK.build_lists(sph, cam, spec, spec.cull)
-            offsets, pidx = SK.list_entries(lists)
-            n = pidx.shape[0]
-            parts = SK.soft_mse_plain(sph, pl, cam, lists, offsets, tgt, spec=spec, n_entries=n)
-            dsph, dpl, dtf = SK.soft_grad_reduce_plain(parts[0][:n], pidx, parts[1], parts[2],
-                                                       sph.shape[1])
+            ent = SK.entry_tables(lists)
+            parts = SK.soft_mse_plain(sph, pl, cam, lists, ent.offsets, tgt, spec=spec)
+            dsph, dpl, dtf = SK.soft_grad_reduce_plain(parts[0], ent.pidx, parts[1], parts[2],
+                                                       sph.shape[1], counts=ent.counts)
             H, W = spec.config.height, spec.config.width
             ctx.save_for_backward(dsph, dpl, SK._dcam(dtf))
             return (dtf[12, 0] + dtf[12, 1]) * (1.0 / 255.0 ** 2) / (3.0 * H * W)
@@ -484,9 +498,10 @@ def _step_ms(step, reps: int) -> float:
     return (time.perf_counter() - t) / reps * 1e3
 
 
-def _profile_steps(step, out_name: str, label: str, tag: str, reps: int = 20):
-    """Device busy share of `reps` calls of step() under the profiler, with
-    the per-kernel device time written to chip_smoke_out/<out_name>.txt."""
+def _profile_steps(step, out_name: str, label: str, tag: str, reps: int = 20, phase: str = "5"):
+    """Device busy share and kernel records of `reps` calls of step() under
+    the profiler, with the per-kernel device time written to
+    chip_smoke_out/<out_name>.txt."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -509,10 +524,11 @@ def _profile_steps(step, out_name: str, label: str, tag: str, reps: int = 20):
     with open(os.path.join(OUT_DIR, f"{out_name}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="cpu_time_total", row_limit=60))
         f.write("\n".join(f"{us / reps:10.1f} us/step  {nm}" for nm, us in top))
-    print(f"phase 5: profile {label}, {reps} steps: device busy {busy_us / wall_us!r} of "
-          f"{wall_us / reps / 1e3!r} ms per step (profiler on) {tag}")
-    print("phase 5: top device time: " + "; ".join(
-        f"{nm[:40]} {us / reps:.1f} us/step" for nm, us in top[:6]))
+    print(f"phase {phase}: profile {label}, {reps} steps: device busy {busy_us / wall_us!r} of "
+          f"{wall_us / reps / 1e3!r} ms per step (profiler on), {busy_us / reps / 1e3!r} ms of "
+          f"device time in {len(kern) / reps!r} kernel records a step {tag}")
+    print(f"phase {phase}: top device time: " + "; ".join(
+        f"{nm[:40]} {us / reps:.1f} us/step" for nm, us in top[:8]))
 
 
 def _nbytes(*tensors) -> int:
@@ -867,18 +883,17 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True, band
     if band:
         camv = SK._at_row(camv, band[0])
     lists, shl = SH.build_lists(sph, pl, camv, spec, cull)
-    offsets, pidx = SK.list_entries(lists)
-    sh_offsets, pshidx = SK.list_entries(shl)
-    n, nsh, ns = pidx.shape[0], pshidx.shape[0], sph.shape[1]
-    sizes = dict(n_entries=n, n_sh_entries=nsh)
+    ent = SK.entry_tables(lists, shl)
+    offsets, pidx, sh_offsets, pshidx, counts = ent
+    n, nsh, ns = int(counts[0]), int(counts[1]), sph.shape[1]
 
     def red(parts):
         return SK.soft_grad_reduce(parts[0], pidx, parts[2], parts[3], ns, psh=parts[1],
-                                   pshidx=pshidx)
+                                   pshidx=pshidx, counts=counts)
 
     def red_plain(parts):
-        return SK.soft_grad_reduce_plain(parts[0][:n], pidx, parts[2], parts[3], ns,
-                                         parts[1][:nsh], pshidx)
+        return SK.soft_grad_reduce_plain(parts[0], pidx, parts[2], parts[3], ns, parts[1],
+                                         pshidx, counts)
 
     out_k, gates_k = SH.soft_sh_fwd(sph, pl, camv, lists, shl, spec=spec)
     out_p, gates_p = SH.soft_sh_fwd_plain(sph, pl, camv, lists, shl, spec=spec)
@@ -902,8 +917,8 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True, band
     gen = torch.Generator().manual_seed(1234)
     g = torch.randn(out_p.shape, generator=gen).to(dev)
     bwd_args = (sph, pl, camv, lists, shl, offsets, sh_offsets, gates_p, out_p, g)
-    p5k = SH.soft_sh_bwd(*bwd_args, spec=spec, **sizes)
-    p5p = SH.soft_sh_bwd_plain(*bwd_args, spec=spec, **sizes)
+    p5k = SH.soft_sh_bwd(*bwd_args, spec=spec)
+    p5p = SH.soft_sh_bwd_plain(*bwd_args, spec=spec)
     r5k, r5p = red(p5k), red_plain(p5p)
     k5 = _close_tables(_tables(r5k), _tables(r5p), f"{label}: K5 + reduction")
 
@@ -911,8 +926,8 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True, band
     H, W = spec.rows, cfg.width
     tgt = (torch.rand((3, Hp, Wp), generator=gen) * 255.0).to(dev)
     mse_args = (sph, pl, camv, lists, shl, offsets, sh_offsets, tgt)
-    p6k = SH.soft_sh_mse(*mse_args, spec=spec, **sizes)
-    p6p = SH.soft_sh_mse_plain(*mse_args, spec=spec, **sizes)
+    p6k = SH.soft_sh_mse(*mse_args, spec=spec)
+    p6p = SH.soft_sh_mse_plain(*mse_args, spec=spec)
     r6k, r6p = red(p6k), red_plain(p6p)
     k6 = _close_tables(_tables(r6k), _tables(r6p), f"{label}: K6 + reduction")
     # K5's and K6's slab sums keep block_sum_plain's order: every partial
@@ -934,12 +949,12 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True, band
     g_mse[:3, :H, :W] = torch.tensor(scale, dtype=torch.float32, device=dev) * (
         out_k[:3, :H, :W] - tgt[:, :H, :W])
     r45 = red(SH.soft_sh_bwd(sph, pl, camv, lists, shl, offsets, sh_offsets, gates_k, out_k,
-                             g_mse, spec=spec, **sizes))
+                             g_mse, spec=spec))
     k6_vs = _close_tables(_tables(r6k), _tables(r45), f"{label}: K6 vs K4 + K5")
 
     again = (SH.soft_sh_fwd(sph, pl, camv, lists, shl, spec=spec),
-             red(SH.soft_sh_bwd(*bwd_args, spec=spec, **sizes)),
-             red(SH.soft_sh_mse(*mse_args, spec=spec, **sizes)),
+             red(SH.soft_sh_bwd(*bwd_args, spec=spec)),
+             red(SH.soft_sh_mse(*mse_args, spec=spec)),
              SH.soft_sh_stats(sph, pl, camv, lists, shl, spec=spec)[2])
     same = (torch.equal(again[0][0], out_k) and torch.equal(again[0][1], gates_k)
             and all(torch.equal(a, b) for a, b in zip(again[1], r5k))
@@ -964,7 +979,8 @@ def _shadow_case(SK, SH, label, scene, cam, cfg, tau, dev, errs, cull=True, band
 
 def _reduce_library(pvals, pidx, ppl, ptf, ns, psh=None, pshidx=None):
     """soft_grad_reduce's function in PyTorch library calls, in float64:
-    (dsph [NS, 8], dpl [NP, 12], camera sums hi + lo [NTF])."""
+    (dsph [NS, 8], dpl [NP, 12], camera sums hi + lo [NTF]). pidx and
+    pshidx hold the real entries alone (`_real_entries`)."""
     import torch
 
     dsph = torch.zeros((ns, 8), dtype=torch.float64, device=pvals.device)
@@ -972,6 +988,18 @@ def _reduce_library(pvals, pidx, ppl, ptf, ns, psh=None, pshidx=None):
     if psh is not None:
         dsph[:, :4].index_add_(0, pshidx.long(), psh[:pshidx.shape[0]].double())
     return dsph, ppl.double().sum(0), ptf.double().sum((0, 2))
+
+
+def _real_entries(parts, ent, ns):
+    """soft_grad_reduce's arguments cut to the real entries, for the
+    library calls: (pvals, pidx, ppl, ptf, ns[, psh, pshidx]) from a
+    kernel's partials (pvals, ppl, ptf) or (pvals, psh, ppl, ptf)."""
+    n = int(ent.counts[0])
+    if ent.pshidx is None:
+        return (parts[0][:n], ent.pidx[:n], parts[1], parts[2], ns)
+    nsh = int(ent.counts[1])
+    return (parts[0][:n], ent.pidx[:n], parts[2], parts[3], ns, parts[1][:nsh],
+            ent.pshidx[:nsh])
 
 
 def _reduce_library_ms(P, args, kernel_out):
@@ -1375,6 +1403,333 @@ def _phase_7(dev, tag, errs):
     return launches, k7_bands
 
 
+# The list kernel's float32 operations (csrc/broad_phase.cu), counted as OPS
+# counts them: a view test of a live sphere against a tile's cone (the
+# vector to it, its distance and direction, the angle, the two radii's
+# asin, the tests and the key), the per-sphere part of an occluder test and
+# its test against one of the NB balls.
+LIST_OPS = dict(view=45, occluder=10, ball=19)
+
+
+def _list_args(SK, BP, scene, cam, cfg, dev, band=None):
+    """(sph, pl, cam vector, grid) of a case, band = (row0, rows)."""
+    sph, pl, camv = SK._packed(scene.to(dev), cam)
+    rows = cfg.height
+    if band:
+        camv, rows = SK._at_row(camv, band[0]), band[1]
+    return sph.detach(), pl.detach(), camv.detach(), BP.tile_grid(rows, cfg.width, 16, 16)
+
+
+def _list_case(LK, BP, SK, label, scene, cam, cfg, tau, dev, shadows=True, hard=False,
+               disable=False, band=None):
+    """The list kernel against broad_phase.py on the card, on the same packed
+    tables: the view lists, the shadow lists and the aux planes torch.equal
+    (every row in full: count, listed prefix and excluded tail), and the entry
+    tables' kernel torch.equal to their plain version on the kernel's lists.
+    Returns (view entries, shadow entries)."""
+    import torch
+
+    sph, pl, camv, grid = _list_args(SK, BP, scene, cam, cfg, dev, band)
+    got = LK.tile_lists_with_aux(sph, pl, camv, cfg, tau, 16, 16, grid, shadows, hard=hard,
+                                 disable=disable)
+    want = LK.tile_lists_plain(sph, pl, camv, cfg, tau, 16, 16, grid, shadows, hard=hard,
+                               disable=disable)
+    for what, a, b in (("view lists", got[0], want[0]), ("shadow lists", got[1], want[1])):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            bad = [] if a is None or b is None else (a != b).any(2).any(1).nonzero()[:3, 0].tolist()
+            raise AssertionError(f"{label}: the list kernel's {what} differ from broad_phase.py's"
+                                 f" (tiles {bad}: kernel {[a[t, 0].tolist() for t in bad]}, "
+                                 f"plain {[b[t, 0].tolist() for t in bad]})")
+    if (got[2] is None) != (want[2] is None) or (
+            got[2] is not None and not all(torch.equal(x, y) for x, y in zip(got[2], want[2]))):
+        raise AssertionError(f"{label}: the list kernel's aux planes differ from broad_phase.py's")
+    ent_k, ent_p = LK.entry_tables(got[0], got[1]), LK.entry_tables_plain(got[0], got[1])
+    for a, b, f in zip(ent_k, ent_p, ent_k._fields):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{label}: the entry tables' {f} differ from the plain version's")
+    n, nsh = (int(x) for x in ent_k.counts)
+    T, ns = got[0].shape[0], sph.shape[1]
+    print(f"phase 8: {label} ({'hard' if hard else f'tau {tau}'}"
+          f"{', shadows' if shadows else ''}{', disable' if disable else ''}"
+          f"{f', rows {band[0]}-{band[0] + band[1] - 1}' if band else ''}): {T} tiles, "
+          f"{int((sph[7] > 0.5).sum())} live of {ns} spheres; list kernel torch.equal to "
+          f"broad_phase.py (view lists{', shadow lists' if shadows else ''}"
+          f"{', aux' if not disable else ''}), entry tables torch.equal to their plain version; "
+          f"{n} entries, {nsh} shadow entries")
+    return n, nsh
+
+
+def _list_work(sph, pl, lists, shl, aux, ent):
+    """(bytes, float32 operations) of one tile_lists launch and of one
+    entry_tables launch on these inputs: tile_lists reads the tables and
+    writes the rows and the aux planes, tests every live sphere against
+    every tile's cone and, with shadow lists, against the NB balls;
+    entry_tables reads each row's count and listed entries and writes the
+    offsets and the [T NS] tables in full (their -1 tail included) and the
+    counts."""
+    T = lists.shape[0]
+    live = int((sph[7] > 0.5).sum())
+    lists_b = _nbytes(sph, pl, lists, shl, *(aux or ()))
+    ops = T * live * (LIST_OPS["view"] + (0 if shl is None else
+                                          LIST_OPS["occluder"] + 8 * LIST_OPS["ball"]))
+    listed = int(ent.counts.long().sum())
+    n_lists = 1 if shl is None else 2
+    ent_b = 4 * (n_lists * T + listed) + 4 * n_lists * T + _nbytes(ent.pidx, ent.pshidx,
+                                                                    ent.counts)
+    return (lists_b, float(ops)), (ent_b, 0.0)
+
+
+def _phase_8(dev, tag):
+    """The single-dispatch steps: the list kernel against broad_phase.py,
+    eager steps under set_sync_debug_mode("error"), CUDA graphs of the train
+    step and the display frame against the eager ones, launches a replay,
+    eager and graph ms a step. Returns what the kernels line needs."""
+    import numpy as np
+    import torch
+
+    from rtwc_tpu_torch import bench as B
+    from rtwc_tpu_torch.camera import Camera, default_camera
+    from rtwc_tpu_torch.config import EngineConfig, RenderConfig, RenderMode
+    from rtwc_tpu_torch.engine import Engine
+    from rtwc_tpu_torch.examples import inverse_render as IR
+    from rtwc_tpu_torch.io import FramebufferSink
+    from rtwc_tpu_torch.render import broad_phase as BP
+    from rtwc_tpu_torch.render import list_kernel as LK
+    from rtwc_tpu_torch.render import shadow_kernel as SH
+    from rtwc_tpu_torch.render import soft_kernel as SK
+    from rtwc_tpu_torch.render.step_graph import CapturedStep, launch_counts, launch_delta
+    from rtwc_tpu_torch.scene import empty_scene, random_scene
+
+    cam = default_camera()
+    cam_d = cam.to(dev)
+    cfg_hl = RenderConfig(width=1920, height=1080, max_spheres=20, max_planes=4, shadows=True,
+                          **SOFT_KW)
+    scene_hl = random_scene(20, max_spheres=20, max_planes=4, seed=0, device=dev)
+    cfg_4k = cfg_hl.replace(width=3840, height=2160, max_spheres=200)
+    scene_4k = random_scene(200, max_spheres=200, max_planes=4, seed=0, device=dev)
+    posed = Camera(pos=torch.tensor([3.0, 2.0, -5.0]), rot=torch.tensor([0.25, 2.8, 0.0]))
+
+    # -- 8a: the list kernel against broad_phase.py
+    before = launch_counts()
+    _list_case(LK, BP, SK, "bench headline 1920x1080 random_scene(20)", scene_hl, cam, cfg_hl,
+               0.5, dev)
+    _list_case(LK, BP, SK, "3840x2160 random_scene(200)", scene_4k, cam, cfg_4k, 0.5, dev)
+    _list_case(LK, BP, SK, "3840x1000 random_scene(100), the display's lists",
+               random_scene(100, seed=0), cam, RenderConfig(width=3840, height=1000), 0.0, dev,
+               shadows=False, hard=True)
+    _list_case(LK, BP, SK, "400x150 random_scene(24, seed=7), pitched posed camera",
+               random_scene(24, max_spheres=24, max_planes=4, seed=7), posed,
+               RenderConfig(width=400, height=150, max_spheres=24, shadows=True, **SOFT_KW),
+               0.5, dev)
+    _list_case(LK, BP, SK, "400x150 pitched posed camera, the display's lists",
+               random_scene(24, max_spheres=24, max_planes=4, seed=7), posed,
+               RenderConfig(width=400, height=150, max_spheres=24), 0.0, dev, shadows=False,
+               hard=True)
+    for band in ((540, 540), (270, 270)):
+        _list_case(LK, BP, SK, "bench headline band", scene_hl, cam,
+                   cfg_hl, 0.5, dev, band=band)
+    cull = dict(_cull_scenes(400, 150))
+    cull["the engine's scene after spawns doubled its capacity"] = (
+        _grown_scene(dev), RenderConfig(width=400, height=150, shadows=True))
+    for label, (scene, cfg) in cull.items():
+        _list_case(LK, BP, SK, label, scene, cam, cfg, 0.0, dev, shadows=False, hard=True)
+        _list_case(LK, BP, SK, label, scene, cam, cfg.replace(**SOFT_KW), 0.5, dev)
+    _list_case(LK, BP, SK, "96x32 40-sphere slab crowd", _slab_crowd(), cam,
+               RenderConfig(width=96, height=32, max_spheres=48, max_planes=2, shadows=True,
+                            **SOFT_KW), 0.5, dev)
+    _list_case(LK, BP, SK, "bench headline config, empty scene", empty_scene(20, 4, device=dev),
+               cam, cfg_hl, 0.5, dev)
+    _list_case(LK, BP, SK, "bench headline", scene_hl, cam, cfg_hl, 0.5, dev, disable=True)
+    print(f"phase 8: launches of the comparisons {launch_delta(before)}")
+
+    # the list kernels' timings at the bench headline (the train step's shape)
+    sph, pl, camv, grid = _list_args(SK, BP, scene_hl, cam_d, cfg_hl, dev)
+    lists_fn = lambda: LK.tile_lists_with_aux(sph, pl, camv, cfg_hl, 0.5, 16, 16, grid, True)  # noqa: E731
+    lists, shl, aux = lists_fn()
+    ent = LK.entry_tables(lists, shl)
+    plain_lists = lambda: LK.tile_lists_plain(sph, pl, camv, cfg_hl, 0.5, 16, 16, grid, True)  # noqa: E731
+    timings = {}
+    for key, kname, kfn, pfn in (
+            ("tile_lists", "tile_lists_kernel", lists_fn, plain_lists),
+            ("entry_tables", "entry_tables_kernel", lambda: LK.entry_tables(lists, shl),
+             lambda: LK.entry_tables_plain(lists, shl))):
+        k_ms, p_ms = _time_ms(kfn), _time_ms(pfn, reps=5, warm=1)
+        d_ms, g_ms = _kernel_device_ms(kfn, name=kname), _graph_ms(kfn)[0]
+        timings[key] = (k_ms, p_ms, d_ms, g_ms)
+        print(f"phase 8: {key} ({kname}) at the bench headline: {k_ms!r} ms a call (device "
+              f"time alone {d_ms!r} ms, profiler mean; {g_ms!r} ms a call of a CUDA graph of "
+              f"20), plain {p_ms!r} ms {tag}")
+    work = dict(zip(("tile_lists", "entry_tables"),
+                    _list_work(sph, pl, lists, shl, aux, ent)))
+    sph4, pl4, camv4, grid4 = _list_args(SK, BP, scene_4k, cam_d, cfg_4k, dev)
+    fn4 = lambda: LK.tile_lists_with_aux(sph4, pl4, camv4, cfg_4k, 0.5, 16, 16, grid4, True)  # noqa: E731
+    l4 = fn4()
+    ent4 = LK.entry_tables(l4[0], l4[1])
+    work_4k = dict(zip(("tile_lists", "entry_tables"), _list_work(sph4, pl4, *l4, ent4)))
+    ent4_fn = lambda: LK.entry_tables(l4[0], l4[1])  # noqa: E731
+    dev_4k = {"tile_lists": _kernel_device_ms(fn4, reps=5, name="tile_lists_kernel"),
+              "entry_tables": _kernel_device_ms(ent4_fn, reps=5, name="entry_tables_kernel")}
+    graph_4k = {"tile_lists": _graph_ms(fn4)[0], "entry_tables": _graph_ms(ent4_fn)[0]}
+    print(f"phase 8: at 3840x2160 random_scene(200): tile_lists {dev_4k['tile_lists']!r} ms, "
+          f"entry_tables {dev_4k['entry_tables']!r} ms device time (profiler mean); "
+          f"{graph_4k['tile_lists']!r} / {graph_4k['entry_tables']!r} ms a call of a CUDA graph "
+          f"of 20 {tag}")
+
+    # -- 8b: eager steps of the four train paths and a display frame, no host sync
+    cfg20, scene20 = IR.build(1920, 1080, 20)
+    scene20 = scene20.to(dev)
+    with torch.no_grad():
+        fb20 = SK.render_frame_soft_kernel(scene20, cam_d, cfg20, tau=0.5)
+    tgt20, tgt_a20 = fb20.rgb, fb20.alpha
+    start20 = scene20.replace(spheres=scene20.spheres.replace(
+        center=_fit_start(scene20.spheres.center)))
+    zero_hl = torch.zeros((1080, 1920, 3), device=dev)
+    paths = {"unshadowed generic": (cfg20, start20, tgt20, False),
+             "unshadowed fused": (cfg20, start20, tgt20, True),
+             "shadowed generic": (cfg_hl, scene_hl, zero_hl, False),
+             "shadowed fused": (cfg_hl, scene_hl, zero_hl, True)}
+    replay = {}
+    for label, (cfg, scene, target, fused) in paths.items():
+        step = B.train_step(cfg, scene, cam_d, target, fused=fused, graph=False)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        g = B.train_step(cfg, scene, cam_d, target, fused=fused, graph=True)
+        g()
+        replay[label] = g.replay_launches
+        print(f"phase 8: {label} train step: an eager step from pack to opt.step() ran under "
+              f"set_sync_debug_mode('error'); launches a replay of its CUDA graph "
+              f"{g.replay_launches}")
+    # the fits' step: the render, inverse_render's loss, torch's default Adam
+    c = start20.spheres.center.clone().requires_grad_(True)
+
+    def fit_loss():
+        fb = SK.render_frame_soft_kernel(start20.replace(spheres=start20.spheres.replace(center=c)),
+                                         cam_d, cfg20, tau=0.5)
+        return IR.loss_of(fb, tgt20, tgt_a20, 1.0, False)
+    fit_step = CapturedStep(fit_loss, torch.optim.Adam([c], lr=3e-2), graph=False)
+    fit_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fit_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("phase 8: inverse_render's step (render, RGB + IoU loss, backward, torch's default "
+          "Adam) ran eagerly under set_sync_debug_mode('error')")
+    hi_sh = RenderConfig(width=1920, height=500, mode=RenderMode.RGB_ASCII, supersample=2,
+                         shadows=True)
+    no_spawn = EngineConfig(spawn=False, show_fps=False, seed=1)
+    eng = Engine(hi_sh, no_spawn, scene=random_scene(100, seed=0), presenter=FramebufferSink(),
+                 interactive=False, device=dev, graph=False)
+    eng.device_frame(0.016)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.device_frame(0.016)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("phase 8: an eager display frame at 1920x500 x2 with shadows (physics, pack, lists, "
+          "K7, downsample, cells) ran under set_sync_debug_mode('error')")
+
+    # -- 8c: graph against eager, bit for bit
+    for label, (cfg, scene, target, fused), n in (
+            ("shadowed fused, bench headline", paths["shadowed fused"], 10),
+            ("unshadowed generic from _fit_start", paths["unshadowed generic"], 10)):
+        runs = []
+        for graph in (False, True):
+            step = B.train_step(cfg, scene, cam_d, target, fused=fused, graph=graph)
+            losses = [step().clone() for _ in range(n)]
+            runs.append((torch.stack(losses), [p.detach().clone()
+                                               for p in step.opt.param_groups[0]["params"]]))
+        (le, pe), (lg, pg) = runs
+        if not (torch.equal(le, lg) and all(torch.equal(a, b) for a, b in zip(pe, pg))):
+            raise AssertionError(f"{label}: {n} graph-replayed steps differ from eager ones "
+                                 f"(losses {le.tolist()} vs {lg.tolist()})")
+        print(f"phase 8: {label}: {n} graph-replayed steps torch.equal to {n} eager ones in "
+              f"every loss ({float(le[0])!r} -> {float(le[-1])!r}) and all {len(pe)} parameters")
+    # inverse_render.fit: a graph of render, loss and backward a stage (the
+    # key changes at the stage), torch's default Adam after each replay
+    fits = []
+    for graph in (False, True):
+        c = start20.spheres.center.clone().requires_grad_(True)
+        args = lambda c=c: (start20.replace(spheres=start20.spheres.replace(center=c)), cam_d)  # noqa: E731
+        _, log = IR.fit(args, [c], [(2.0, cfg20), (0.5, cfg20)], 12, 3e-2, tgt20, tgt_a20, 1.0,
+                        False, graph=graph)
+        fits.append(([e["loss"] for e in log], c.detach().clone()))
+    if not (fits[0][0] == fits[1][0] and torch.equal(fits[0][1], fits[1][1])):
+        raise AssertionError(f"inverse_render.fit: 12 graph-replayed steps differ from eager "
+                             f"ones (stage losses {fits[0][0]} vs {fits[1][0]})")
+    print(f"phase 8: inverse_render.fit at 1920x1080, 20 spheres from _fit_start, 12 steps over "
+          f"2 stages: graph (a capture a stage, default Adam after each replay) torch.equal to "
+          f"eager in every stage loss {fits[0][0]} and every centre")
+    engines = [Engine(hi_sh, no_spawn, scene=random_scene(100, seed=0), presenter=FramebufferSink(),
+                      interactive=False, device=dev, graph=graph) for graph in (True, False)]
+    cap0 = engines[0].scene.spheres.capacity
+    for i in range(50):
+        if i in (20, 35):  # a capacity doubling, then a spawn into the grown scene
+            for e in engines:
+                e._spawn()
+        cells = [e.device_frame(0.016) for e in engines]
+        if not all(torch.equal(a, b) for a, b in zip(*cells)):
+            raise AssertionError(f"display frame {i}: the graph's cells differ from eager ones")
+    disp = engines[0].display
+    cap1 = engines[0].scene.spheres.capacity
+    if not (cap1 == 2 * cap0 and disp.captures == 2
+            and torch.equal(engines[0].scene.spheres.center, engines[1].scene.spheres.center)):
+        raise AssertionError(f"display graph: capacity {cap0} -> {cap1}, captures "
+                             f"{disp.captures}")
+    print(f"phase 8: 50 engine frames at 1920x500 x2 with shadows, a capacity doubling "
+          f"({cap0} -> {cap1} spheres) at frame 20 and a spawn at 35: every frame's cells "
+          f"torch.equal to the eager engine's; {disp.captures} captures; launches a replay "
+          f"{disp.replay_launches}")
+
+    # -- 8d: eager and graph ms a step, the lists' and pack's host cost
+    ms = {}
+    for label, cfg, scene, target, reps in (
+            ("headline", cfg_hl, scene_hl, zero_hl, 20),
+            ("4k200", cfg_4k, scene_4k, torch.zeros((2160, 3840, 3), device=dev), 5),
+            ("empty", cfg_hl, empty_scene(20, 4, device=dev), zero_hl, 20)):
+        rays = cfg.width * cfg.height
+        for graph in (False, True, True, False):
+            step = B.train_step(cfg, scene, cam_d, target, graph=graph)
+            t = _step_ms(step, reps)
+            ms.setdefault(label, {}).setdefault("graph" if graph else "eager", []).append(t)
+        if label == "headline":  # the fits' form: torch's default Adam after each replay
+            leaves, rebuild = B._leaves(scene, cam_d)
+            loss_of = B._loss(cfg, target, True, True, True)
+            step = CapturedStep(lambda: loss_of(*rebuild()), torch.optim.Adam(leaves, lr=1e-3),
+                                graph=True)
+            ms[label]["graph, default Adam after the replay"] = [_step_ms(step, reps)]
+        print(f"phase 8: shadowed fused step {label} ({cfg.width}x{cfg.height}): eager "
+              f"{ms[label]['eager']} ms, graph {ms[label]['graph']} ms a step (in turns); "
+              f"graph {rays / min(ms[label]['graph']) * 1e3!r} rays/s; "
+              f"{ {k: v for k, v in ms[label].items() if k not in ('eager', 'graph')} } {tag}")
+    for label, cfg, scene, target, reps in (
+            ("headline", cfg_hl, scene_hl, zero_hl, 20),
+            ("empty", cfg_hl, empty_scene(20, 4, device=dev), zero_hl, 20),
+            ("4k200", cfg_4k, scene_4k, torch.zeros((2160, 3840, 3), device=dev), 5)):
+        _profile_steps(B.train_step(cfg, scene, cam_d, target, graph=True),
+                       f"profile_graph_{label}", f"shadowed fused step {label}, graph-replayed",
+                       tag, reps=reps, phase="8")
+    _profile_steps(lambda: engines[0].device_frame(0.016), "profile_graph_display",
+                   "display frame 1920x500 x2 shadows, graph-replayed", tag, phase="8")
+    lp = _step_ms(B.lists_loop(cfg_hl, 16, scene_hl, cam_d), 5) / 16
+    print(f"phase 8: lists_pack_ms (pack and both lists, eager, 16 a sync) at the bench "
+          f"headline: {lp!r} ms {tag}")
+    return {"timings": timings, "work": work, "work_4k": work_4k, "dev_4k": dev_4k,
+            "graph_4k": graph_4k,
+            "replay": replay, "display_replay": disp.replay_launches, "step_ms": ms,
+            "lists_pack_ms": lp}
+
+
 def main() -> int:
     import torch
 
@@ -1422,13 +1777,17 @@ def main() -> int:
     from rtwc_tpu_torch.render import soft_core as C
     from rtwc_tpu_torch.render import soft_kernel as SK
 
+    from rtwc_tpu_torch.render import list_kernel as LK
+
     t0 = time.perf_counter()
-    names = ("hard_render", "soft_render", "soft_shadow", "calibrate")
+    names = ("hard_render", "soft_render", "soft_shadow", "calibrate", "broad_phase")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:  # one nvcc for each source, at once
         libs = dict(zip(names, pool.map(_cuda.build, names)))
     hard_kernel._kernel_fn()
     for fn_name in C._ENTRIES:
         C._fn(fn_name)
+    LK._fn("rtwc_tile_lists", 7, LK.ListParams)
+    LK._fn("rtwc_entry_tables", 6, LK.EntryParams)
     print(f"phase 1: built {', '.join(os.path.relpath(v, ROOT) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_cuda.build_seconds[k]:.2f} s" for k in libs)
@@ -1778,8 +2137,13 @@ def main() -> int:
     lap("2c")
 
     # -- phase 3: the main path, counted ----------------------------------------
+    # On the card the engine replays its frame as a CUDA graph: K7 launches
+    # (is counted) once for the eager first frame of each capture and once
+    # at the capture; every other frame is a replay of what the capture
+    # counted.
     hard_kernel.LAUNCHES = 0
     frames = 0
+    counted = [0]
 
     def run_engine(rcfg, ecfg, n, scene=None, force_spawn=False):
         sink = FramebufferSink(keep_all=True)
@@ -1787,6 +2151,9 @@ def main() -> int:
         if force_spawn:
             eng.telemetry.interval = 0.0
         eng.run(max_frames=n)
+        if eng.display is None:
+            raise AssertionError("the engine on the card did not take the display graph")
+        counted[0] += 2 * eng.display.captures
         if len(sink.frames) != n:
             raise AssertionError(f"{rcfg.width}x{rcfg.height}: {len(sink.frames)} frames of {n}")
         for fr in sink.frames:
@@ -1819,9 +2186,10 @@ def main() -> int:
     frames += 10
     print("phase 3: engine 1920x500 rgb_ascii supersample 2, 100 spheres: 10 frames")
     launches = hard_kernel.LAUNCHES
-    print(f"phase 3: K7 launches {launches}, frames rendered {frames}")
-    if launches != frames:
-        raise AssertionError(f"K7 launched {launches} times for {frames} frames")
+    print(f"phase 3: K7 launches {launches} (an eager frame and a capture for each of "
+          f"{counted[0] // 2} captures), frames rendered {frames}, the rest graph replays")
+    if launches != counted[0]:
+        raise AssertionError(f"K7 launched {launches} times for {counted[0] // 2} captures")
 
     lap("3")
 
@@ -1844,10 +2212,15 @@ def main() -> int:
            [center], stages_s, fit_steps, 3e-2, target_s, target_as, 1.0, False)
     torch.cuda.synchronize()
     fit_s_launches = dict(SK.LAUNCHES)
-    print(f"phase 3b: in-process fit 192x96, {fit_steps} steps: launches {fit_s_launches}")
+    # each stage of the ladder: an eager warm-up step and the capture of its
+    # graph count; its other steps replay the graph
+    fit_counted = 2 * len(stages_s)
+    print(f"phase 3b: in-process fit 192x96, {fit_steps} steps over {len(stages_s)} stages, "
+          f"one CUDA graph a stage: launches {fit_s_launches}")
     if not (fit_s_launches["soft_fwd"] == fit_s_launches["soft_bwd"]
-            == fit_s_launches["soft_grad_reduce"] == fit_steps and fit_s_launches["soft_mse"] == 0):
-        raise AssertionError(f"K1 / K2 launches {fit_s_launches} for {fit_steps} steps")
+            == fit_s_launches["soft_grad_reduce"] == fit_counted
+            and fit_s_launches["soft_mse"] == 0):
+        raise AssertionError(f"K1 / K2 launches {fit_s_launches} for {len(stages_s)} captures")
 
     # the generic train path at full size, through the user's entry point
     ir_json = os.path.join(OUT_DIR, "inverse_render_1080p.json")
@@ -1864,7 +2237,7 @@ def main() -> int:
     print(f"phase 3b: inverse_render 1920x1080 --spheres 20 --steps {ir_steps}: exit {rc} "
           f"(sub-pixel {rec['sub_pixel']}; {ir_steps} steps do not converge), "
           f"{time.perf_counter() - t:.1f} s, stage losses {losses}; launches {generic_launches}")
-    steps_taken = 2 * ir_steps
+    steps_taken = 2 * (len(rec["phase_a_stages"]) + len(rec["phase_b_stages"]))  # per stage: 2
     if not (all(np.isfinite(losses)) and generic_launches["soft_bwd"] == steps_taken
             and generic_launches["soft_grad_reduce"] == steps_taken
             and generic_launches["soft_fwd"] == steps_taken + 1      # + the target render
@@ -1960,8 +2333,10 @@ def main() -> int:
     fit_launches = dict(SK.LAUNCHES)
     print(f"phase 3c: fit_from_shadow in process at its defaults (320x96, 300 steps): exit {rc} "
           f"in {time.perf_counter() - t:.1f} s; launches {fit_launches}")
-    want = dict(soft_fwd=2, soft_bwd=0, soft_mse=0, soft_sh_fwd=302, soft_sh_bwd=300,
-                soft_sh_mse=0, soft_sh_stats=0, soft_grad_reduce=300)
+    # 2 + 2 renders before the fit; its 300 steps: one eager warm-up step and
+    # one capture, then 299 replays
+    want = dict(soft_fwd=2, soft_bwd=0, soft_mse=0, soft_sh_fwd=4, soft_sh_bwd=2,
+                soft_sh_mse=0, soft_sh_stats=0, soft_grad_reduce=2)
     if rc != 0 or fit_launches != want:
         raise AssertionError(f"fit_from_shadow: exit {rc}, launches {fit_launches} (want {want})")
     cmd = [sys.executable, "-m", "rtwc_tpu_torch.examples.fit_from_shadow"]
@@ -2044,20 +2419,27 @@ def main() -> int:
         rates[label] = (fps, rps)
         print(f"phase 5: engine {label}: {fps!r} frames/s, {rps!r} rays/s {tag}")
 
-    # per-frame host breakdown: enqueue of the device step, wait for the
-    # frame's cells, encode
-    for label, rcfg, scene_fn in (
+    # per-frame host breakdown: enqueue of the device step (a replay of the
+    # frame's CUDA graph, or the same launches eagerly), wait for the frame's
+    # cells, encode
+    for label, rcfg, scene_fn, graph in (
             ("400x150", RenderConfig(width=400, height=150, mode=RenderMode.RGB_ASCII),
-             lambda: default_scene(RenderConfig(), device=dev)),
+             lambda: default_scene(RenderConfig(), device=dev), True),
             ("1920x500", RenderConfig(width=1920, height=500, mode=RenderMode.RGB_ASCII),
-             lambda: random_scene(100, seed=0, device=dev))):
-        scene, cam = scene_fn(), default_camera()
+             lambda: random_scene(100, seed=0, device=dev), True),
+            ("1920x500 eager", RenderConfig(width=1920, height=500, mode=RenderMode.RGB_ASCII),
+             lambda: random_scene(100, seed=0, device=dev), False),
+            ("1920x500 x2 shadows", hi.replace(shadows=True),
+             lambda: random_scene(100, seed=0, device=dev), True),
+            ("1920x500 x2 shadows eager", hi.replace(shadows=True),
+             lambda: random_scene(100, seed=0, device=dev), False)):
+        eng = Engine(rcfg, no_spawn, scene=scene_fn(), presenter=FramebufferSink(),
+                     interactive=False, device=dev, graph=graph)
         parts = {"enqueue": [], "wait": [], "encode": []}
         prev = None
         for i in range(45):
             t0 = time.perf_counter()
-            scene, cells = _render_step(scene, cam, 0.016, rcfg)
-            cur = _start_download(cells)
+            cur = _start_download(eng.device_frame(0.016))
             t1 = time.perf_counter()
             if prev is not None:
                 prev[1].synchronize()
@@ -2117,31 +2499,31 @@ def main() -> int:
     sph, pl, camv = SK._packed(scene20d.replace(spheres=scene20d.spheres.replace(center=start20)),
                                cam20)
     lists = SK.build_lists(sph, camv, spec, True)
-    offsets, pidx = SK.list_entries(lists)
-    n = pidx.shape[0]
+    ent20 = SK.entry_tables(lists)
+    offsets, pidx = ent20.offsets, ent20.pidx
+    n = int(ent20.counts[0])
     Hp, Wp = spec.extent
     out, gates = SK.soft_fwd(sph, pl, camv, lists, spec=spec)
     tgt = torch.zeros((3, Hp, Wp), device=dev)
     tgt[:, :1080, :1920] = tgt20.permute(2, 0, 1)
     g_mse = torch.zeros_like(out)
     g_mse[:3] = (2.0 / (255.0 ** 2 * 3 * 1920 * 1080)) * (out[:3] - tgt)
-    parts = SK.soft_bwd(sph, pl, camv, lists, offsets, gates, out, g_mse, spec=spec, n_entries=n)
+    parts = SK.soft_bwd(sph, pl, camv, lists, offsets, gates, out, g_mse, spec=spec)
     soft_calls = {
         "K1": ("soft_fwd_kernel", lambda: SK.soft_fwd(sph, pl, camv, lists, spec=spec),
                lambda: SK.soft_fwd_plain(sph, pl, camv, lists, spec=spec)),
         "K2": ("soft_bwd_kernel",
-               lambda: SK.soft_bwd(sph, pl, camv, lists, offsets, gates, out, g_mse, spec=spec,
-                                   n_entries=n),
+               lambda: SK.soft_bwd(sph, pl, camv, lists, offsets, gates, out, g_mse, spec=spec),
                lambda: SK.soft_bwd_plain(sph, pl, camv, lists, offsets, gates, out, g_mse,
-                                         spec=spec, n_entries=n)),
+                                         spec=spec)),
         "K3": ("soft_mse_kernel",
-               lambda: SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec, n_entries=n),
-               lambda: SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec,
-                                         n_entries=n)),
+               lambda: SK.soft_mse(sph, pl, camv, lists, offsets, tgt, spec=spec),
+               lambda: SK.soft_mse_plain(sph, pl, camv, lists, offsets, tgt, spec=spec)),
         "reduce": ("soft_grad_reduce",
-                   lambda: SK.soft_grad_reduce(parts[0], pidx, *parts[1:], sph.shape[1]),
-                   lambda: SK.soft_grad_reduce_plain(parts[0][:n], pidx, *parts[1:],
-                                                     sph.shape[1])),
+                   lambda: SK.soft_grad_reduce(parts[0], pidx, *parts[1:], sph.shape[1],
+                                               counts=ent20.counts),
+                   lambda: SK.soft_grad_reduce_plain(parts[0], pidx, *parts[1:], sph.shape[1],
+                                                     counts=ent20.counts)),
     }
     soft_timing, graph_timing = {}, {}
     for key, (kname, kfn, pfn) in soft_calls.items():
@@ -2196,9 +2578,8 @@ def main() -> int:
     spec_hl = SK.SoftSpec(cfg_hl, 0.5)
     sph_h, pl_h, cam_h = SK._packed(scene_hld, cam_hl)
     lists_h, shl_h = SH.build_lists(sph_h, pl_h, cam_h, spec_hl, True)
-    offsets_h, pidx_h = SK.list_entries(lists_h)
-    sh_offsets_h, pshidx_h = SK.list_entries(shl_h)
-    sizes_h = dict(n_entries=pidx_h.shape[0], n_sh_entries=pshidx_h.shape[0])
+    ent_h = SK.entry_tables(lists_h, shl_h)
+    offsets_h, pidx_h, sh_offsets_h, pshidx_h, counts_h = ent_h
     Hp, Wp = spec_hl.extent
     out_h, gates_h, cnt_h = SH.soft_sh_stats(sph_h, pl_h, cam_h, lists_h, shl_h, spec=spec_hl)
     tgt_h = torch.zeros((3, Hp, Wp), device=dev)
@@ -2206,24 +2587,25 @@ def main() -> int:
     g_h[:3] = (2.0 / (255.0 ** 2 * 3 * 1920 * 1080)) * (out_h[:3] - tgt_h)
     bwd_h = (sph_h, pl_h, cam_h, lists_h, shl_h, offsets_h, sh_offsets_h, gates_h, out_h, g_h)
     mse_h = (sph_h, pl_h, cam_h, lists_h, shl_h, offsets_h, sh_offsets_h, tgt_h)
-    parts_h = SH.soft_sh_bwd(*bwd_h, spec=spec_hl, **sizes_h)
-    n_h, nsh_h = pidx_h.shape[0], pshidx_h.shape[0]
+    parts_h = SH.soft_sh_bwd(*bwd_h, spec=spec_hl)
+    n_h, nsh_h = int(counts_h[0]), int(counts_h[1])
     fwd4 = (sph_h, pl_h, cam_h, lists_h, shl_h)
     sh_calls = {
         "K4": ("soft_sh_fwd_kernel", lambda: SH.soft_sh_fwd(*fwd4, spec=spec_hl),
                lambda: SH.soft_sh_fwd_plain(*fwd4, spec=spec_hl)),
         "K4-stats": ("soft_sh_fwd_kernel", lambda: SH.soft_sh_stats(*fwd4, spec=spec_hl),
                      lambda: SH.soft_sh_stats_plain(*fwd4, spec=spec_hl)),
-        "K5": ("soft_sh_bwd_kernel", lambda: SH.soft_sh_bwd(*bwd_h, spec=spec_hl, **sizes_h),
-               lambda: SH.soft_sh_bwd_plain(*bwd_h, spec=spec_hl, **sizes_h)),
-        "K6": ("soft_sh_mse_kernel", lambda: SH.soft_sh_mse(*mse_h, spec=spec_hl, **sizes_h),
-               lambda: SH.soft_sh_mse_plain(*mse_h, spec=spec_hl, **sizes_h)),
+        "K5": ("soft_sh_bwd_kernel", lambda: SH.soft_sh_bwd(*bwd_h, spec=spec_hl),
+               lambda: SH.soft_sh_bwd_plain(*bwd_h, spec=spec_hl)),
+        "K6": ("soft_sh_mse_kernel", lambda: SH.soft_sh_mse(*mse_h, spec=spec_hl),
+               lambda: SH.soft_sh_mse_plain(*mse_h, spec=spec_hl)),
         "reduce sh": ("soft_grad_reduce",
                       lambda: SK.soft_grad_reduce(parts_h[0], pidx_h, parts_h[2], parts_h[3], 20,
-                                                  psh=parts_h[1], pshidx=pshidx_h),
-                      lambda: SK.soft_grad_reduce_plain(parts_h[0][:n_h], pidx_h, parts_h[2],
-                                                        parts_h[3], 20, parts_h[1][:nsh_h],
-                                                        pshidx_h)),
+                                                  psh=parts_h[1], pshidx=pshidx_h,
+                                                  counts=counts_h),
+                      lambda: SK.soft_grad_reduce_plain(parts_h[0], pidx_h, parts_h[2],
+                                                        parts_h[3], 20, parts_h[1], pshidx_h,
+                                                        counts_h)),
     }
     for key, (kname, kfn, pfn) in sh_calls.items():
         k_ms = _time_ms(kfn)
@@ -2282,9 +2664,8 @@ def main() -> int:
     sph_4, pl_4, cam_4 = SK._packed(scene_4k, cam_hl)
     lists_4, shl_4 = SH.build_lists(sph_4, pl_4, cam_4, spec_4k, True)
     _, _, cnt_4 = SH.soft_sh_stats(sph_4, pl_4, cam_4, lists_4, shl_4, spec=spec_4k)
-    offsets_4, pidx_4 = SK.list_entries(lists_4)
-    sh_offsets_4, pshidx_4 = SK.list_entries(shl_4)
-    sizes_4 = dict(n_entries=pidx_4.shape[0], n_sh_entries=pshidx_4.shape[0])
+    ent_4 = SK.entry_tables(lists_4, shl_4)
+    offsets_4, pidx_4, sh_offsets_4, pshidx_4, counts_4 = ent_4
     out_4, gates_4 = SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4, spec=spec_4k)
     k4_4k_fn = lambda: SH.soft_sh_fwd(sph_4, pl_4, cam_4, lists_4, shl_4, spec=spec_4k)  # noqa: E731
     k4_4k = _kernel_device_ms(k4_4k_fn, reps=5, name="soft_sh_fwd_kernel")
@@ -2293,22 +2674,21 @@ def main() -> int:
     g_4[:3] = (2.0 / (255.0 ** 2 * 3 * 3840 * 2160)) * out_4[:3]
     k5_4k = _kernel_device_ms(lambda: SH.soft_sh_bwd(
         sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4, gates_4, out_4, g_4,
-        spec=spec_4k, **sizes_4), reps=5, name="soft_sh_bwd_kernel")
+        spec=spec_4k), reps=5, name="soft_sh_bwd_kernel")
     k6_4k = _kernel_device_ms(lambda: SH.soft_sh_mse(
         sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
-        torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k, **sizes_4), reps=5,
+        torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k), reps=5,
         name="soft_sh_mse_kernel")
     # the reduction at 4K/200 on K6's partials of that step
     parts_4 = SH.soft_sh_mse(sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
-                             torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k,
-                             **sizes_4)
-    n_4, nsh_4 = pidx_4.shape[0], pshidx_4.shape[0]
+                             torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k)
+    n_4, nsh_4 = int(counts_4[0]), int(counts_4[1])
     bwd_4 = (sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4, gates_4, out_4, g_4)
-    parts_5_4k = SH.soft_sh_bwd(*bwd_4, spec=spec_4k, **sizes_4)
+    parts_5_4k = SH.soft_sh_bwd(*bwd_4, spec=spec_4k)
     red_4k = (lambda: SK.soft_grad_reduce(parts_4[0], pidx_4, parts_4[2], parts_4[3], 200,
-                                          psh=parts_4[1], pshidx=pshidx_4),
-              lambda: SK.soft_grad_reduce_plain(parts_4[0][:n_4], pidx_4, parts_4[2], parts_4[3],
-                                                200, parts_4[1][:nsh_4], pshidx_4))
+                                          psh=parts_4[1], pshidx=pshidx_4, counts=counts_4),
+              lambda: SK.soft_grad_reduce_plain(parts_4[0], pidx_4, parts_4[2], parts_4[3],
+                                                200, parts_4[1], pshidx_4, counts_4))
     soft_timing["reduce 4k"] = (_time_ms(red_4k[0]), _time_ms(red_4k[1], reps=1, warm=0),
                                 _kernel_device_ms(red_4k[0], reps=5, name="soft_grad_reduce",
                                                   per_call=True))
@@ -2364,39 +2744,61 @@ def main() -> int:
     lap("6d")
     sharded, k7_bands = _phase_7(dev, tag, errs)
     lap("7")
+    p8 = _phase_8(dev, tag)
+    lap("8")
 
     # -- launches per main-path step at each row's shape: every count set to
     # 0, one step (one engine frame for K7), the counts read
+    from rtwc_tpu_torch.render.step_graph import launch_counts, reset_launch_counts
+
     def per_step(step):
-        reset_soft()
+        reset_launch_counts()
         step()
         torch.cuda.synchronize()
-        return dict(SK.LAUNCHES)
+        return launch_counts()
 
     step_20 = {kind: per_step(make_step(kind)) for kind in ("generic", "fused")}
     step_hl = {kind: per_step(sh_step(kind, scene_hld, cam_hl, cfg_hl, tgt_hl))
                for kind in ("generic", "fused")}
     stats_call = per_step(lambda: SH.soft_tile_diagnostics(scene_hld, cam_hl, cfg_hl, tau=0.5))
     step_4k_launches = per_step(step_4k)
-    hard_kernel.LAUNCHES = 0
-    run_engine(RenderConfig(width=1920, height=1080, mode=RenderMode.RGB_ASCII, shadows=True),
-               no_spawn, 1, scene=random_scene(20, seed=0, device=dev))
-    k7_frame = hard_kernel.LAUNCHES
+    reset_launch_counts()
+    eng_hd = run_engine(RenderConfig(width=1920, height=1080, mode=RenderMode.RGB_ASCII,
+                                     shadows=True),
+                        no_spawn, 1, scene=random_scene(20, seed=0, device=dev))
+    k7_captured = hard_kernel.LAUNCHES  # the eager first frame and the capture
+    k7_frame = eng_hd.display.replay_launches["hard_render"]
+    frame_launches = eng_hd.display.replay_launches
     print(f"phase 5b: launches per step: unshadowed 1080p {step_20}; shadowed headline "
           f"{step_hl}; soft_tile_diagnostics {stats_call}; one engine frame at 1920x1080 "
-          f"random_scene(20) shadows: K7 {k7_frame}")
+          f"random_scene(20) shadows: {frame_launches} a replay of its graph (K7 counted "
+          f"{k7_captured} at its eager first frame and its capture)")
     want = {("generic", "soft_fwd"): 1, ("generic", "soft_bwd"): 1, ("generic", "soft_grad_reduce"): 1,
             ("fused", "soft_mse"): 1, ("fused", "soft_grad_reduce"): 1}
     want_sh = {("generic", "soft_sh_fwd"): 1, ("generic", "soft_sh_bwd"): 1,
                ("generic", "soft_grad_reduce"): 1, ("fused", "soft_sh_mse"): 1,
                ("fused", "soft_grad_reduce"): 1}
+    for kind in ("generic", "fused"):  # the list kernel and the entry tables, once a step
+        want[(kind, "tile_lists")] = want[(kind, "entry_tables")] = 1
+        want_sh[(kind, "tile_lists")] = want_sh[(kind, "entry_tables")] = 1
     for steps, wants in ((step_20, want), (step_hl, want_sh)):
         for kind, counts in steps.items():
             got = {k: v for k, v in counts.items() if v}
             if got != {k: v for (kd, k), v in wants.items() if kd == kind}:
                 raise AssertionError(f"one {kind} step launched {got}")
-    if stats_call["soft_sh_stats"] != 1 or k7_frame != 1:
-        raise AssertionError(f"K4-stats {stats_call}, K7 {k7_frame} a frame")
+    if stats_call["soft_sh_stats"] != 1 or k7_frame != 1 or k7_captured != 2:
+        raise AssertionError(f"K4-stats {stats_call}, K7 {k7_frame} a frame, {k7_captured} "
+                             f"counted at the capture")
+    # a replay launches what one eager step does, each kernel once
+    per_path = {"unshadowed generic": step_20["generic"], "unshadowed fused": step_20["fused"],
+                "shadowed generic": step_hl["generic"], "shadowed fused": step_hl["fused"]}
+    for label, got in p8["replay"].items():
+        if got != {k: v for k, v in per_path[label].items() if v}:
+            raise AssertionError(f"a replay of the {label} step launches {got}, an eager step "
+                                 f"{per_path[label]}")
+    for label, got in (("1920x500 x2", p8["display_replay"]), ("1920x1080", frame_launches)):
+        if got != {"hard_render": 1, "tile_lists": 1}:
+            raise AssertionError(f"a replay of the {label} display frame launches {got}")
 
     # -- the kernels line: every kernel with its bound ---------------------------
     px = 16 * 16
@@ -2427,7 +2829,8 @@ def main() -> int:
         "K3": (_nbytes(sph, pl, camv, offsets, tgt) + _list_bytes(npl20, lists, gate_rows=False)
                + _partial_bytes(gates, ns20, npl20, 13),
                w20["fwd"] + w20["bwd"] + px * OPS["loss"] * lists.shape[0]),
-        "reduce": (_nbytes(*parts, pidx, *red20), 8.0 * float(parts[0].numel())),
+        "reduce": (_nbytes(*_real_entries(parts, ent20, ns20)[:4], *red20),
+                   8.0 * float(_real_entries(parts, ent20, ns20)[0].numel())),
         "K4": (_nbytes(sph_h, pl_h, cam_h, out_h) + _list_bytes(npl_h, lists_h, shl_h),
                wsh["sh_fwd"]),
         "K4-stats": (_nbytes(sph_h, pl_h, cam_h, out_h, cnt_h)
@@ -2439,10 +2842,12 @@ def main() -> int:
                + _list_bytes(npl_h, lists_h, shl_h, gate_rows=False)
                + _partial_bytes(gates_h, ns_h, npl_h, 13, True),
                wsh["sh_fwd"] + wsh["sh_bwd"] + px * OPS["loss"] * lists_h.shape[0]),
-        "reduce sh": (_nbytes(*parts_h, pidx_h, pshidx_h, *red_h),
-                      8.0 * float(parts_h[0].numel() + parts_h[1].numel())),
-        "reduce 4k": (_nbytes(*parts_4, pidx_4, pshidx_4, *red_4k_out),
-                      8.0 * float(parts_4[0].numel() + parts_4[1].numel())),
+        "reduce sh": (_nbytes(*_real_entries(parts_h, ent_h, ns_h)[:4],
+                              *_real_entries(parts_h, ent_h, ns_h)[5:], *red_h),
+                      8.0 * float(n_h * 8 + nsh_h * 4)),
+        "reduce 4k": (_nbytes(*_real_entries(parts_4, ent_4, ns_4)[:4],
+                              *_real_entries(parts_4, ent_4, ns_4)[5:], *red_4k_out),
+                      8.0 * float(n_4 * 8 + nsh_4 * 4)),
     }
     # K4, K5 and K6 at 4K/200 on that shape's lists, gates and counts
     w4k = _soft_work(lists_4, gates_4, npl_4, px, shl_4, cnt_4, SH.NC)
@@ -2474,8 +2879,10 @@ def main() -> int:
     rows = (
         ("K7", "hard_render (K7, hard display forward)", "hard_render.cu",
          "rtwc_tpu/render/pallas_kernel.py:290", k7_frame,
-         "1920x1080, random_scene(20), shadows, 16x16 tiles; launches: one engine frame",
-         [("engine frames at 400x150 (160) and 1920x500 (10) (phase 3)", launches)]),
+         "1920x1080, random_scene(20), shadows, 16x16 tiles; launches: one engine frame (a "
+         "replay of its CUDA graph, counted at the capture)",
+         [("engine frames at 400x150 (160) and 1920x500 (10) (phase 3): eager first frames "
+           "and captures", launches)]),
         ("K1", "soft_fwd (K1, soft forward, unshadowed)", "soft_render.cu",
          "rtwc_tpu/render/pallas_soft.py:2434", step_20["generic"]["soft_fwd"], shape_20,
          [(fit_s, fit_s_launches["soft_fwd"]), (ir_runs + " + the target", generic_launches["soft_fwd"])]),
@@ -2505,12 +2912,30 @@ def main() -> int:
          "rtwc_tpu/render/pallas_soft.py:2822", stats_call["soft_sh_stats"],
          shape_hl + "; launches: one soft_tile_diagnostics call",
          [("soft_tile_diagnostics at the headline (phase 3c)", hl_launches["soft_sh_stats"])]),
+        ("tile_lists", "tile_lists (the broad phase: view lists, aux and shadow lists)",
+         "broad_phase.cu", "rtwc_tpu/render/pallas_soft.py:968 (_build_tile_lists, XLA code)",
+         step_hl["fused"]["tile_lists"], shape_hl,
+         [("a replay of the shadowed fused step's CUDA graph (phase 8)",
+           p8["replay"]["shadowed fused"].get("tile_lists", 0)),
+          ("a replay of the display frame's CUDA graph, 1920x500 x2 (phase 8)",
+           p8["display_replay"].get("tile_lists", 0))]),
+        ("entry_tables", "entry_tables (the partials' entry tables, counts on the device)",
+         "broad_phase.cu", "rtwc_tpu/render/pallas_soft.py:2700 (the jitted step's entry "
+         "bookkeeping, XLA code)", step_hl["fused"]["entry_tables"], shape_hl,
+         [("a replay of the shadowed fused step's CUDA graph (phase 8)",
+           p8["replay"]["shadowed fused"].get("entry_tables", 0))]),
     )
+    for key in ("tile_lists", "entry_tables"):
+        soft_timing[key] = p8["timings"][key][:3]
+        graph_timing[key] = p8["timings"][key][3]
+        work[key], work_4k[key], dev_4k[key] = p8["work"][key], p8["work_4k"][key], p8["dev_4k"][key]
+        graph_timing[f"{key} 4k"] = p8["graph_4k"][key]
+        errs[key] = 0.0  # torch.equal to broad_phase.py in every case of phase 8
     # the reduction's whole function in PyTorch library calls on the same
     # inputs, held to the kernel's sums before it is timed
-    lib_args = (parts[0], pidx, *parts[1:], sph.shape[1])
-    lib_args_sh = (parts_h[0], pidx_h, parts_h[2], parts_h[3], 20, parts_h[1], pshidx_h)
-    lib_args_4k = (parts_4[0], pidx_4, parts_4[2], parts_4[3], 200, parts_4[1], pshidx_4)
+    lib_args = _real_entries(parts, ent20, sph.shape[1])
+    lib_args_sh = _real_entries(parts_h, ent_h, 20)
+    lib_args_4k = _real_entries(parts_4, ent_4, 200)
     lib_reduce = _reduce_library_ms(P, lib_args, red20)
     lib_reduce_sh = _reduce_library_ms(P, lib_args_sh, red_h)
     lib_reduce_4k = _reduce_library_ms(P, lib_args_4k, red_4k_out)
@@ -2559,8 +2984,8 @@ def main() -> int:
                   f"{entry['bound_ms_4k200']!r} ms ({entry['bound_by_4k200']}; "
                   f"{work_4k[key][0] / 1e6:.1f} MB, {work_4k[key][1] / 1e9:.2f} GFLOP), device "
                   f"{dev_4k[key]!r} ms")
-        if key == "K4":
-            entry["graph_device_ms_4k200"] = graph_timing["K4 4k"]
+        if key in ("K4", "tile_lists", "entry_tables"):
+            entry["graph_device_ms_4k200"] = graph_timing[f"{key} 4k"]
         if key == "K7":
             entry["graph_device_ms"] = k7_graph["c random 20 1920x1080 shadows"]
             entry["shapes"] = {}
@@ -2608,7 +3033,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "train_steps.json"), "w") as f:
         json.dump({"unshadowed": step_rates, "shadowed": sh_rates, "shadowed_4k_fused_ms": ms_4k,
                    "shadowed_4k_generic_ms": ms_4k_generic, "shadowed_4k_peak_bytes": peak_4k,
-                   "calibration": cal["calibration"], "floors_ms": floors, "bench": bench_res},
+                   "calibration": cal["calibration"], "floors_ms": floors, "bench": bench_res,
+                   "graph_vs_eager_ms": p8["step_ms"], "lists_pack_ms": p8["lists_pack_ms"]},
                   f)
     print(f"phase times (s): {json.dumps(laps)}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -16,7 +16,10 @@ row bands). It adds `"device": {"name", "power_limit_w"}`.
 Method, as bench.py: a warm-up, then the mean over timed calls; a train
 "loop" is LOOP_K steps queued between synchronisations (torch Adam on every
 float leaf of scene and camera), a "single" step one step and a
-synchronise. Times are host-clock times of work that ends in
+synchronise. On the card each train step of a loop is one replay of a CUDA
+graph of the whole step (render/step_graph.py, the counterpart of JAX's
+jitted step and its `lax.scan`); the headline is also timed eagerly, the
+same launches queued from Python, for the summary's spread. Times are host-clock times of work that ends in
 torch.cuda.synchronize(). The sizes below are module constants (the CPU
 test patches them, and DEVICE, small); there is no flag, and on the default
 device the bench fails without a card rather than run elsewhere.
@@ -38,6 +41,8 @@ from rtwc_tpu_torch.render import hard_kernel
 from rtwc_tpu_torch.render import shadow_kernel as SH
 from rtwc_tpu_torch.render import soft_kernel as SK
 from rtwc_tpu_torch.render.softmin import render_frame_soft, trace_soft
+from rtwc_tpu_torch.render.step_graph import (CapturedStep, card_adam, launch_counts,
+                                              reset_launch_counts)
 from rtwc_tpu_torch.scene import empty_scene, random_scene
 from rtwc_tpu_torch.utils import roofline
 
@@ -105,19 +110,14 @@ def _loss(cfg, target, fused: bool, cull: bool, bwd_cull: bool):
     return loss_of
 
 
-def train_step(cfg, scene, camera, target, *, fused=True, cull=True, bwd_cull=True):
-    """One optimizer step (Adam 1e-3 on scene and camera) a call."""
+def train_step(cfg, scene, camera, target, *, fused=True, cull=True, bwd_cull=True,
+               graph=None):
+    """One optimizer step (Adam 1e-3 on scene and camera) a call: a
+    CapturedStep, replayed as a CUDA graph on the card unless graph=False."""
     leaves, rebuild = _leaves(scene, camera)
-    opt = torch.optim.Adam(leaves, lr=1e-3)
+    opt = torch.optim.Adam(leaves, lr=1e-3, **card_adam(leaves))
     loss_of = _loss(cfg, target, fused, cull, bwd_cull)
-
-    def step():
-        loss = loss_of(*rebuild())
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return loss
-    return step
+    return CapturedStep(lambda: loss_of(*rebuild()), opt, graph=graph)
 
 
 def grad_step(cfg, scene, camera, target, *, fused=True):
@@ -132,9 +132,11 @@ def grad_step(cfg, scene, camera, target, *, fused=True):
 
 
 def time_loop(name, cfg, K, dev, *, params, target, cull=True, bwd_cull=True, warmup=1,
-              iters=4, fused=True) -> float:
-    """Per-step seconds of K train steps queued between synchronisations."""
-    step = train_step(cfg, *params, target, fused=fused, cull=cull, bwd_cull=bwd_cull)
+              iters=4, fused=True, graph=None) -> float:
+    """Per-step seconds of K train steps queued between synchronisations
+    (the warm-up's first step captures the graph)."""
+    step = train_step(cfg, *params, target, fused=fused, cull=cull, bwd_cull=bwd_cull,
+                      graph=graph)
 
     def loop():
         for _ in range(K):
@@ -211,9 +213,7 @@ def main() -> int:
         print("rtwc_tpu_torch.bench runs on a CUDA card; torch finds none", file=sys.stderr)
         return 2
     _SPREAD.clear()
-    for key in SK.LAUNCHES:
-        SK.LAUNCHES[key] = 0
-    hard_kernel.LAUNCHES = 0
+    reset_launch_counts()
     base = dict(soft_miss_penalty=300.0, soft_mask_k=10.0)
     cfg_sh = RenderConfig(width=WIDTH, height=HEIGHT, max_spheres=20, max_planes=4, shadows=True,
                           **base)
@@ -227,6 +227,8 @@ def main() -> int:
     # Headline: the shadowed fused step, LOOP_K steps queued between syncs.
     dt_sh = time_loop("fused loop", cfg_sh, LOOP_K, dev, params=params, target=target)
     rps_sh = rays / dt_sh
+    dt_sh_eager = time_loop("fused loop eager", cfg_sh, LOOP_K, dev, params=params,
+                            target=target, graph=False)
     # Single steps: one step and a synchronise, fused and generic.
     dt_sh_1_fused = _timed("fused single", grad_step(cfg_sh, scene, camera, target), dev, 2, 6)
     dt_sh_1 = _timed("generic single", grad_step(cfg_sh, scene, camera, target, fused=False),
@@ -311,7 +313,7 @@ def main() -> int:
     sol_fwd_4k = model_4k["t_fwd_compute_bound_s"] / dt_4k_fwd_nc
     sol_bwd_4k = model_4k["t_bwd_compute_bound_s"] / dt_4k_bwd_nc
     _sync(dev)
-    launches = {**SK.LAUNCHES, "hard_render": hard_kernel.LAUNCHES}
+    launches = launch_counts()
     device = _device_info(dev)
 
     single_breakdown = {
@@ -326,7 +328,8 @@ def main() -> int:
     }
     print(
         f"# HEADLINE shadowed fwd+bwd: {dt_sh*1e3:.2f} ms/step over {LOOP_K}-step loops "
-        f"({rps_sh/1e6:.1f} Mrays/s); single fused step {dt_sh_1_fused*1e3:.2f} ms (dispatch "
+        f"({rps_sh/1e6:.1f} Mrays/s; eager {dt_sh_eager*1e3:.2f} ms); single fused step "
+        f"{dt_sh_1_fused*1e3:.2f} ms (dispatch "
         f"floor {dt_dispatch*1e3:.3f} ms) | generic path: {dt_gen*1e3:.2f} ms a step "
         f"({rays/dt_gen/1e6:.1f} Mrays/s), {dt_sh_1*1e3:.2f} ms single; pack + lists "
         f"{dt_lists*1e3:.2f} ms a step\n"

@@ -62,15 +62,25 @@ using namespace soft;
 
 // Mirror: ReduceParams in render/soft_core.py, whose reduce_params() sets
 // the sizes below.
+// The entry tables hold a capacity of entries each (n_entries main,
+// n_sh_entries shadow); how many are real, the kernels read from device
+// memory (`ncnt` [2]: main, shadow), so the host never waits for them. The
+// grids and workspaces are sized for the capacities, and the blocks past the
+// real counts exit.
 struct ReduceParams {
   int ns, np, n_entries, n_tiles, ntf, device;
-  int n_sh_entries;  // shadow-list sphere partials (K5, K6); 0 otherwise
-  int wc_keys;       // keys a warp counts and scatters, a multiple of 256
-  int n_wc;          // warp chunks: ceil((n_entries + n_sh_entries) / wc_keys)
+  int n_sh_entries;  // shadow-list capacity (K5, K6); 0 otherwise
+  int n_wc;          // warp chunks at most: min(RED_WARP_CHUNKS, ceil(capacities / 256))
   int tch;           // tiles a first-pass plane or camera block sums, a multiple of 8
   int n_tchunks;     // tile chunks: ceil(n_tiles / tch), at least 1
-  int n_schunks;     // sphere chunks at most: ceil(entries / RED_CHUNK) + 2 ns, at least 1
+  int n_schunks;     // sphere chunks at most: ceil(capacities / RED_CHUNK) + 2 ns, at least 1
 };
+
+// About this many warps count and scatter the sphere keys: each takes
+// wc_keys of the real entries, the least multiple of 256 (8 rounds of 32)
+// that keeps the warps at most this many. The sphere sums' blocks loop over
+// the chunks, RED_SPHERE_BLOCKS blocks at most.
+constexpr int RED_WARP_CHUNKS = 2048, RED_SPHERE_BLOCKS = 2048;
 
 namespace {
 
@@ -276,10 +286,29 @@ constexpr int RED_CHUNK = RED_THREADS;  // sorted entries a sphere block sums
 constexpr int COL_GROUP = 128;          // plane columns a first-pass block sums
 constexpr int KEY_BATCH = 8;            // rounds of 32 keys whose loads a warp starts at once
 
-__device__ __forceinline__ int red_key(const ReduceParams& rp, const int* __restrict__ pidx,
+// The real entries, main then shadow, are numbered 0 .. nm + nsh - 1: entry
+// i < nm is main-list entry i, the others shadow-list entry i - nm.
+struct RealCounts {
+  int nm, n;          // main entries, all entries
+  int wc_keys;        // keys a warp counts and scatters
+  int n_wc, n_count;  // warp chunks (at most rp.n_wc) and counting blocks that hold them
+};
+
+__device__ __forceinline__ RealCounts real_counts(const int* __restrict__ ncnt) {
+  RealCounts c;
+  c.nm = __ldg(ncnt);
+  c.n = c.nm + __ldg(ncnt + 1);
+  c.wc_keys = 256 * max(1, (c.n + 256 * RED_WARP_CHUNKS - 1) / (256 * RED_WARP_CHUNKS));
+  c.n_wc = (c.n + c.wc_keys - 1) / c.wc_keys;
+  c.n_count = (c.n_wc + 7) / 8;  // RED_WARPS warp chunks a counting block
+  return c;
+}
+
+__device__ __forceinline__ int red_key(const ReduceParams& rp, int nm,
+                                       const int* __restrict__ pidx,
                                        const int* __restrict__ pshidx, int i) {
-  const bool main = i < rp.n_entries;
-  const int k = main ? __ldg(pidx + i) : __ldg(pshidx + (i - rp.n_entries));
+  const bool main = i < nm;
+  const int k = main ? __ldg(pidx + i) : __ldg(pshidx + (i - nm));
   return (k >= 0 && k < rp.ns) ? (main ? k : rp.ns + k) : -1;  // out of range: dropped
 }
 
@@ -287,18 +316,18 @@ __device__ __forceinline__ int red_key(const ReduceParams& rp, const int* __rest
 // every lane, key -1 where entry i is past the chunk or its sphere index
 // out of range, then the warp syncs.
 template <typename Round>
-__device__ __forceinline__ void warp_key_rounds(const ReduceParams& rp,
+__device__ __forceinline__ void warp_key_rounds(const ReduceParams& rp, const RealCounts& rc,
                                                 const int* __restrict__ pidx,
                                                 const int* __restrict__ pshidx, int wc,
                                                 Round&& round) {
   const int lane = threadIdx.x & 31;
-  const int end = min(rp.n_entries + rp.n_sh_entries, (wc + 1) * rp.wc_keys);
-  for (int b0 = wc * rp.wc_keys; b0 < end; b0 += 32 * KEY_BATCH) {
+  const int end = min(rc.n, (wc + 1) * rc.wc_keys);
+  for (int b0 = wc * rc.wc_keys; b0 < end; b0 += 32 * KEY_BATCH) {
     int key[KEY_BATCH];
 #pragma unroll
     for (int j = 0; j < KEY_BATCH; ++j) {
       const int i = b0 + j * 32 + lane;
-      key[j] = i < end ? red_key(rp, pidx, pshidx, i) : -1;
+      key[j] = i < end ? red_key(rp, rc.nm, pidx, pshidx, i) : -1;
     }
 #pragma unroll
     for (int j = 0; j < KEY_BATCH; ++j) {
@@ -362,11 +391,11 @@ __device__ int block_scan(int* x, int n, int* s_tile, int* s_warp) {
 }
 
 __global__ void __launch_bounds__(RED_THREADS)
-soft_grad_reduce_count(ReduceParams rp, const int* __restrict__ pidx,
-                       const int* __restrict__ pshidx, const float* __restrict__ ppl,
-                       const float* __restrict__ ptf, int* __restrict__ counts,
-                       int* __restrict__ wcounts, float* __restrict__ ppart,
-                       float* __restrict__ cpart) {
+soft_grad_reduce_count(ReduceParams rp, const int* __restrict__ ncnt,
+                       const int* __restrict__ pidx, const int* __restrict__ pshidx,
+                       const float* __restrict__ ppl, const float* __restrict__ ptf,
+                       int* __restrict__ counts, int* __restrict__ wcounts,
+                       float* __restrict__ ppart, float* __restrict__ cpart) {
   extern __shared__ int s_red[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nkeys = 2 * rp.ns;
@@ -374,12 +403,14 @@ soft_grad_reduce_count(ReduceParams rp, const int* __restrict__ pidx,
   const int W = rp.np * PL_ROWS, n_groups = (W + COL_GROUP - 1) / COL_GROUP;
   int b = blockIdx.x;
   if (b < n_count) {  // the histograms of a block's 8 warp chunks, and their total
+    const RealCounts rc = real_counts(ncnt);
+    if (b >= rc.n_count) return;  // past the real entries: nothing reads its counts
     int* hist = s_red + warp * nkeys;
     for (int k = lane; k < nkeys; k += 32) hist[k] = 0;
     __syncwarp();
     const int wc = b * RED_WARPS + warp;
-    if (wc < rp.n_wc)
-      warp_key_rounds(rp, pidx, pshidx, wc, [&](int key, int) {
+    if (wc < rc.n_wc)
+      warp_key_rounds(rp, rc, pidx, pshidx, wc, [&](int key, int) {
         if (key >= 0) atomicAdd(hist + key, 1);
       });
     __syncthreads();
@@ -443,28 +474,31 @@ soft_grad_reduce_count(ReduceParams rp, const int* __restrict__ pidx,
 }
 
 __global__ void __launch_bounds__(RED_THREADS)
-soft_grad_reduce_prefix(ReduceParams rp, int* __restrict__ counts, int* __restrict__ totals) {
+soft_grad_reduce_prefix(ReduceParams rp, const int* __restrict__ ncnt,
+                        int* __restrict__ counts, int* __restrict__ totals) {
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.x * RED_WARPS + (threadIdx.x >> 5);
   if (k >= 2 * rp.ns) return;
-  const int n_count = (rp.n_wc + RED_WARPS - 1) / RED_WARPS;
+  const int n_count = (rp.n_wc + RED_WARPS - 1) / RED_WARPS;  // the row stride
+  const int n_real = real_counts(ncnt).n_count;
   int* row = counts + (size_t)k * n_count;
   int carry = 0;
-  for (int b0 = 0; b0 < n_count; b0 += 32) {
-    const int c = b0 + lane < n_count ? row[b0 + lane] : 0;
+  for (int b0 = 0; b0 < n_real; b0 += 32) {
+    const int c = b0 + lane < n_real ? row[b0 + lane] : 0;
     int incl = c;
     for (int off = 1; off < 32; off <<= 1) {
       const int y = __shfl_up_sync(FULL, incl, off);
       if (lane >= off) incl += y;
     }
-    if (b0 + lane < n_count) row[b0 + lane] = carry + incl - c;
+    if (b0 + lane < n_real) row[b0 + lane] = carry + incl - c;
     carry += __shfl_sync(FULL, incl, 31);
   }
   if (lane == 0) totals[k] = carry;
 }
 
 __global__ void __launch_bounds__(RED_THREADS)
-soft_grad_reduce_scatter(ReduceParams rp, const int* __restrict__ pidx,
+soft_grad_reduce_scatter(ReduceParams rp, const int* __restrict__ ncnt,
+                         const int* __restrict__ pidx,
                          const int* __restrict__ pshidx, const int* __restrict__ prefix,
                          const int* __restrict__ wcounts, int* __restrict__ totals,
                          int* __restrict__ seg, int* __restrict__ cbase, int* __restrict__ perm) {
@@ -489,7 +523,8 @@ soft_grad_reduce_scatter(ReduceParams rp, const int* __restrict__ pidx,
     const int n_chunks = block_scan<RED_THREADS>(cbase, nkeys, s_tile, s_warp);
     if (threadIdx.x == 0) cbase[nkeys] = n_chunks;
   }
-  if ((int)blockIdx.x >= n_count) return;
+  const RealCounts rc = real_counts(ncnt);
+  if ((int)blockIdx.x >= rc.n_count) return;  // past the real entries
   for (int k = threadIdx.x; k < nkeys; k += RED_THREADS) {
     int r = s_seg[k] + __ldg(prefix + (size_t)k * n_count + blockIdx.x);
     for (int w = 0; w < RED_WARPS; ++w) {
@@ -500,9 +535,9 @@ soft_grad_reduce_scatter(ReduceParams rp, const int* __restrict__ pidx,
   }
   __syncthreads();
   const int wc = blockIdx.x * RED_WARPS + warp;
-  if (wc >= rp.n_wc) return;
+  if (wc >= rc.n_wc) return;
   int* run = s_red + warp * nkeys;
-  warp_key_rounds(rp, pidx, pshidx, wc, [&](int key, int i) {
+  warp_key_rounds(rp, rc, pidx, pshidx, wc, [&](int key, int i) {
     const unsigned peers = __match_any_sync(FULL, key);
     if (key < 0) return;
     perm[run[key] + __popc(peers & ((1u << lane) - 1u))] = i;
@@ -512,45 +547,50 @@ soft_grad_reduce_scatter(ReduceParams rp, const int* __restrict__ pidx,
 }
 
 __global__ void __launch_bounds__(RED_THREADS)
-soft_grad_reduce_spheres(ReduceParams rp, const float* __restrict__ pvals,
+soft_grad_reduce_spheres(ReduceParams rp, const int* __restrict__ ncnt,
+                         const float* __restrict__ pvals,
                          const float* __restrict__ psh, const int* __restrict__ seg,
                          const int* __restrict__ cbase, const int* __restrict__ perm,
                          float* __restrict__ spart) {
   __shared__ float s_sum[RED_WARPS][7];
   extern __shared__ int s_cbase[];  // cbase [2 NS + 1]
   const int nkeys = 2 * rp.ns;
-  const int b = blockIdx.x;
-  if (b >= __ldg(cbase + nkeys)) return;  // block-uniform
+  const int n_chunks = __ldg(cbase + nkeys);
+  if ((int)blockIdx.x >= n_chunks) return;  // block-uniform
   for (int k = threadIdx.x; k <= nkeys; k += RED_THREADS) s_cbase[k] = __ldg(cbase + k);
   __syncthreads();
-  int lo = 0, hi = nkeys - 1;  // the last key whose chunks start at or before b
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (s_cbase[mid] <= b) lo = mid; else hi = mid - 1;
-  }
-  const int key = lo;
-  const int row = __ldg(seg + key) + (b - s_cbase[key]) * RED_CHUNK + threadIdx.x;
-  float v[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (row < __ldg(seg + key + 1)) {
-    const int e = __ldg(perm + row);
-    if (key < rp.ns) {  // a main-list entry: 7 of its 8 floats
-      const float4 a = __ldg(reinterpret_cast<const float4*>(pvals) + (size_t)e * 2);
-      const float4 c = __ldg(reinterpret_cast<const float4*>(pvals) + (size_t)e * 2 + 1);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = c.x; v[5] = c.y; v[6] = c.z;
-    } else {  // a shadow-list entry: 4 floats
-      const float4 a = __ldg(reinterpret_cast<const float4*>(psh) + (size_t)(e - rp.n_entries));
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    }
-  }
-  warp_sum<7>(v);  // block_sum_plain's order: warp butterflies, then the warps in order
+  const int nm = __ldg(ncnt);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0)
-    for (int i = 0; i < 7; ++i) s_sum[warp][i] = v[i];
-  __syncthreads();
-  if (threadIdx.x < 7) {
-    float a = s_sum[0][threadIdx.x];
-    for (int w = 1; w < RED_WARPS; ++w) a = a + s_sum[w][threadIdx.x];
-    spart[(size_t)b * 8 + threadIdx.x] = a;
+  for (int b = blockIdx.x; b < n_chunks; b += gridDim.x) {  // chunk b of a key's entries
+    int lo = 0, hi = nkeys - 1;  // the last key whose chunks start at or before b
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (s_cbase[mid] <= b) lo = mid; else hi = mid - 1;
+    }
+    const int key = lo;
+    const int row = __ldg(seg + key) + (b - s_cbase[key]) * RED_CHUNK + threadIdx.x;
+    float v[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (row < __ldg(seg + key + 1)) {
+      const int e = __ldg(perm + row);
+      if (key < rp.ns) {  // a main-list entry: 7 of its 8 floats
+        const float4 a = __ldg(reinterpret_cast<const float4*>(pvals) + (size_t)e * 2);
+        const float4 c = __ldg(reinterpret_cast<const float4*>(pvals) + (size_t)e * 2 + 1);
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = c.x; v[5] = c.y; v[6] = c.z;
+      } else {  // a shadow-list entry: 4 floats
+        const float4 a = __ldg(reinterpret_cast<const float4*>(psh) + (size_t)(e - nm));
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      }
+    }
+    warp_sum<7>(v);  // block_sum_plain's order: warp butterflies, then the warps in order
+    if (lane == 0)
+      for (int i = 0; i < 7; ++i) s_sum[warp][i] = v[i];
+    __syncthreads();
+    if (threadIdx.x < 7) {
+      float a = s_sum[0][threadIdx.x];
+      for (int w = 1; w < RED_WARPS; ++w) a = a + s_sum[w][threadIdx.x];
+      spart[(size_t)b * 8 + threadIdx.x] = a;
+    }
+    __syncthreads();  // s_sum is free for the block's next chunk
   }
 }
 
@@ -650,16 +690,18 @@ extern "C" int rtwc_soft_mse(const float* cam, const float* sph, const float* pl
   return (int)cudaGetLastError();
 }
 
-// The reduction's five launches. With n_count = ceil(n_wc / 8) counting
+// The reduction's five launches; ncnt [2] holds the real main and shadow
+// entry counts (device memory). With n_count = ceil(n_wc / 8) counting
 // blocks, iws holds counts [2 NS, n_count] (scanned in place per key),
 // wcounts [n_count, 8, 2 NS], totals [2 NS], seg [2 NS + 1], cbase
 // [2 NS + 1] and perm [entries]; fws holds spart [n_schunks, 8], ppart
 // [n_tchunks, 12 NP] and cpart [n_tchunks, NTF, 2] (render/soft_core.py
 // reduce_params sizes them).
 extern "C" int rtwc_soft_grad_reduce(const float* pvals, const int* pidx, const float* psh,
-                                     const int* pshidx, const float* ppl, const float* ptf,
-                                     float* dsph, float* dpl, float* dtf, int* iws, float* fws,
-                                     const ReduceParams* params, void* stream) {
+                                     const int* pshidx, const int* ncnt, const float* ppl,
+                                     const float* ptf, float* dsph, float* dpl, float* dtf,
+                                     int* iws, float* fws, const ReduceParams* params,
+                                     void* stream) {
   const ReduceParams rp = *params;
   cudaError_t err = cudaSetDevice(rp.device);
   if (err != cudaSuccess) return (int)err;
@@ -693,16 +735,16 @@ extern "C" int rtwc_soft_grad_reduce(const float* pvals, const int* pidx, const 
   }
   const int n_groups = (W + COL_GROUP - 1) / COL_GROUP;
   soft_grad_reduce_count<<<n_count + rp.n_tchunks * (n_groups + 1), RED_THREADS, count_smem,
-                           st>>>(rp, pidx, pshidx, ppl, ptf, counts, wcounts, ppart, cpart);
+                           st>>>(rp, ncnt, pidx, pshidx, ppl, ptf, counts, wcounts, ppart, cpart);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int n_prefix = nkeys > 0 ? (nkeys + RED_WARPS - 1) / RED_WARPS : 1;
-  soft_grad_reduce_prefix<<<n_prefix, RED_THREADS, 0, st>>>(rp, counts, totals);
+  soft_grad_reduce_prefix<<<n_prefix, RED_THREADS, 0, st>>>(rp, ncnt, counts, totals);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   soft_grad_reduce_scatter<<<n_count > 0 ? n_count : 1, RED_THREADS, scatter_smem, st>>>(
-      rp, pidx, pshidx, counts, wcounts, totals, seg, cbase, perm);
+      rp, ncnt, pidx, pshidx, counts, wcounts, totals, seg, cbase, perm);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  soft_grad_reduce_spheres<<<rp.n_schunks, RED_THREADS, cbase_smem, st>>>(
-      rp, pvals, psh, seg, cbase, perm, spart);
+  soft_grad_reduce_spheres<<<min(rp.n_schunks, RED_SPHERE_BLOCKS), RED_THREADS, cbase_smem, st>>>(
+      rp, ncnt, pvals, psh, seg, cbase, perm, spart);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   soft_grad_reduce_final<<<(rp.ns + W + rp.ntf + RED_WARPS - 1) / RED_WARPS, RED_THREADS, 0,
                            st>>>(rp, cbase, spart, ppart, cpart, dsph, dpl, dtf);

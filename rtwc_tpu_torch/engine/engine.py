@@ -14,6 +14,15 @@ kernels, queued before frame k is encoded, keep the card busy meanwhile.
 The scene stays on the device between frames; the camera pose stays on
 the host and reaches the device once per frame as the packed [1, 16]
 vector.
+
+JAX runs the frame's physics, pack, lists, K7, downsample and cells as one
+jitted, donated step (rtwc_tpu/engine/engine.py:54-62). On a CUDA device
+the kernel renderer's step (`_device_step`) is captured once as a CUDA
+graph over static scene buffers and replayed every frame (`DisplayGraph`):
+the camera vector and dt are copied into device buffers before each
+replay, a spawn writes into the static buffers in place, and a capacity
+doubling or a mode change re-captures. `Engine(graph=False)` queues the
+same launches eagerly; the two give the same cells bit for bit.
 """
 from __future__ import annotations
 
@@ -26,7 +35,9 @@ from rtwc_tpu_torch.camera import Camera, add_rot, default_camera, move
 from rtwc_tpu_torch.config import EngineConfig, RenderConfig
 from rtwc_tpu_torch.heads import encode_frame, framebuffer_to_cells
 from rtwc_tpu_torch.io import ConsolePresenter, InputHandler
-from rtwc_tpu_torch.render.hard_kernel import render_frame_kernel
+from rtwc_tpu_torch.render import pack as P
+from rtwc_tpu_torch.render.hard_kernel import render_frame_kernel, render_frame_packed
+from rtwc_tpu_torch.render.step_graph import launch_counts, launch_delta
 from rtwc_tpu_torch.render.reference import (
     downsample_framebuffer,
     render_frame,
@@ -77,6 +88,88 @@ def _render_step(scene: Scene, camera: Camera, dt: float, config: RenderConfig):
     return scene, framebuffer_to_cells(fb, config)
 
 
+@torch.no_grad()
+def _device_step(scene: Scene, cam: torch.Tensor, dt: torch.Tensor, config: RenderConfig):
+    """_render_step on the kernel renderer from device values alone: the
+    packed camera cam [1, 16] and the time step dt [1] f32 on the scene's
+    device. Nothing reads the host, so it can be captured as a CUDA graph."""
+    scene = update_scene(scene, dt, config.bob_min_y, config.bob_max_y)
+    fb = render_frame_packed(scene, cam, supersampled_config(config))
+    fb = downsample_framebuffer(fb, config.supersample)
+    return scene, framebuffer_to_cells(fb, config)
+
+
+def _leaves(scene: Scene):
+    return [getattr(group, name) for group in (scene.spheres, scene.planes)
+            for name in group.__dataclass_fields__]
+
+
+class DisplayGraph:
+    """`_device_step` as one CUDA graph over static buffers: the scene's
+    tensors (the graph writes the physics tick back into them), the camera
+    vector and dt. The first frame of a config is an eager step on a side
+    stream (it fills the heads' cached tables), then the step is captured;
+    every later frame of that config replays it. `replay_launches` holds the
+    kernel launches a replay makes, counted at capture; `captures` counts
+    the captures."""
+
+    def __init__(self, scene: Scene):
+        self.scene = scene
+        dev = scene.device
+        self.cam = torch.zeros((1, P.CAM_LEN), dtype=torch.float32, device=dev)
+        self.dt = torch.zeros(1, dtype=torch.float32, device=dev)
+        self.replay_launches: dict | None = None
+        self.captures = 0
+        self._graph = None
+        self._config = None
+        self._cells = None
+
+    def load_scene(self, scene: Scene) -> None:
+        """Make `scene` the step's scene: copied into the static buffers in
+        place when its shapes match them, else it replaces them and the next
+        frame re-captures."""
+        old, new = _leaves(self.scene), _leaves(scene)
+        if all(a.shape == b.shape for a, b in zip(old, new)):
+            for a, b in zip(old, new):
+                if a is not b:
+                    a.copy_(b)
+        else:
+            self.scene, self._graph = scene, None
+
+    def _step(self, config: RenderConfig):
+        scene, cells = _device_step(self.scene, self.cam, self.dt, config)
+        for a, b in zip(_leaves(self.scene), _leaves(scene)):
+            if a is not b:
+                a.copy_(b)
+        return cells
+
+    @torch.no_grad()
+    def frame(self, cam_host: torch.Tensor, dt: float, config: RenderConfig):
+        """One frame: cam_host [1, 16] (the packed camera on the host) and dt
+        into the device buffers, then the step. Returns the cells, buffers
+        the next frame overwrites."""
+        self.cam.copy_(cam_host.pin_memory(), non_blocking=True)
+        self.dt.fill_(dt)
+        if self._graph is not None and config == self._config:
+            self._graph.replay()
+            return self._cells
+        self._graph, self._config = None, config
+        main = torch.cuda.current_stream(self.cam.device)
+        side = torch.cuda.Stream(self.cam.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            cells = self._step(config)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            self._cells = self._step(config)
+        self.replay_launches = launch_delta(before)
+        self._graph = graph
+        self.captures += 1
+        return cells
+
+
 def _start_download(cells):
     """Start the D2H copy of a frame's cells. Returns (host tensors, event);
     the event is None when the cells already live on the host."""
@@ -90,14 +183,25 @@ def _start_download(cells):
 
 
 class Engine:
+    """graph: None replays the kernel renderer's frame as a CUDA graph on a
+    CUDA device (DisplayGraph) and runs it eagerly elsewhere; False keeps
+    every frame eager; True needs a CUDA device and the kernel renderer."""
+
     def __init__(self, render_config: RenderConfig | None = None,
                  engine_config: EngineConfig | None = None, scene: Scene | None = None,
                  camera: Camera | None = None, presenter=None, input_handler=None,
-                 interactive: bool = True, device: torch.device | str = "cuda"):
+                 interactive: bool = True, device: torch.device | str = "cuda",
+                 graph: bool | None = None):
         self.device = resolve_device(device)
         self.rcfg = render_config or RenderConfig()
         _pick_renderer(self.rcfg)
+        kernel = self.rcfg.renderer in ("auto", "kernel")
+        if graph is None:
+            graph = kernel and self.device.type == "cuda"
+        if graph and not (kernel and self.device.type == "cuda"):
+            raise ValueError("the display graph needs a CUDA device and the kernel renderer")
         self.ecfg = engine_config or EngineConfig()
+        self.display = None
         self.scene = (scene.to(self.device) if scene is not None
                       else default_scene(self.rcfg, seed=self.ecfg.seed, device=self.device))
         self.camera = camera.to("cpu") if camera is not None else default_camera()
@@ -113,6 +217,8 @@ class Engine:
         self._rng = np.random.default_rng(self.ecfg.seed)
         self._should_quit = False
         self._pending = None  # (host cells, event) of the in-flight frame
+        if graph:
+            self.display = DisplayGraph(self._scene)
 
     # -- lifecycle (Engine3D::Start / CleanUp) --------------------------------
 
@@ -149,9 +255,7 @@ class Engine:
 
         # Queue this frame's device work and its download, then encode and
         # publish the previous frame while the device runs.
-        self.scene, cells = _render_step(self.scene, self.camera, float(np.float32(dt)),
-                                         self.rcfg)
-        prev, self._pending = self._pending, _start_download(cells)
+        prev, self._pending = self._pending, _start_download(self.device_frame(dt))
         if prev is not None:
             self._publish(prev)
 
@@ -160,6 +264,32 @@ class Engine:
                 self._spawn()
             self.presenter.update_rendering_fps(self.telemetry.fps)
         return True
+
+    def device_frame(self, dt: float):
+        """Queue one frame's device step at time step dt; returns its cells
+        on the device (on the graph path, buffers the next frame overwrites)."""
+        dt = float(np.float32(dt))
+        if self.display is not None:
+            return self.display.frame(P.pack_camera(self.camera), dt, self.rcfg)
+        if self.rcfg.renderer == "reference":
+            self.scene, cells = _render_step(self.scene, self.camera, dt, self.rcfg)
+            return cells
+        cam = P.pack_camera(self.camera, self.device)
+        dt_t = torch.full((1,), dt, dtype=torch.float32, device=self.device)
+        self.scene, cells = _device_step(self.scene, cam, dt_t, self.rcfg)
+        return cells
+
+    @property
+    def scene(self) -> Scene:
+        """The engine's scene; on the display graph, its static buffers."""
+        return self._scene if self.display is None else self.display.scene
+
+    @scene.setter
+    def scene(self, scene: Scene) -> None:
+        if self.display is None:
+            self._scene = scene
+        else:
+            self.display.load_scene(scene)
 
     def _spawn(self) -> None:
         """1 Hz random sphere; when the pool is full its capacity doubles

@@ -29,6 +29,7 @@ from rtwc_tpu_torch.camera import default_camera
 from rtwc_tpu_torch.config import RenderConfig
 from rtwc_tpu_torch.engine.engine import resolve_device
 from rtwc_tpu_torch.render.soft_kernel import render_frame_soft_kernel
+from rtwc_tpu_torch.render.step_graph import CapturedStep
 from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
 
 TRUE_OCCLUDER = (2.0, 26.0, 20.0)  # between the light (1, 50, 0) and the floor
@@ -50,7 +51,7 @@ def scene_at(scene, xz: torch.Tensor):
     """The scene with the occluder's centre at (x, TRUE_OCCLUDER[1], z),
     differentiable in xz."""
     centers = scene.spheres.center
-    y = torch.tensor([TRUE_OCCLUDER[1]], dtype=torch.float32, device=xz.device)
+    y = torch.full((1,), TRUE_OCCLUDER[1], dtype=torch.float32, device=xz.device)
     c = torch.cat([xz[:1], y, xz[1:]])[None, :]
     return scene.replace(spheres=scene.spheres.replace(
         center=torch.cat([centers[:OCCLUDER], c, centers[OCCLUDER + 1:]])))
@@ -102,15 +103,15 @@ def main(argv=None) -> int:
     true_xz = torch.tensor([TRUE_OCCLUDER[0], TRUE_OCCLUDER[2]], dtype=torch.float32, device=dev)
     xz = (true_xz + torch.tensor(args.offset, dtype=torch.float32, device=dev)).requires_grad_(True)
     opt = torch.optim.Adam([xz], lr=args.lr)
+    # one CUDA graph a step on the card (render/step_graph.py), then Adam
+    step = CapturedStep(lambda: image_loss(scene_at(true_scene, xz), cam, cfg, args.tau, target),
+                        opt)
 
     err0 = float(torch.linalg.norm(torch.tensor(args.offset, dtype=torch.float64)))
     loss0 = loss = None
     t0 = time.perf_counter()
     for i in range(args.steps):
-        loss = image_loss(scene_at(true_scene, xz), cam, cfg, args.tau, target)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        loss = step()
         if i == 0:
             loss0 = loss.item()
         if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:

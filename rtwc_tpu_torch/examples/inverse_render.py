@@ -11,7 +11,11 @@ step renders with render_frame_soft_kernel and takes the RGB + IoU loss's
 gradient through autograd. optax.adam with a cosine decay becomes
 torch.optim.Adam with a cosine LambdaLR that decays to 0 over the phase's
 steps; optax.multi_transform's freeze labels become "only the trained
-tensors are leaves that require grad and sit in the optimizer". The
+tensors are leaves that require grad and sit in the optimizer". On the
+card each step's render, loss and backward are one replay of a CUDA graph
+(render/step_graph.py), captured again at each stage of the ladder;
+torch's default Adam then steps eagerly, so the fit rounds as an eager
+loop does. The
 perturbation is drawn with NumPy from --seed exactly as the JAX script
 draws it, so both start from the same point.
 
@@ -38,6 +42,7 @@ from rtwc_tpu_torch.engine.engine import resolve_device
 from rtwc_tpu_torch.heads import quantize_rgb_ste
 from rtwc_tpu_torch.render.anneal import AnnealSchedule
 from rtwc_tpu_torch.render.soft_kernel import render_frame_soft_kernel
+from rtwc_tpu_torch.render.step_graph import CapturedStep
 from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
 
 
@@ -101,26 +106,32 @@ def loss_of(fb, target, target_a, w_sil: float, quantized: bool):
 
 
 def fit(render_args, params, stages, steps: int, lr: float, target, target_a,
-        w_sil: float, quantized: bool):
+        w_sil: float, quantized: bool, graph: bool | None = None):
     """Adam with a cosine decay to 0 over `steps`, spread over the stages
     (remainder to the earliest); the silhouette term drops out at the last
     stage. render_args() -> (scene, camera) built around the trained
-    leaves `params`. Returns (final loss, per-stage log)."""
+    leaves `params`. Each step is a CapturedStep (a CUDA graph of the
+    render, the loss and the backward on the card unless graph=False,
+    captured again at each stage), then torch's default Adam, eagerly.
+    Returns (final loss, per-stage log)."""
     opt = torch.optim.Adam(params, lr=lr)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda i: 0.5 * (1.0 + math.cos(math.pi * min(i, steps) / steps)))
+    stage = {}
+
+    def step_loss():
+        scene, cam = render_args()
+        fb = render_frame_soft_kernel(scene, cam, stage["cfg"], tau=stage["tau"])
+        return loss_of(fb, target, target_a, stage["ws"], quantized)
+
+    step = CapturedStep(step_loss, opt, graph=graph)
     n_stages = len(stages)
     per = [steps // n_stages + (1 if i < steps % n_stages else 0) for i in range(n_stages)]
     log, loss = [], torch.zeros(())
     for si, ((tau, cfg), n) in enumerate(zip(stages, per)):
-        ws = w_sil if si < n_stages - 1 else 0.0
+        stage.update(tau=tau, cfg=cfg, ws=w_sil if si < n_stages - 1 else 0.0)
         for _ in range(n):
-            scene, cam = render_args()
-            fb = render_frame_soft_kernel(scene, cam, cfg, tau=tau)
-            loss = loss_of(fb, target, target_a, ws, quantized)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
+            loss = step(key=si)
             sched.step()
         value = float(loss.detach())
         print(f"  stage tau={tau:7.3f}  loss {value:.6f}", flush=True)

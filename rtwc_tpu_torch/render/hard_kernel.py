@@ -32,7 +32,8 @@ from rtwc_tpu_torch.camera import Camera, projection_elements
 from rtwc_tpu_torch.config import RenderConfig
 from rtwc_tpu_torch.render import _cuda
 from rtwc_tpu_torch.render import pack as P
-from rtwc_tpu_torch.render.broad_phase import round_up, sphere_tile_lists, tile_grid
+from rtwc_tpu_torch.render.broad_phase import round_up, tile_grid
+from rtwc_tpu_torch.render.list_kernel import sphere_tile_lists
 from rtwc_tpu_torch.render.reference import MISS_DISTANCE, Framebuffer, _FLT_EPSILON
 from rtwc_tpu_torch.render.soft_objects import rsqrt, sphere_solve
 
@@ -427,7 +428,8 @@ def planes_to_framebuffer(out: torch.Tensor, config: RenderConfig, height: int) 
 
 def tile_lists(sph, cam, config: RenderConfig, bh: int, bw: int, rows: int | None = None):
     """The hard broad-phase lists for (bh, bw) tiles over `rows` image rows
-    (default: the whole height) starting at cam[0, C_ROW0]."""
+    (default: the whole height) starting at cam[0, C_ROW0]: the list kernel
+    on the card (render/list_kernel.py), broad_phase.py on the CPU."""
     grid = tile_grid(rows if rows is not None else config.height, config.width, bh, bw)
     lists, _ = sphere_tile_lists(sph, cam, config, 0.0, bh, bw, grid, hard=True)
     return lists
@@ -449,8 +451,15 @@ def render_frame_kernel(scene, camera: Camera, config: RenderConfig,
     """Pack, broad phase, K7, framebuffer, on the scene's device
     (pallas_kernel.py:361-380). The same (bh, bw) feeds the broad phase and
     the launch, so the lists describe exactly the block's pixels."""
+    return render_frame_packed(scene, P.pack_camera(camera, scene.device), config, bh, bw)
+
+
+def render_frame_packed(scene, cam: torch.Tensor, config: RenderConfig,
+                        bh: int = 16, bw: int = 16) -> Framebuffer:
+    """render_frame_kernel from the packed camera cam [1, 16] on the scene's
+    device: no host value is read, so the display step can be replayed as a
+    CUDA graph (engine/engine.py)."""
     sph, pl, counts = P.pack_scene(scene)
-    cam = P.pack_camera(camera, scene.device)
     lists = tile_lists(sph, cam, config, bh, bw)
     out = hard_render_packed(sph, pl, counts.reshape(1, 2), cam, lists,
                              config=config, bh=bh, bw=bw)

@@ -36,24 +36,16 @@ def _compact(active: torch.Tensor) -> torch.Tensor:
 
 def pack_scene(scene):
     """Scene -> (sph [8, NS] f32, pl [12, NP] f32, counts [2] i32) on the
-    scene's device."""
+    scene's device. Each table is its rows in slot order, then one gather of
+    the compacting permutation's columns (one indexed add backward): a step
+    pays every launch here on the card."""
     sp = scene.spheres
-    perm = _compact(sp.active)
-    sph = torch.stack([
-        sp.center[perm, 0], sp.center[perm, 1], sp.center[perm, 2],
-        sp.radius[perm],
-        sp.color[perm, 0], sp.color[perm, 1], sp.color[perm, 2],
-        sp.active[perm],
-    ])
+    sph = torch.cat([sp.center.T, sp.radius[None], sp.color.T, sp.active[None]])
+    sph = sph[:, _compact(sp.active)]
     pln = scene.planes
-    pperm = _compact(pln.active)
-    pl = torch.stack([
-        pln.center[pperm, 0], pln.center[pperm, 1], pln.center[pperm, 2],
-        pln.normal[pperm, 0], pln.normal[pperm, 1], pln.normal[pperm, 2],
-        pln.width[pperm] * 0.5, pln.height[pperm] * 0.5,
-        pln.color[pperm, 0], pln.color[pperm, 1], pln.color[pperm, 2],
-        pln.active[pperm],
-    ])
+    pl = torch.cat([pln.center.T, pln.normal.T, (pln.width * 0.5)[None],
+                    (pln.height * 0.5)[None], pln.color.T, pln.active[None]])
+    pl = pl[:, _compact(pln.active)]
     counts = torch.stack([
         (sp.active > 0.5).sum().to(torch.int32),
         (pln.active > 0.5).sum().to(torch.int32),
@@ -64,12 +56,12 @@ def pack_scene(scene):
 def pack_camera(camera: Camera, device: torch.device | str | None = None) -> torch.Tensor:
     """Camera -> [1, 16] f32: position + basis (right, up, forward) + 4
     spare zeros. Built where the camera lives (the host) and then moved to
-    `device` in one copy."""
+    `device` in one asynchronous copy (the host never waits for the card)."""
     pos = camera.pos.to(torch.float32)
     right, up, forward = basis(camera.rot.to(torch.float32))
     vec = torch.cat([pos, right, up, forward, torch.zeros(4, dtype=torch.float32,
                                                           device=pos.device)])
-    return vec[None, :].to(device if device is not None else pos.device)
+    return vec[None, :].to(device if device is not None else pos.device, non_blocking=True)
 
 
 def with_counts(cam: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,7 @@ import torch
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render import soft_core as C
 from rtwc_tpu_torch.render import soft_objects as O
-from rtwc_tpu_torch.render.broad_phase import build_tile_lists
+from rtwc_tpu_torch.render.list_kernel import build_tile_lists
 
 (SO_VIS, SO_DVR, SO_DVG, SO_DVB) = range(10, 14)
 N_PLANES_SH = 14
@@ -232,7 +232,7 @@ def _rewalk(c, spec, sph, pl, cam, lists, ray, tile, m, inv_s, vis):
 
 def _sh_backward(c, spec: C.SoftSpec, sph, pl, cam, lists, shl, offsets, sh_offsets, gates, ray,
                  tile, m, inv_s, vis, depth, out_rgb, out_n, g_rgb, g_n, g_depth0, g_alpha, w_bg,
-                 g_vis, n_entries: int, n_sh_entries: int):
+                 g_vis):
     """K5's sweeps (also K6's backward): the shadow sweep's adjoint at the
     blended hit point, then K2's sweep shaded and seeded. Returns the
     partials (pvals, psh, ppl, ptf)."""
@@ -244,7 +244,7 @@ def _sh_backward(c, spec: C.SoftSpec, sph, pl, cam, lists, shl, offsets, sh_offs
     tiles = torch.arange(T, device=dev)
     pb = (ox + dx * depth, oy + dy * depth, oz + dz * depth)
     ct_vis = g_vis * vis
-    psh = torch.zeros((max(n_sh_entries, 1), 4), dtype=torch.float32, device=dev)
+    psh = torch.zeros((C.capacity(shl), 4), dtype=torch.float32, device=dev)
     ppl = torch.zeros((T, npl, P.PL_ROWS), dtype=torch.float32, device=dev)
     zero = torch.zeros_like(m)
     ctp = [zero, zero, zero]
@@ -285,7 +285,7 @@ def _sh_backward(c, spec: C.SoftSpec, sph, pl, cam, lists, shl, offsets, sh_offs
     gv = tuple(g_rgb) + (g_depth,) + tuple(g_n)
     seed = ([a * depth for a in ctp], ctp)
     pvals, ppl, ptf = C._backward_sweep(c, spec, sph, pl, cam, lists, offsets, gates, ray, tile,
-                                         m, inv_s, gv, S, n_entries, vis=vis, seed=seed, ppl=ppl)
+                                         m, inv_s, gv, S, vis=vis, seed=seed, ppl=ppl)
     return pvals, psh, ppl, ptf
 
 
@@ -316,8 +316,8 @@ def soft_sh_stats_plain(sph, pl, cam, lists, shl, *, spec: C.SoftSpec):
 
 
 def soft_sh_bwd_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g, *,
-                      spec: C.SoftSpec, n_entries: int, n_sh_entries: int):
-    """K5 in torch ops: the partials (pvals [E, 8], psh [E_sh, 4],
+                      spec: C.SoftSpec):
+    """K5 in torch ops: the partials (pvals [T NS, 8], psh [T NS, 4],
     ppl [T, NP, 12], ptf [T, 13, 2])."""
     c = spec.consts
     Hp, Wp = spec.extent
@@ -328,12 +328,10 @@ def soft_sh_bwd_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav,
     g_vis = g[C.SO_R] * sav[SO_DVR] + g[C.SO_G] * sav[SO_DVG] + g[C.SO_B] * sav[SO_DVB]
     return _sh_backward(c, spec, sph, pl, cam, lists, shl, offsets, sh_offsets, gates, ray, tile,
                         m, inv_s, sav[SO_VIS], sav[C.SO_DEPTH], sav[0:3], sav[4:7], g[0:3],
-                        g[4:7], g[C.SO_DEPTH], g[C.SO_ALPHA], w_bg, g_vis, n_entries,
-                        n_sh_entries)
+                        g[4:7], g[C.SO_DEPTH], g[C.SO_ALPHA], w_bg, g_vis)
 
 
-def soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.SoftSpec,
-                      n_entries: int, n_sh_entries: int):
+def soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.SoftSpec):
     """K6 in torch ops: K4's forward, the masked MSE and its cotangents,
     K5's sweeps at loss-cotangent 1. Returns the partials; ptf's slot 12
     holds the loss sum."""
@@ -357,8 +355,7 @@ def soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spe
     spec_b = dataclasses.replace(spec, bwd_cull=spec.cull)
     pvals, psh, ppl, ptf = _sh_backward(c, spec_b, sph, pl, cam, lists, shl, offsets, sh_offsets,
                                         gates, ray, tile, m, inv_s, vis, depth, rgb, n, g_rgb,
-                                        (zero, zero, zero), zero, zero, zero, g_vis, n_entries,
-                                        n_sh_entries)
+                                        (zero, zero, zero), zero, zero, zero, g_vis)
     hi, lo = C.block_tf_sum_plain(C.tile_view(diff[0] * diff[0] + diff[1] * diff[1]
                                                 + diff[2] * diff[2], spec.bh, spec.bw))
     ptf[:, C.SLOT_LOSS, 0], ptf[:, C.SLOT_LOSS, 1] = hi, lo
@@ -401,14 +398,14 @@ def soft_sh_stats(sph, pl, cam, lists, shl, *, spec: C.SoftSpec):
     return _fwd(sph, pl, cam, lists, shl, spec, stats=True)
 
 
-def _partials(spec, sph, pl, n_entries: int, n_sh_entries: int):
-    pvals, ppl, ptf = C._partials(spec, sph, pl, n_entries)
-    psh = torch.zeros((max(n_sh_entries, 1), 4), dtype=torch.float32, device=sph.device)
+def _partials(spec, sph, pl, lists, shl):
+    pvals, ppl, ptf = C._partials(spec, sph, pl, lists)
+    psh = torch.zeros((C.capacity(shl), 4), dtype=torch.float32, device=sph.device)
     return pvals, psh, ppl, ptf
 
 
 def soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g, *,
-                spec: C.SoftSpec, n_entries: int, n_sh_entries: int):
+                spec: C.SoftSpec):
     """K5: the partials (pvals, psh, ppl, ptf) for the cotangent planes g."""
     _require_shadows(spec)
     Hp, Wp = spec.extent
@@ -419,8 +416,8 @@ def soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g, *,
         raise ValueError(f"saved planes and cotangents must be [14, {Hp}, {Wp}]")
     if sph.device.type == "cpu":
         return soft_sh_bwd_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g,
-                                 spec=spec, n_entries=n_entries, n_sh_entries=n_sh_entries)
-    parts = _partials(spec, sph, pl, n_entries, n_sh_entries)
+                                 spec=spec)
+    parts = _partials(spec, sph, pl, lists, shl)
     prm = C._params(spec, sph, pl, lists)
     prm.cull = int(spec.bwd_cull)
     C._launch("rtwc_soft_sh_bwd", "soft_sh_bwd",
@@ -428,8 +425,7 @@ def soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g, *,
     return parts
 
 
-def soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.SoftSpec,
-                n_entries: int, n_sh_entries: int):
+def soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.SoftSpec):
     """K6: the partials (pvals, psh, ppl, ptf) of the fused shadowed MSE step
     at loss-cotangent 1; ptf's slot 12 holds the loss sum."""
     _require_shadows(spec)
@@ -439,9 +435,8 @@ def soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.S
     if tuple(tgt.shape) != (3, Hp, Wp):
         raise ValueError(f"target must be [3, {Hp}, {Wp}], got {tuple(tgt.shape)}")
     if sph.device.type == "cpu":
-        return soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec,
-                                 n_entries=n_entries, n_sh_entries=n_sh_entries)
-    parts = _partials(spec, sph, pl, n_entries, n_sh_entries)
+        return soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec)
+    parts = _partials(spec, sph, pl, lists, shl)
     prm = C._params(spec, sph, pl, lists)
     prm.cull = int(spec.cull)
     C._launch("rtwc_soft_sh_mse", "soft_sh_mse",

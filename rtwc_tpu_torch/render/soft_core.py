@@ -95,14 +95,13 @@ class ReduceParams(ctypes.Structure):
 
     _fields_ = [("ns", ctypes.c_int), ("np", ctypes.c_int), ("n_entries", ctypes.c_int),
                 ("n_tiles", ctypes.c_int), ("ntf", ctypes.c_int), ("device", ctypes.c_int),
-                ("n_sh_entries", ctypes.c_int), ("wc_keys", ctypes.c_int),
-                ("n_wc", ctypes.c_int), ("tch", ctypes.c_int), ("n_tchunks", ctypes.c_int),
+                ("n_sh_entries", ctypes.c_int), ("n_wc", ctypes.c_int), ("tch", ctypes.c_int), ("n_tchunks", ctypes.c_int),
                 ("n_schunks", ctypes.c_int)]
 
 
 RED_CHUNK = 256        # sorted entries a first-pass sphere block sums (one a thread)
 RED_TILE_CHUNKS = 256  # about this many first-pass blocks each for planes and camera
-RED_WARP_CHUNKS = 2048  # about this many warps count and scatter the sphere keys
+RED_WARP_CHUNKS = 2048  # at most this many warps count and scatter the sphere keys
 
 
 def reduce_tile_chunk(n_tiles: int) -> int:
@@ -114,12 +113,16 @@ def reduce_tile_chunk(n_tiles: int) -> int:
 
 def reduce_params(ns: int, npl: int, n: int, n_sh: int, n_tiles: int, ntf: int, device: int):
     """(ReduceParams, int workspace length, float workspace length) of one
-    reduction; the C entry carves the workspaces as its comment says."""
+    reduction over entry tables of capacities n (main) and n_sh (shadow);
+    the real counts stay on the device. The C entry carves the workspaces
+    as its comment says."""
     N = n + n_sh
-    wc_keys = 256 * max(1, -(-N // (256 * RED_WARP_CHUNKS)))  # whole batches of 8 rounds
     tch = reduce_tile_chunk(n_tiles)
+    # warps of 256 keys each, RED_WARP_CHUNKS warps at most: the most any
+    # real count takes (the kernels size each warp's keys from it)
     prm = ReduceParams(ns=ns, np=npl, n_entries=n, n_tiles=n_tiles, ntf=ntf, device=device,
-                       n_sh_entries=n_sh, wc_keys=wc_keys, n_wc=-(-N // wc_keys), tch=tch,
+                       n_sh_entries=n_sh, n_wc=max(1, min(RED_WARP_CHUNKS, -(-N // 256))),
+                       tch=tch,
                        n_tchunks=max(1, -(-n_tiles // tch)),
                        n_schunks=max(1, -(-N // RED_CHUNK) + 2 * ns))
     n_count = -(-prm.n_wc // 8)  # blocks of 8 counting warps
@@ -130,7 +133,7 @@ def reduce_params(ns: int, npl: int, n: int, n_sh: int, n_tiles: int, ntf: int, 
 
 # C entry -> (library, number of pointer arguments)
 _ENTRIES = {"rtwc_soft_fwd": ("soft_render", 6), "rtwc_soft_bwd": ("soft_render", 11),
-            "rtwc_soft_mse": ("soft_render", 9), "rtwc_soft_grad_reduce": ("soft_render", 11),
+            "rtwc_soft_mse": ("soft_render", 9), "rtwc_soft_grad_reduce": ("soft_render", 12),
             "rtwc_soft_sh_fwd": ("soft_shadow", 8), "rtwc_soft_sh_bwd": ("soft_shadow", 14),
             "rtwc_soft_sh_mse": ("soft_shadow", 12)}
 
@@ -208,24 +211,19 @@ def _check(spec: SoftSpec, sph, pl, cam, lists, **extra):
         raise ValueError(f"the soft kernels run on cuda or cpu, not {dev}")
 
 
-def _partials(spec: SoftSpec, sph, pl, n_entries: int):
-    """Zeroed partial tables (pvals [E, 8], ppl [T, NP, 12], ptf [T, 13, 2])."""
+def capacity(lists: torch.Tensor) -> int:
+    """Entries a list table can hold: every tile listing every sphere
+    (T NS, at least 1), the rows of the partial tables sized from it."""
+    return max(1, lists.shape[0] * (lists.shape[2] - 1))
+
+
+def _partials(spec: SoftSpec, sph, pl, lists):
+    """Zeroed partial tables (pvals [T NS, 8], ppl [T, NP, 12], ptf [T, 13, 2])."""
     T = spec.grid[0] * spec.grid[1]
     dev = sph.device
-    return (torch.zeros((max(n_entries, 1), 8), dtype=torch.float32, device=dev),
+    return (torch.zeros((capacity(lists), 8), dtype=torch.float32, device=dev),
             torch.zeros((T, pl.shape[1], P.PL_ROWS), dtype=torch.float32, device=dev),
             torch.zeros((T, NTF, 2), dtype=torch.float32, device=dev))
-
-
-def list_entries(lists: torch.Tensor):
-    """(offsets [T] i32, pidx [E] i32): where each tile's slots start in the
-    compact sphere partials, and the sphere of every entry (tile order,
-    then slot order)."""
-    cnt = lists[:, 0, 0]
-    offsets = (torch.cumsum(cnt, 0) - cnt).to(torch.int32)
-    ns = lists.shape[2] - 1
-    slot = torch.arange(ns, device=lists.device)[None, :] < cnt[:, None]
-    return offsets.contiguous(), lists[:, 0, 1:][slot].to(torch.int32).contiguous()
 
 
 def _packed(scene, camera):
@@ -378,7 +376,7 @@ def object_sweep(c, spec: SoftSpec, sph, pl, cam, lists, ray, tile, m_now, visit
 
 
 def _backward_sweep(c, spec: SoftSpec, sph, pl, cam, lists, offsets, gates, ray, tile,
-                    m, inv_s, gv, S, n_entries: int, vis=None, seed=None, ppl=None):
+                    m, inv_s, gv, S, vis=None, seed=None, ppl=None):
     """K2's sweep against the saved statistics (pallas_soft.py:1381-1493),
     shared by K3 and, shaded, by K5 / K6. gv: the seven output cotangent
     planes (r, g, b, depth, nx, ny, nz). Shaded (vis given): object colours
@@ -391,7 +389,7 @@ def _backward_sweep(c, spec: SoftSpec, sph, pl, cam, lists, offsets, gates, ray,
     dev = cam.device
     ns, npl = sph.shape[1], pl.shape[1]
     T = lists.shape[0]
-    pvals = torch.zeros((max(n_entries, 1), 8), dtype=torch.float32, device=dev)
+    pvals = torch.zeros((capacity(lists), 8), dtype=torch.float32, device=dev)
     if ppl is None:
         ppl = torch.zeros((T, npl, P.PL_ROWS), dtype=torch.float32, device=dev)
     zero = torch.zeros_like(m)

@@ -56,12 +56,12 @@ from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render import shadow_kernel as SH
 from rtwc_tpu_torch.render import soft_core as C
 from rtwc_tpu_torch.render import soft_objects as O
-from rtwc_tpu_torch.render.broad_phase import sphere_tile_lists
+from rtwc_tpu_torch.render.list_kernel import Entries, entry_tables, sphere_tile_lists
 from rtwc_tpu_torch.render.reference import Framebuffer
 from rtwc_tpu_torch.render.soft_core import (  # noqa: F401 (LAUNCHES, NTF: shared names)
     LAUNCHES, NTF, SLOT_LOSS, SO_ALPHA, SO_B, SO_DEPTH, SO_M, SO_NX, SO_NZ, SO_R, SO_S,
     SoftSpec, _accumulate, _backward_sweep, _check, _device_index, _launch, _packed, _params,
-    _partials, _ray_planes, _spec, block_sum_plain, block_tf_sum_plain, list_entries,
+    _partials, _ray_planes, _spec, block_sum_plain, block_tf_sum_plain, capacity,
     object_sweep, tile_view)
 
 N_PLANES = 10
@@ -128,11 +128,13 @@ def _tile_passes(x: torch.Tensor, combine=None, err=None):
     return out, out_e
 
 
-def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
+def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None, counts=None):
     """The reduction kernels' sums in their order (csrc/soft_render.cu):
     returns dsph [8, NS], dpl [12, NP] and the two-float pairs [NTF, 2].
     psh [E_sh, 4] / pshidx: the shadowed kernels' occluder partials, added
-    to rows 0-3 after a sphere's main entries. Entries are grouped by
+    to rows 0-3 after a sphere's main entries. counts [2] i32: the real
+    main and shadow entries, the first of each table (the kernels read them
+    from device memory); None: every entry of pidx and pshidx is real. Entries are grouped by
     sphere, main list first, in tile order within a sphere (a stable sort);
     a first pass sums each group's chunks of RED_CHUNK entries as a block
     sum, the last sums a group's chunks as a warp does (_warp_passes) and
@@ -142,13 +144,20 @@ def soft_grad_reduce_plain(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None
     outside [0, ns) are dropped."""
     dev = pvals.device
     n = pidx.shape[0]
+
+    def real(idx, which):
+        ok = (idx >= 0) & (idx < ns)
+        if counts is None:
+            return ok
+        return ok & (torch.arange(idx.shape[0], device=dev) < counts[which])
+
     keys, vals = [pidx.long()], [pvals[:n]]
     if pshidx is not None and pshidx.shape[0]:
         keys.append(pshidx.long() + ns)
         vals.append(torch.nn.functional.pad(psh[:pshidx.shape[0], :4], (0, 4)))
-        ok = torch.cat([(pidx >= 0) & (pidx < ns), (pshidx >= 0) & (pshidx < ns)])
+        ok = torch.cat([real(pidx, 0), real(pshidx, 1)])
     else:
-        ok = (pidx >= 0) & (pidx < ns)
+        ok = real(pidx, 0)
     key, val = torch.cat(keys)[ok], torch.cat(vals)[ok]
     order = torch.sort(key, stable=True).indices
     key, val = key[order], val[order]
@@ -215,9 +224,8 @@ def soft_fwd_plain(sph, pl, cam, lists, *, spec: SoftSpec):
     return torch.stack([a * inv_s for a in acc] + [alpha, m, s]), gates
 
 
-def soft_bwd_plain(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec,
-                   n_entries: int):
-    """K2 in torch ops: returns the partials (pvals [E, 8], ppl [T, NP, 12],
+def soft_bwd_plain(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec):
+    """K2 in torch ops: returns the partials (pvals [T NS, 8], ppl [T, NP, 12],
     ptf [T, 13, 2])."""
     c = spec.consts
     Hp, Wp = spec.extent
@@ -231,10 +239,10 @@ def soft_bwd_plain(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpe
         S = S + gv[i] * sav[SO_R + i]
     S = S - g[SO_ALPHA] * w_bg
     return _backward_sweep(c, spec, sph, pl, cam, lists, offsets, gates, ray, tile, m, inv_s,
-                           gv, S, n_entries)
+                           gv, S)
 
 
-def soft_mse_plain(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entries: int):
+def soft_mse_plain(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec):
     """K3 in torch ops: the rgb-only forward sweep, the masked MSE and its
     cotangents, and K2's sweep at loss-cotangent 1. Returns the partials;
     the loss is two-float slot 12 (sum of squared differences / 255^2)."""
@@ -258,7 +266,7 @@ def soft_mse_plain(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entri
     gv = tuple(g_rgb) + (zero, zero, zero, zero)
     spec_b = dataclasses.replace(spec, bwd_cull=spec.cull)
     pvals, ppl, ptf = _backward_sweep(c, spec_b, sph, pl, cam, lists, offsets, gates, ray, tile,
-                                      m, inv_s, gv, S, n_entries)
+                                      m, inv_s, gv, S)
     hi, lo = block_tf_sum_plain(tile_view(diff[0] * diff[0] + diff[1] * diff[1]
                                           + diff[2] * diff[2], spec.bh, spec.bw))
     ptf[:, SLOT_LOSS, 0], ptf[:, SLOT_LOSS, 1] = hi, lo
@@ -282,17 +290,17 @@ def soft_fwd(sph, pl, cam, lists, *, spec: SoftSpec):
     return out, gates
 
 
-def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec, n_entries: int):
-    """K2: the partials (pvals, ppl, ptf) for the cotangent planes g."""
+def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec):
+    """K2: the partials (pvals, ppl, ptf) for the cotangent planes g; pvals
+    holds capacity(lists) rows, a tile's entries at offsets[tile] + slot."""
     Hp, Wp = spec.extent
     _check(spec, sph, pl, cam, lists, offsets=(offsets, torch.int32, 1),
            gates=(gates, torch.int32, 3), sav=(sav, torch.float32, 3), g=(g, torch.float32, 3))
     if tuple(sav.shape) != (N_PLANES, Hp, Wp) or tuple(g.shape) != (N_PLANES, Hp, Wp):
         raise ValueError(f"saved planes and cotangents must be [10, {Hp}, {Wp}]")
     if sph.device.type == "cpu":
-        return soft_bwd_plain(sph, pl, cam, lists, offsets, gates, sav, g, spec=spec,
-                              n_entries=n_entries)
-    pvals, ppl, ptf = _partials(spec, sph, pl, n_entries)
+        return soft_bwd_plain(sph, pl, cam, lists, offsets, gates, sav, g, spec=spec)
+    pvals, ppl, ptf = _partials(spec, sph, pl, lists)
     prm = _params(spec, sph, pl, lists)
     prm.cull = int(spec.bwd_cull)
     _launch("rtwc_soft_bwd", "soft_bwd",
@@ -300,7 +308,7 @@ def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec, n_e
     return pvals, ppl, ptf
 
 
-def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entries: int):
+def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec):
     """K3: the partials (pvals, ppl, ptf) of the fused MSE step at
     loss-cotangent 1; ptf's slot 12 holds the loss sum."""
     Hp, Wp = spec.extent
@@ -309,8 +317,8 @@ def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entries: in
     if tuple(tgt.shape) != (3, Hp, Wp):
         raise ValueError(f"target must be [3, {Hp}, {Wp}], got {tuple(tgt.shape)}")
     if sph.device.type == "cpu":
-        return soft_mse_plain(sph, pl, cam, lists, offsets, tgt, spec=spec, n_entries=n_entries)
-    pvals, ppl, ptf = _partials(spec, sph, pl, n_entries)
+        return soft_mse_plain(sph, pl, cam, lists, offsets, tgt, spec=spec)
+    pvals, ppl, ptf = _partials(spec, sph, pl, lists)
     prm = _params(spec, sph, pl, lists)
     prm.cull = int(spec.cull)
     _launch("rtwc_soft_mse", "soft_mse",
@@ -318,10 +326,13 @@ def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, n_entries: in
     return pvals, ppl, ptf
 
 
-def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
+def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None, counts=None):
     """Sum the partials in a fixed order: (dsph [8, NS], dpl [12, NP],
     two-float pairs [13, 2]). psh [E_sh, 4] and pshidx [E_sh] are the
-    shadowed kernels' occluder partials (K5, K6), keyed by shadow-list slot."""
+    shadowed kernels' occluder partials (K5, K6), keyed by shadow-list slot.
+    counts [2] i32 on the tables' device: how many of pidx's and pshidx's
+    entries are real (entry_tables' counts; the kernels read them there, so
+    the host never waits); None: all of them."""
     dev = pvals.device
     named = [("pvals", pvals, torch.float32, 2), ("pidx", pidx, torch.int32, 1),
              ("ppl", ppl, torch.float32, 3), ("ptf", ptf, torch.float32, 3)]
@@ -339,11 +350,18 @@ def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
         raise ValueError("partials do not fit together")
     n = pidx.shape[0]
     n_sh = 0 if pshidx is None else pshidx.shape[0]
+    if counts is not None and (counts.device != dev or counts.dtype != torch.int32
+                               or tuple(counts.shape) != (2,)):
+        raise ValueError(f"counts must be i32 [2] on {dev}")
     if dev.type == "cpu":
         return soft_grad_reduce_plain(pvals[:n], pidx, ppl, ptf, ns,
-                                      None if psh is None else psh[:n_sh], pshidx)
+                                      None if psh is None else psh[:n_sh], pshidx, counts)
     if dev.type != "cuda":
         raise ValueError(f"soft_grad_reduce runs on cuda or cpu, not {dev}")
+    if counts is None:  # every entry is real: two fills, no copy from the host
+        counts = torch.empty(2, dtype=torch.int32, device=dev)
+        counts[0] = n
+        counts[1] = n_sh
     for name, t in (("pvals", pvals), ("psh", psh), ("ptf", ptf)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (vector loads)")
@@ -356,7 +374,7 @@ def soft_grad_reduce(pvals, pidx, ppl, ptf, ns: int, psh=None, pshidx=None):
     iws = torch.empty(n_int, dtype=torch.int32, device=dev)
     fws = torch.empty(n_float, dtype=torch.float32, device=dev)
     _launch("rtwc_soft_grad_reduce", "soft_grad_reduce",
-            (pvals, pidx, psh, pshidx, ppl, ptf, dsph, dpl, dtf, iws, fws), prm, pvals)
+            (pvals, pidx, psh, pshidx, counts, ppl, ptf, dsph, dpl, dtf, iws, fws), prm, pvals)
     return dsph, dpl, dtf
 
 
@@ -389,14 +407,15 @@ def _forward_planes(sph, pl, cam, spec: SoftSpec):
     return soft_fwd(sph, pl, cam, lists, spec=spec) + (lists, shl)
 
 
-def _reduce(sph, pidx, pshidx, parts):
-    """soft_grad_reduce over K2 / K3 partials (pshidx None), or K5 / K6
-    partials with their shadow-occluder table."""
-    if pshidx is None:
+def _reduce(sph, ent: Entries, parts):
+    """soft_grad_reduce over K2 / K3 partials (no shadow entries), or K5 /
+    K6 partials with their shadow-occluder table."""
+    if ent.pshidx is None:
         pvals, ppl, ptf = parts
-        return soft_grad_reduce(pvals, pidx, ppl, ptf, sph.shape[1])
+        return soft_grad_reduce(pvals, ent.pidx, ppl, ptf, sph.shape[1], counts=ent.counts)
     pvals, psh, ppl, ptf = parts
-    return soft_grad_reduce(pvals, pidx, ppl, ptf, sph.shape[1], psh=psh, pshidx=pshidx)
+    return soft_grad_reduce(pvals, ent.pidx, ppl, ptf, sph.shape[1], psh=psh,
+                            pshidx=ent.pshidx, counts=ent.counts)
 
 
 class SoftRender(torch.autograd.Function):
@@ -421,18 +440,14 @@ class SoftRender(torch.autograd.Function):
         spec = ctx.spec
         if spec.bwd_cull != spec.cull:
             lists, shl = _lists(sph, pl, cam, spec, spec.bwd_cull)
-        offsets, pidx = list_entries(lists)
+        ent = entry_tables(lists, shl)
         g = g.contiguous()
-        pshidx = None
         if shl is None:
-            parts = soft_bwd(sph, pl, cam, lists, offsets, gates, out, g, spec=spec,
-                             n_entries=pidx.shape[0])
+            parts = soft_bwd(sph, pl, cam, lists, ent.offsets, gates, out, g, spec=spec)
         else:
-            sh_offsets, pshidx = list_entries(shl)
-            parts = SH.soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, out, g,
-                                   spec=spec, n_entries=pidx.shape[0],
-                                   n_sh_entries=pshidx.shape[0])
-        dsph, dpl, dtf = _reduce(sph, pidx, pshidx, parts)
+            parts = SH.soft_sh_bwd(sph, pl, cam, lists, shl, ent.offsets, ent.sh_offsets, gates,
+                                   out, g, spec=spec)
+        dsph, dpl, dtf = _reduce(sph, ent, parts)
         return dsph, dpl, _dcam(dtf), None
 
 
@@ -441,8 +456,8 @@ def _mse_via_forward(sph, pl, cam, tgt, spec: SoftSpec):
     shadows) and the mean in torch."""
     H, W = spec.rows, spec.config.width
     out = _forward_planes(sph, pl, cam, spec)[0]
-    d = (out[SO_R:SO_B + 1, :H, :W] - tgt[:, :H, :W]) / torch.tensor(
-        255.0, dtype=torch.float32, device=out.device)
+    d = (out[SO_R:SO_B + 1, :H, :W] - tgt[:, :H, :W]) / torch.full(
+        (), 255.0, dtype=torch.float32, device=out.device)
     return torch.mean(d * d)
 
 
@@ -463,16 +478,13 @@ class SoftMSE(torch.autograd.Function):
         H, W = spec.rows, spec.config.width
         inv_n = 1.0 / (3.0 * H * W)
         lists, shl = _lists(sph, pl, cam, spec, spec.cull)
-        offsets, pidx = list_entries(lists)
-        pshidx = None
+        ent = entry_tables(lists, shl)
         if shl is None:
-            parts = soft_mse(sph, pl, cam, lists, offsets, tgt, spec=spec,
-                             n_entries=pidx.shape[0])
+            parts = soft_mse(sph, pl, cam, lists, ent.offsets, tgt, spec=spec)
         else:
-            sh_offsets, pshidx = list_entries(shl)
-            parts = SH.soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec,
-                                   n_entries=pidx.shape[0], n_sh_entries=pshidx.shape[0])
-        dsph, dpl, dtf = _reduce(sph, pidx, pshidx, parts)
+            parts = SH.soft_sh_mse(sph, pl, cam, lists, shl, ent.offsets, ent.sh_offsets, tgt,
+                                   spec=spec)
+        dsph, dpl, dtf = _reduce(sph, ent, parts)
         loss = (dtf[SLOT_LOSS, 0] + dtf[SLOT_LOSS, 1]) * O.f32(1.0 / 255.0 ** 2) * inv_n
         ctx.save_for_backward(dsph, dpl, _dcam(dtf), sph, pl, cam, tgt)
         return loss

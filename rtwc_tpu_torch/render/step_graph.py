@@ -1,0 +1,146 @@
+"""One optimiser step replayed as a CUDA graph: the port's counterpart of
+`jax.jit` over the JAX package's train step (`_soft_mse_pallas_jit`,
+rtwc_tpu/render/pallas_soft.py:2700-2711) and of the bench's K steps in
+one dispatch (bench.py:80-127, `lax.scan`).
+
+A step is pack, the list kernel and the entry tables, the soft kernels
+(K3 / K6, or K1 + K2 / K4 + K5 with the torch loss), the reduction and
+the optimiser's update. Nothing in it reads a value back to the host (the
+entry counts stay on the device, render/list_kernel.py), so it can be
+captured once and replayed: one graph launch a step in place of some
+hundred launches from Python.
+
+`CapturedStep(loss_fn, opt)` runs `loss_fn()`, the backward and
+`opt.step()`. loss_fn must build the loss from tensors that stay put
+between calls: the optimiser's parameters (updated in place) and the
+caller's buffers (a target), which the caller updates in place between
+calls. On a CUDA device the first call of a key is an eager step on a side
+stream (it makes the optimiser's state and every cached table) and then
+captures the step; later calls with that key replay the graph. The key is
+the caller's `key` (a config, a loss weight, the shape of a buffer)
+together with the shape, dtype and storage of every parameter, so a new
+config or parameter re-captures, as `jit` retraces.
+
+Where the optimiser was built with capturable=True (bench.py's
+`torch.optim.Adam(capturable=True, fused=True)`), its update is part of
+the graph. Otherwise the graph ends with the backward, which writes the
+parameters' .grad in place, and `opt.step()` runs eagerly after each
+replay: torch's default Adam reads its step count and learning rate on the
+host (no device sync) and rounds as an eager fit does, so the fits of
+examples/ end where their eager loops end, bit for bit.
+
+`graph=False` keeps every step eager: the same launches, queued from
+Python, so the two are `torch.equal` step for step. A capture that fails
+raises; nothing falls back to eager on its own.
+
+The launch counters of the kernel modules count at capture only: a replay
+launches what `replay_launches` records and counts nothing.
+"""
+from __future__ import annotations
+
+from typing import Callable, Hashable
+
+import torch
+
+from rtwc_tpu_torch.render import hard_kernel as HK
+from rtwc_tpu_torch.render import list_kernel as LK
+from rtwc_tpu_torch.render import soft_core as SC
+
+
+def launch_counts() -> dict:
+    """Every kernel launch counter of the port, by kernel name."""
+    return {**SC.LAUNCHES, "hard_render": HK.LAUNCHES, **LK.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for key in SC.LAUNCHES:
+        SC.LAUNCHES[key] = 0
+    for key in LK.LAUNCHES:
+        LK.LAUNCHES[key] = 0
+    HK.LAUNCHES = 0
+
+
+def launch_delta(before: dict) -> dict:
+    """The launches counted since `before` (a launch_counts() snapshot),
+    the kernels launched at least once."""
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items() if v != before.get(k, 0)}
+
+
+def card_adam(params) -> dict:
+    """torch.optim.Adam's options for a step captured whole on the
+    parameters' device: on a CUDA device capturable and fused (one kernel a
+    step for every parameter, reading the step count from device memory);
+    elsewhere torch's default. Its roundings differ from the default's, and
+    the fits of examples/ follow the rounding (PERF.md), so they keep
+    the default and step it after each replay."""
+    return {"capturable": True, "fused": True} if params[0].is_cuda else {}
+
+
+class CapturedStep:
+    """An optimiser step (loss_fn, backward, opt.step) as one CUDA graph.
+
+    graph: None runs a graph on a CUDA device and eagerly elsewhere; True
+    needs a CUDA device; False is always eager. Calling it takes one step
+    and returns its loss (detached; on the graph path a buffer the next
+    replay overwrites). `in_graph` says whether opt.step() is captured
+    (a capturable optimiser) or runs after each replay."""
+
+    def __init__(self, loss_fn: Callable[[], torch.Tensor], opt: torch.optim.Optimizer, *,
+                 graph: bool | None = None):
+        self.params = [p for group in opt.param_groups for p in group["params"]]
+        if not self.params:
+            raise ValueError("the optimiser holds no parameters")
+        self.device = self.params[0].device
+        self.graph = self.device.type == "cuda" if graph is None else graph
+        if self.graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        self.in_graph = all(group.get("capturable", False) for group in opt.param_groups)
+        self.loss_fn, self.opt = loss_fn, opt
+        self.replay_launches: dict | None = None
+        self.captures = 0
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._key: Hashable = None
+        self._loss: torch.Tensor | None = None
+
+    def _eager(self) -> torch.Tensor:
+        loss = self.loss_fn()
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+    def capture_key(self, key: Hashable = None) -> tuple:
+        """The caller's key with each parameter's shape, dtype and storage:
+        a replay needs all of them unchanged."""
+        return key, tuple((p.shape, p.dtype, p.data_ptr()) for p in self.params)
+
+    def __call__(self, key: Hashable = None) -> torch.Tensor:
+        if not self.graph:
+            return self._eager()
+        key = self.capture_key(key)
+        if self._graph is not None and key == self._key:
+            self._graph.replay()
+            if not self.in_graph:
+                self.opt.step()
+            return self._loss
+        self._graph, self._loss, self._key = None, None, key
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss = self._eager()
+        main.wait_stream(side)
+        # the capture's backward allocates each .grad in the graph's pool;
+        # a replay writes them there
+        self.opt.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            static = self.loss_fn()
+            static.backward()
+            if self.in_graph:
+                self.opt.step()
+        self.replay_launches = launch_delta(before)
+        self.captures += 1
+        self._graph, self._loss = graph, static.detach()
+        return loss

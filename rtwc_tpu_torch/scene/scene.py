@@ -248,13 +248,19 @@ def random_scene(n_spheres: int, n_planes: int = 1, max_spheres: int | None = No
     return s.to(device or "cpu")
 
 
-def update_scene(scene: Scene, dt: float, bob_min_y: float = -10.0,
+def update_scene(scene: Scene, dt: float | torch.Tensor, bob_min_y: float = -10.0,
                  bob_max_y: float = 10.0) -> Scene:
     """Physics tick over all spheres on their device (scene.py:272-289):
     y += speed * mover * dt; leaving [bob_min_y, bob_max_y] clamps y and
     flips the direction. Inactive slots keep their state bit for bit.
-    `dt` is rounded to f32 first, as the JAX engine passes np.float32."""
-    dt = float(np.float32(dt))
+    `dt` is an f32 tensor of one element on the scene's device (the display
+    step replayed as a CUDA graph reads it there), or a float rounded to f32
+    first; either way the JAX engine's np.float32 time step."""
+    if isinstance(dt, torch.Tensor):
+        if dt.dtype != torch.float32 or dt.numel() != 1:
+            raise ValueError(f"dt must be one f32 value, got {dt.dtype} {tuple(dt.shape)}")
+    else:
+        dt = float(np.float32(dt))
     sp = scene.spheres
     y = sp.center[:, 1] + sp.speed * sp.mover * dt
     out = (y < bob_min_y) | (y > bob_max_y)

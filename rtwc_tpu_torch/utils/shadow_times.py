@@ -38,9 +38,15 @@ reduction's tables equal their plain versions', bit for bit, on these
 inputs; a digest (sha256, first 16 hex digits) of K7's and K1's outputs,
 so that two checkouts can be compared bit for bit; and the registers and
 spill stores of the checkout's K7 and soft kernels
-(`chip_smoke._ptxas_report` on its `_build/lib*.log`). Needs one CUDA card
-(exit 2 without one); prints the card's name and power limit, then one
-JSON line.
+(`chip_smoke._ptxas_report` on its `_build/lib*.log`). It also times the
+shadowed fused train step (`bench.train_step`, Adam on every leaf) at the
+headline and at 4K/200 as host ms a step (`chip_smoke._step_ms`), eagerly
+and, where the checkout has them, replayed as a CUDA graph
+(render/step_graph.py), with the list kernel's device time
+(`tile_lists_kernel`, `entry_tables_kernel`). A checkout from before the
+entry tables (`list_entries`, partial tables sized by the entry count) is
+driven through the same calls by `_entries`. Needs one CUDA card (exit 2
+without one); prints the card's name and power limit, then one JSON line.
 """
 from __future__ import annotations
 
@@ -56,24 +62,42 @@ REDUCE_KERNELS = tuple(f"soft_grad_reduce_{k}"
                        for k in ("count", "prefix", "scatter", "spheres", "final"))
 
 
+def _entries(SK, lists, shl=None):
+    """(offsets, pidx, sh_offsets, pshidx, counts, sizes) of the checkout's
+    soft kernels: its entry tables and their device counts (sizes {}), or,
+    in a checkout from before them, the masked compaction with counts None
+    and the entry counts the wrappers took (sizes)."""
+    if hasattr(SK, "entry_tables"):
+        return tuple(SK.entry_tables(lists, shl)) + ({},)
+    offsets, pidx = SK.list_entries(lists)
+    sizes = dict(n_entries=pidx.shape[0])
+    if shl is None:
+        return offsets, pidx, None, None, None, sizes
+    sh_offsets, pshidx = SK.list_entries(shl)
+    return offsets, pidx, sh_offsets, pshidx, None, dict(sizes, n_sh_entries=pshidx.shape[0])
+
+
+def _real(t, counts, which):
+    """The real entries of a capacity-sized table (all of a compact one)."""
+    return t if counts is None else t[:int(counts[which])]
+
+
 def _case(SK, SH, cfg, scene, cam, dev):
-    """(spec, sizes, K4's, K5's and K6's launch arguments, pidx, pshidx) for
-    one shadowed configuration."""
+    """(spec, sizes, K4's, K5's and K6's launch arguments, pidx, pshidx,
+    counts) for one shadowed configuration."""
     import torch
 
     spec = SK.SoftSpec(cfg, 0.5)
     sph, pl, camv = SK._packed(scene.to(dev), cam.to(dev))
     lists, shl = SH.build_lists(sph, pl, camv, spec, True)
-    offsets, pidx = SK.list_entries(lists)
-    sh_offsets, pshidx = SK.list_entries(shl)
-    sizes = dict(n_entries=pidx.shape[0], n_sh_entries=pshidx.shape[0])
+    offsets, pidx, sh_offsets, pshidx, counts, sizes = _entries(SK, lists, shl)
     out, gates = SH.soft_sh_fwd(sph, pl, camv, lists, shl, spec=spec)
     g = torch.zeros_like(out)
     g[:3] = (2.0 / (255.0 ** 2 * 3 * cfg.width * cfg.height)) * out[:3]
     tgt = torch.zeros((3,) + spec.extent, device=dev)
     fwd = (sph, pl, camv, lists, shl)
     return (spec, sizes, fwd, fwd + (offsets, sh_offsets, gates, out, g),
-            fwd + (offsets, sh_offsets, tgt), pidx, pshidx)
+            fwd + (offsets, sh_offsets, tgt), pidx, pshidx, counts)
 
 
 def _digest(*tensors) -> str:
@@ -112,7 +136,7 @@ def _k7_cases(HK, P, dev):
 
 
 def _unshadowed(SK, IR, cam, dev, fit_start):
-    """(spec, n, K2's and K3's launch arguments, pidx) at 1920x1080 on the
+    """(spec, sizes, K2's and K3's launch arguments, pidx, counts) at 1920x1080 on the
     first step of the --spheres 20 fit: its starting centres against the
     layout's own render (chip_smoke.py phase 5)."""
     import torch
@@ -130,11 +154,28 @@ def _unshadowed(SK, IR, cam, dev, fit_start):
     tgt[:, :1080, :1920] = render(scene)[4][:3, :1080, :1920]
     sph, pl, camv, lists, out, gates = render(scene.replace(
         spheres=scene.spheres.replace(center=fit_start(scene.spheres.center))))
-    offsets, pidx = SK.list_entries(lists)
+    offsets, pidx, _, _, counts, sizes = _entries(SK, lists)
     g = torch.zeros_like(out)
     g[:3] = (2.0 / (255.0 ** 2 * 3 * 1920 * 1080)) * (out[:3] - tgt)
-    return (spec, pidx.shape[0], (sph, pl, camv, lists, offsets, gates, out, g),
-            (sph, pl, camv, lists, offsets, tgt), pidx)
+    return (spec, sizes, (sph, pl, camv, lists, offsets, gates, out, g),
+            (sph, pl, camv, lists, offsets, tgt), pidx, counts)
+
+
+def _steps(torch, B, cfg_hl, cfg_4k, scenes, cam, dev, step_ms):
+    """Host ms a shadowed fused train step at the headline and 4K/200,
+    eager and, where the checkout has it, as a CUDA graph, in turns."""
+    import inspect
+
+    modes = ([False, True, True, False] if "graph" in inspect.signature(B.train_step).parameters
+             else [None])
+    out = {}
+    for label, cfg, reps in (("headline", cfg_hl, 20), ("4k200", cfg_4k, 5)):
+        tgt = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+        for graph in modes:
+            kw = {} if graph is None else {"graph": graph}
+            ms = step_ms(B.train_step(cfg, scenes[label].to(dev), cam.to(dev), tgt, **kw), reps)
+            out.setdefault(label, {}).setdefault("graph" if graph else "eager", []).append(ms)
+    return out
 
 
 def main(argv=None) -> int:
@@ -144,8 +185,8 @@ def main(argv=None) -> int:
     sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]  # run by path
     sys.path.insert(0, CHECKOUT)
     from chip_smoke import (_card_line, _cull_stats, _fit_start, _graph_ms, _kernel_device_ms,
-                            _ptxas_report, _reduce_library,
-                            _reduce_library_ms)  # import nothing of the port
+                            _ptxas_report, _reduce_library, _reduce_library_ms,
+                            _step_ms)  # import nothing of the port
     import torch
 
     if not torch.cuda.is_available():
@@ -153,6 +194,7 @@ def main(argv=None) -> int:
         return 2
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    from rtwc_tpu_torch import bench as B
     from rtwc_tpu_torch.camera import default_camera
     from rtwc_tpu_torch.config import RenderConfig
     from rtwc_tpu_torch.examples import inverse_render as IR
@@ -170,17 +212,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     cam = default_camera()
     soft_kw = dict(soft_miss_penalty=300.0, soft_mask_k=10.0, max_planes=4, shadows=True)
-    cases = {"headline": (_case(SK, SH, RenderConfig(width=1920, height=1080, max_spheres=20,
-                                                     **soft_kw),
-                                random_scene(20, max_spheres=20, max_planes=4, seed=0), cam,
-                                dev), 20),
-             "4k200": (_case(SK, SH, RenderConfig(width=3840, height=2160, max_spheres=200,
-                                                  **soft_kw),
-                             random_scene(200, max_spheres=200, max_planes=4, seed=0), cam,
-                             dev), 5)}
-    spec20, n20, bwd20, mse20, pidx20 = _unshadowed(SK, IR, cam, dev, _fit_start)
+    cfg_hl = RenderConfig(width=1920, height=1080, max_spheres=20, **soft_kw)
+    cfg_4k = RenderConfig(width=3840, height=2160, max_spheres=200, **soft_kw)
+    scenes = {"headline": random_scene(20, max_spheres=20, max_planes=4, seed=0),
+              "4k200": random_scene(200, max_spheres=200, max_planes=4, seed=0)}
+    cases = {"headline": (_case(SK, SH, cfg_hl, scenes["headline"], cam, dev), 20),
+             "4k200": (_case(SK, SH, cfg_4k, scenes["4k200"], cam, dev), 5)}
+    spec20, sizes20, bwd20, mse20, pidx20, counts20 = _unshadowed(SK, IR, cam, dev, _fit_start)
 
-    spec, sizes, fwd, bwd, mse, _, _ = cases["headline"][0]
+    spec, sizes, fwd, bwd, mse, _, _, _ = cases["headline"][0]
     fwd20 = bwd20[:4]
     bit_equal, digest, cull = {}, {}, {}
     k7 = _k7_cases(HK, P, dev)
@@ -196,8 +236,8 @@ def main(argv=None) -> int:
     bit_equal["K1"] = all(torch.equal(x, y) for x, y in
                           zip(k1_out, SK.soft_fwd_plain(*fwd20, spec=spec20)))
     for what, kern, plain, a, kw in (
-            ("K2", SK.soft_bwd, SK.soft_bwd_plain, bwd20, dict(spec=spec20, n_entries=n20)),
-            ("K3", SK.soft_mse, SK.soft_mse_plain, mse20, dict(spec=spec20, n_entries=n20)),
+            ("K2", SK.soft_bwd, SK.soft_bwd_plain, bwd20, dict(spec=spec20, **sizes20)),
+            ("K3", SK.soft_mse, SK.soft_mse_plain, mse20, dict(spec=spec20, **sizes20)),
             ("K4", SH.soft_sh_fwd, SH.soft_sh_fwd_plain, fwd, dict(spec=spec)),
             ("K4-stats", SH.soft_sh_stats, SH.soft_sh_stats_plain, fwd, dict(spec=spec)),
             ("K5", SH.soft_sh_bwd, SH.soft_sh_bwd_plain, bwd, dict(spec=spec, **sizes)),
@@ -210,10 +250,21 @@ def main(argv=None) -> int:
              for label, (a, cfg) in k7.items()}
     calls["K1 1080p"] = ("soft_fwd_kernel", 20, lambda: SK.soft_fwd(*fwd20, spec=spec20))
     calls["K2 1080p"] = ("soft_bwd_kernel", 20,
-                         lambda: SK.soft_bwd(*bwd20, spec=spec20, n_entries=n20))
+                         lambda: SK.soft_bwd(*bwd20, spec=spec20, **sizes20))
     calls["K3 1080p"] = ("soft_mse_kernel", 20,
-                         lambda: SK.soft_mse(*mse20, spec=spec20, n_entries=n20))
-    for label, ((spec_c, sizes_c, fwd_c, bwd_c, mse_c, _, _), reps) in cases.items():
+                         lambda: SK.soft_mse(*mse20, spec=spec20, **sizes20))
+    if hasattr(SK, "entry_tables"):  # the list kernel and the entry tables
+        from rtwc_tpu_torch.render import list_kernel as LK
+
+        for label, ((spec_c, _, fwd_c, _, _, _, _, _), reps) in cases.items():
+            sph_c, pl_c, cam_c, lists_c, shl_c = fwd_c
+            calls[f"tile_lists {label}"] = (
+                "tile_lists_kernel", reps,
+                lambda s=spec_c, a=(sph_c, pl_c, cam_c): SH.build_lists(*a, s, True))
+            calls[f"entry_tables {label}"] = (
+                "entry_tables_kernel", reps,
+                lambda a=(lists_c, shl_c): LK.entry_tables(*a))
+    for label, ((spec_c, sizes_c, fwd_c, bwd_c, mse_c, _, _, _), reps) in cases.items():
         def bind(fn, a, **kw):
             return lambda: fn(*a, **kw)
         calls[f"K4 {label}"] = ("soft_sh_fwd_kernel", reps, bind(SH.soft_sh_fwd, fwd_c, spec=spec_c))
@@ -230,23 +281,28 @@ def main(argv=None) -> int:
         graph[key] = _graph_ms(fn)[0]
 
     # the reduction's whole function and its library calls, as CUDA graphs
-    parts = SK.soft_bwd(*bwd20, spec=spec20, n_entries=n20)
-    red_args = {"unshadowed 1080p": (parts[0], pidx20, parts[1], parts[2], 20, None, None)}
+    parts = SK.soft_bwd(*bwd20, spec=spec20, **sizes20)
+    red_args = {"unshadowed 1080p": (parts[0], pidx20, parts[1], parts[2], 20, None, None,
+                                     counts20)}
     for label, kern, key in (("shadowed headline", SH.soft_sh_bwd, "headline"),
                              ("4k200", SH.soft_sh_mse, "4k200")):
-        spec, sizes, _, bwd, mse, pidx, pshidx = cases[key][0]
+        spec, sizes, _, bwd, mse, pidx, pshidx, counts = cases[key][0]
         p = kern(*(bwd if kern is SH.soft_sh_bwd else mse), spec=spec, **sizes)
-        red_args[label] = (p[0], pidx, p[2], p[3], spec.config.max_spheres, p[1], pshidx)
+        red_args[label] = (p[0], pidx, p[2], p[3], spec.config.max_spheres, p[1], pshidx, counts)
     reduction = {}
-    for label, (pvals, pidx, ppl, ptf, ns, psh, pshidx) in red_args.items():
+    for label, (pvals, pidx, ppl, ptf, ns, psh, pshidx, counts) in red_args.items():
+        kw = {} if counts is None else {"counts": counts}
+
         def port():
-            return SK.soft_grad_reduce(pvals, pidx, ppl, ptf, ns, psh=psh, pshidx=pshidx)
+            return SK.soft_grad_reduce(pvals, pidx, ppl, ptf, ns, psh=psh, pshidx=pshidx, **kw)
         out = port()
-        n, nsh = pidx.shape[0], 0 if pshidx is None else pshidx.shape[0]
-        want = SK.soft_grad_reduce_plain(pvals[:n], pidx, ppl, ptf, ns,
-                                         None if psh is None else psh[:nsh], pshidx)
+        real = (_real(pvals, counts, 0), _real(pidx, counts, 0))
+        real_sh = (None, None) if psh is None else (_real(psh, counts, 1),
+                                                     _real(pshidx, counts, 1))
+        n, nsh = real[1].shape[0], 0 if pshidx is None else real_sh[1].shape[0]
+        want = SK.soft_grad_reduce_plain(real[0], real[1], ppl, ptf, ns, *real_sh)
         bit_equal[f"reduction {label}"] = all(torch.equal(x, y) for x, y in zip(out, want))
-        args_l = (pvals, pidx, ppl, ptf, ns) + (() if psh is None else (psh, pshidx))
+        args_l = real + (ppl, ptf, ns) + (() if psh is None else real_sh)
         _reduce_library_ms(P, args_l, out)  # holds the library calls to its sums
         lib_ms, lib_runs = _graph_ms(lambda: _reduce_library(*args_l))
         port_ms, port_runs = _graph_ms(port)
@@ -255,15 +311,19 @@ def main(argv=None) -> int:
                             "entries": n, "shadow_entries": nsh, "tiles": ppl.shape[0],
                             "per_kernel_ms": {k: _kernel_device_ms(port, name=k, per_call=True)
                                               for k in REDUCE_KERNELS}}
+    steps = _steps(torch, B, cfg_hl, cfg_4k, scenes, cam, dev, _step_ms)
     regs = {}
-    for lib in ("hard_render", "soft_render", "soft_shadow"):
+    for lib in ("hard_render", "soft_render", "soft_shadow", "broad_phase"):
+        if not os.path.exists(os.path.join(root, "rtwc_tpu_torch", "csrc", f"{lib}.cu")):
+            continue
         for kernel, n_regs, spill in _ptxas_report(os.path.join(root, "rtwc_tpu_torch", "_build",
                                                                 f"lib{lib}.log")):
             if "reduce" not in kernel:
                 regs[kernel] = f"{n_regs} registers; {spill}"
     print(json.dumps({"root": root, "card": card, "bit_equal_to_plain": bit_equal,
                       "digest": digest, "device_ms": times, "graph_ms": graph,
-                      "k7_shadow_cull": cull, "reduction": reduction, "ptxas": regs}))
+                      "k7_shadow_cull": cull, "reduction": reduction, "step_ms": steps,
+                      "ptxas": regs}))
     return 0
 
 

@@ -74,6 +74,17 @@ def test_update_scene_bit_equal(dt):
     assert_scene_equal(js, ts)
 
 
+@pytest.mark.parametrize("dt", [0.016, 0.1, 0.75, 3.0])
+def test_update_scene_with_a_tensor_dt_bit_equal(dt):
+    """The display graph's time step: an f32 tensor on the scene's device."""
+    js = JS.random_scene(12, 1, max_spheres=16, seed=5)
+    ts = TS.scene_from_numpy(js)
+    for _ in range(5):
+        js = JS.update_scene(js, np.float32(dt), -10.0, 10.0)
+        ts = TS.update_scene(ts, torch.full((1,), np.float32(dt)), -10.0, 10.0)
+    assert_scene_equal(js, ts)
+
+
 ROTS = [(0.0, math.pi, 0.0), (0.25, 2.8, 0.0), (-1.2, -0.4, 0.3)]
 
 

@@ -478,10 +478,10 @@ def test_bound_bytes_count_what_the_kernels_touch():
     sph, pl, camv = SK._packed(ts, tc)
     lists, shl = SH.build_lists(sph, pl, camv, spec, True)
     out, gates = SH.soft_sh_fwd(sph, pl, camv, lists, shl, spec=spec)
-    (offsets, pidx), (sh_offsets, pshidx) = SK.list_entries(lists), SK.list_entries(shl)
+    ent = SK.entry_tables(lists, shl)
     g = torch.from_numpy(np.random.default_rng(0).normal(size=tuple(out.shape)).astype(np.float32))
-    parts = SH.soft_sh_bwd(sph, pl, camv, lists, shl, offsets, sh_offsets, gates, out, g,
-                           spec=spec, n_entries=pidx.shape[0], n_sh_entries=pshidx.shape[0])
+    parts = SH.soft_sh_bwd(sph, pl, camv, lists, shl, ent.offsets, ent.sh_offsets, gates, out, g,
+                           spec=spec)
     pvals, psh, ppl, ptf = parts
     npl, ns, T = int(camv[0, SK.P.C_NPL]), sph.shape[1], lists.shape[0]
     rows = [int(row[0]) for lst in (lists, shl) for row in lst[:, 0]]
@@ -597,19 +597,15 @@ def test_k6_equals_k4_plus_k5_tables():
     spec = SK.SoftSpec(cfg, TAU)
     sph, pl, cam = SK._packed(ts, tc)
     lists, shl = SH.build_lists(sph, pl, cam, spec, True)
-    offsets, pidx = SK.list_entries(lists)
-    sh_offsets, pshidx = SK.list_entries(shl)
-    ne, nse = pidx.shape[0], pshidx.shape[0]
+    offsets, _, sh_offsets, _, _ = SK.entry_tables(lists, shl)
     out, gates = SH.soft_sh_fwd(sph, pl, cam, lists, shl, spec=spec)
     Hp, Wp = spec.extent
     tgt = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, (3, Hp, Wp)).astype(np.float32))
     H, W = cfg.height, cfg.width
     g = torch.zeros_like(out)
     g[:3, :H, :W] = torch.tensor(2.0 / (255.0 ** 2 * 3 * H * W)) * (out[:3, :H, :W] - tgt[:, :H, :W])
-    a = SH.soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec,
-                       n_entries=ne, n_sh_entries=nse)
-    b = SH.soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, out, g, spec=spec,
-                       n_entries=ne, n_sh_entries=nse)
+    a = SH.soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec)
+    b = SH.soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, out, g, spec=spec)
     for x, y, name in zip(a, b, ("pvals", "psh", "ppl", "ptf")):
         if name == "ptf":
             x, y = x[:, :12], y[:, :12]

@@ -623,9 +623,8 @@ def test_wrappers_reject_bad_inputs(which):
         elif which == "device":
             SK.soft_fwd(sph, pl, cam.to("meta"), lists, spec=spec)
         else:
-            offsets, pidx = SK.list_entries(lists)
-            SK.soft_mse(sph, pl, cam, lists, offsets, torch.zeros(3, 8, 8), spec=spec,
-                        n_entries=pidx.shape[0])
+            SK.soft_mse(sph, pl, cam, lists, SK.entry_tables(lists).offsets,
+                        torch.zeros(3, 8, 8), spec=spec)
 
 
 def test_library_is_rebuilt_when_a_header_changes(tmp_path, monkeypatch):
