@@ -102,17 +102,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   7  the row-band sharded paths (rtwc_tpu_torch.dist): K7 at 1920x1080 with
      20 spheres and shadows as 2 and 4 bands (every band bit-equal to its
      plain version, the stitched bands torch.equal to the whole frame,
-     render_frame_sharded over 4 bands equal to the frame, 4 launches);
+     render_frame_sharded eagerly over 4 bands equal to the frame, 4
+     launches); render_frame_sharded as a CUDA graph over 2 and 4 bands (a
+     capture, two replays, each torch.equal to render_frame_kernel; a
+     replay launches K7 and the list kernel once a band);
      K1-K6 and the reduction on rows 540-1079 of the bench headline, as
-     phases 2b / 2c; one sharded step of each train path on 2 bands,
+     phases 2b / 2c; one eager sharded step of each train path on 2 bands,
      launches counted; the fused shadowed animated step at the scaling
      entry point's defaults (1920x1080, random_scene(100)) on 2 bands
      against 1: loss 1e-6 relative, every gradient rtol 2e-2 / atol 1e-6;
-     `python -m rtwc_tpu_torch.benchmarks.scaling --ranks 2` (1 process,
-     then 2 gloo ranks sharing the card): losses and parameters bit-equal
-     across ranks, K6 and the reduction once a step in each, the first
-     loss 1e-6 of the one rank's; ms a step and rays/s with the card line
-     (the whole output in chip_smoke_out/scaling.log)
+     the one-process sharded step there, fused and generic, on 1 and 2
+     bands: 10 steps as one CUDA graph (9 replays under
+     set_sync_debug_mode("error")) torch.equal to 10 eager ones, a replay's
+     launches equal to an eager step's (K6, or K4 and K5, the reduction,
+     the list kernel and the entry tables once a band); the scaling entry
+     point's one-process step replayed and eager (graph=False), in turns,
+     ms a step; `python -m rtwc_tpu_torch.benchmarks.scaling --ranks 2` (1
+     process, then 2 gloo ranks sharing the card, each a graph up to the
+     all-reduce and a graph after it): losses and parameters bit-equal
+     across ranks, a replay launching K6, the reduction, the list kernel
+     and the entry tables once and no step launching from Python, the
+     first loss 1e-6 of the one rank's; ms a step and rays/s with the card
+     line (the whole output in chip_smoke_out/scaling.log)
   8  the single-dispatch steps: the list kernel (csrc/broad_phase.cu)
      torch.equal to broad_phase.py (view lists, shadow lists, aux planes)
      and the entry tables' kernel to their plain version, at the headline,
@@ -1255,11 +1266,14 @@ def _phase_7(dev, tag, errs):
     from rtwc_tpu_torch.camera import default_camera
     from rtwc_tpu_torch.config import RenderConfig
     from rtwc_tpu_torch.dist import make_mesh, make_sharded_train_step, render_frame_sharded
+    from rtwc_tpu_torch.benchmarks import scaling
+    from rtwc_tpu_torch.dist import mesh as MESH
     from rtwc_tpu_torch.dist.mesh import _leaves
     from rtwc_tpu_torch.render import hard_kernel as HK
     from rtwc_tpu_torch.render import pack as P
     from rtwc_tpu_torch.render import shadow_kernel as SH
     from rtwc_tpu_torch.render import soft_kernel as SK
+    from rtwc_tpu_torch.render.step_graph import launch_counts, launch_delta
     from rtwc_tpu_torch.scene import random_scene
 
     # 7a: K7 a band
@@ -1285,19 +1299,44 @@ def _phase_7(dev, tag, errs):
         if not torch.equal(torch.cat(bands, 1), whole):
             raise AssertionError(f"phase 7: K7's {n} stitched bands differ from the whole frame")
     single = HK.render_frame_kernel(scene, cam, cfg)
+    fields = ("rgb", "normal", "depth", "shading", "hit", "coverage", "alpha")
     HK.LAUNCHES = 0
-    fb = render_frame_sharded(scene, cam, cfg, make_mesh(4), backend="pallas")
+    fb = render_frame_sharded(scene, cam, cfg, make_mesh(4), backend="pallas", graph=False)
     torch.cuda.synchronize()
     k7_bands = HK.LAUNCHES
-    for f in ("rgb", "normal", "depth", "shading", "hit", "coverage", "alpha"):
+    for f in fields:
         if not torch.equal(getattr(fb, f), getattr(single, f)):
             raise AssertionError(f"phase 7: render_frame_sharded's {f} differs from the frame's")
     if k7_bands != 4:
         raise AssertionError(f"phase 7: K7 launched {k7_bands} times for 4 bands")
     print(f"phase 7: K7 1920x1080 random_scene(20) shadows as 2 and 4 bands (540 / 270 rows, "
           f"partial last tiles): every band bit-equal to its plain version, the stitched bands "
-          f"torch.equal to the whole frame; render_frame_sharded over 4 bands equal to "
+          f"torch.equal to the whole frame; render_frame_sharded (eager) over 4 bands equal to "
           f"render_frame_kernel, K7 launched {k7_bands} times")
+    # the sharded frame as one CUDA graph: a capture, then replays, each equal
+    # to the whole frame; a replay launches the list kernel and K7 once a band
+    for n in (2, 4):
+        for i in range(3):  # the warm-up and capture, then two replays
+            fr = render_frame_sharded(scene, cam, cfg, make_mesh(n), backend="pallas")
+            if not all(torch.equal(getattr(fr, f), getattr(single, f)) for f in fields):
+                raise AssertionError(f"phase 7: sharded frame {i} over {n} bands (graph) "
+                                     f"differs from render_frame_kernel")
+        fg = MESH._frame_graph(cfg, n, range(n), scene.device)
+        if fg.call.captures != 1 or fg.call.replay_launches != {"hard_render": n,
+                                                                "tile_lists": n}:
+            raise AssertionError(f"phase 7: sharded frame over {n} bands: {fg.call.captures} "
+                                 f"captures, a replay launches {fg.call.replay_launches}")
+        print(f"phase 7: render_frame_sharded over {n} bands (a new mesh each call) as a CUDA "
+              f"graph (a capture, two replays): every frame torch.equal to "
+              f"render_frame_kernel in all 7 fields; a replay launches "
+              f"{fg.call.replay_launches}")
+    frame_ms = {}
+    for graph in (None, False, False, None):  # in turns
+        frame_ms.setdefault("graph" if graph is None else "eager", []).append(_step_ms(
+            lambda: render_frame_sharded(scene, cam, cfg, make_mesh(4), backend="pallas",
+                                         graph=graph), 20))
+    print(f"phase 7: render_frame_sharded over 4 bands, 1920x1080 random_scene(20) shadows: "
+          f"ms a frame replayed {frame_ms['graph']}, eager {frame_ms['eager']} (in turns) {tag}")
 
     # 7b: K1-K6 and the reduction on one band of the bench headline
     cfg_hl = RenderConfig(width=1920, height=1080, max_spheres=20, max_planes=4, shadows=True,
@@ -1322,7 +1361,7 @@ def _phase_7(dev, tag, errs):
     launches = {}
     for (sh, kind), want in paths.items():
         step = make_sharded_train_step(cfg_hl.replace(shadows=sh == "shadows"), make_mesh(2),
-                                       tau=0.5, backend="pallas",
+                                       tau=0.5, backend="pallas", graph=False,
                                        loss_scale=1.0 / 255.0 if kind == "fused" else 1.0 / 256.0)
         params = (scene_hld, cam)
         state = step.init(params)
@@ -1369,6 +1408,72 @@ def _phase_7(dev, tag, errs):
           f"{json.dumps({k: v for k, v in worst.items() if v})}; camera gradient 2 bands "
           f"{g2['camera.rot'].tolist()} vs 1 band {g1['camera.rot'].tolist()}")
 
+    # 7d: the one-process sharded step as one CUDA graph against the eager step
+    cam_d = cam.to(dev)
+    tick = 1.0 / 60.0
+    band_kernels = {"fused": ("soft_sh_mse",), "generic": ("soft_sh_fwd", "soft_sh_bwd")}
+    for kind, kernels in band_kernels.items():
+        for n in (1, 2):
+            runs = []
+            for graph in (False, True):
+                step = make_sharded_train_step(
+                    cfg_s, make_mesh(n), tau=0.5, backend="pallas", animate=True, graph=graph,
+                    loss_scale=1.0 / 255.0 if kind == "fused" else 1.0 / 256.0)
+                params = (scene_s, cam_d)
+                state = step.init(params)
+                params, state, loss = step(params, state, tgt, tick)
+                losses = [loss]
+                torch.cuda.synchronize()
+                before = launch_counts()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for i in range(9):
+                        params, state, loss = step(params, state, tgt, tick)
+                        losses.append(loss)
+                        if i == 0:
+                            counted = launch_delta(before)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                runs.append((torch.stack(losses), [v.detach().clone()
+                                                   for v in state.leaves.values()],
+                             counted, state))
+            (le, pe, eager_counts, _), (lg, pg, replay_counted, gstate) = runs
+            want = {k: n for k in kernels + ("soft_grad_reduce", "tile_lists", "entry_tables")}
+            if not (torch.equal(le, lg) and all(torch.equal(a, b) for a, b in zip(pe, pg))):
+                raise AssertionError(f"phase 7: {kind} sharded step on {n} bands: 10 replayed "
+                                     f"steps differ from eager ones ({le.tolist()} vs "
+                                     f"{lg.tolist()})")
+            if eager_counts != want or gstate.replay_launches != want or replay_counted:
+                raise AssertionError(f"phase 7: {kind} sharded step on {n} bands: an eager step "
+                                     f"launched {eager_counts}, a replay {gstate.replay_launches}"
+                                     f" (counted while replaying: {replay_counted}); want {want}")
+            print(f"phase 7: {kind} shadowed animated sharded step at the scaling defaults on {n} "
+                  f"band{'s' if n > 1 else ''} in one process: 10 steps as one CUDA graph "
+                  f"({gstate.phases[0].captures} capture, 9 replays under "
+                  f"set_sync_debug_mode('error')) torch.equal to 10 eager steps in every loss "
+                  f"({float(le[0])!r} -> {float(le[-1])!r}) and all {len(pe)} leaves; a replay "
+                  f"launches {gstate.replay_launches}, an eager step {eager_counts}")
+    # where the device time of a replayed one-process step at the scaling
+    # defaults goes (chip_smoke_out/profile_graph_sharded.txt)
+    step = make_sharded_train_step(cfg_s, make_mesh(1), tau=0.5, backend="pallas", animate=True)
+    box = [(scene_s, cam_d), None]
+    box[1] = step.init(box[0])
+
+    def sharded_step():
+        box[0], box[1], _ = step(box[0], box[1], tgt, tick)
+    _profile_steps(sharded_step, "profile_graph_sharded", "one-process sharded step at the "
+                   "scaling defaults, graph-replayed", tag, phase="7")
+    # the scaling entry point's one-process step, replayed and eager, in turns
+    sargs = scaling._parser().parse_args(["--iters", "20"])
+    step_ms = {"graph": [], "eager": []}
+    for graph in (None, False, False, None):
+        rec = scaling.run_rank(sargs, "cuda", graph=graph)
+        step_ms["graph" if rec["graph"] else "eager"].append(rec["ms_per_step"])
+    print(f"phase 7: scaling defaults (1920x1080 random_scene(100), shadows, animated, fused "
+          f"K6, Adam on every leaf) in one process: ms a step replayed {step_ms['graph']}, "
+          f"eager (graph=False) {step_ms['eager']} (in turns) {tag}")
+
     # the scaling entry point: one rank, then two gloo ranks sharing the card
     iters = 5
     cmd = [sys.executable, "-m", "rtwc_tpu_torch.benchmarks.scaling", "--ranks", "2", "--iters",
@@ -1383,12 +1488,15 @@ def _phase_7(dev, tag, errs):
         raise AssertionError(f"scaling exited {proc.returncode}: {proc.stderr[-3000:]}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     rows = {r["mesh"]: r for r in rec["results"]}
-    per_rank = {"soft_sh_mse": 1.0, "soft_grad_reduce": 1.0}
+    per_rank = {"soft_sh_mse": 1, "soft_grad_reduce": 1, "tile_lists": 1, "entry_tables": 1}
     for n, row in rows.items():
         if not (row["losses_bit_equal"] and row["params_bit_equal"]):
             raise AssertionError(f"phase 7: {n} ranks disagree: {row}")
-        if any(lc != per_rank for lc in row["launches_per_step"]):
-            raise AssertionError(f"phase 7: {n} ranks launched {row['launches_per_step']} a step")
+        if not row["graph"] or any(lc != per_rank for lc in row["replay_launches"]) or any(
+                row["launches_per_step"]):
+            raise AssertionError(f"phase 7: {n} ranks: graph {row['graph']}, a replay launches "
+                                 f"{row['replay_launches']}, counted a timed step "
+                                 f"{row['launches_per_step']}")
     if sorted(rows) != [1, 2] or abs(rows[2]["losses"][0] - rows[1]["losses"][0]) > \
             1e-6 * abs(rows[1]["losses"][0]):
         raise AssertionError(f"phase 7: first losses {rows}")
@@ -1397,8 +1505,8 @@ def _phase_7(dev, tag, errs):
               f"{', gloo, sharing cuda:0, simulated' if row.get('simulated') else ''}): "
               f"{row['ms_per_step']!r} ms a step, {row['rays_per_s']!r} rays/s, losses "
               f"{row['losses'][0]!r} -> {row['losses'][-1]!r}, bit-equal across ranks, "
-              f"parameters bit-equal after {2 + iters} steps, launches a step "
-              f"{row['launches_per_step']} {tag}")
+              f"parameters bit-equal after {2 + iters} steps, CUDA graphs, a replay launches "
+              f"{row['replay_launches']} {tag}")
     print(f"phase 7: scaling entry point exit 0 in {secs:.1f} s")
     return launches, k7_bands
 

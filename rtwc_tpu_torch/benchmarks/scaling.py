@@ -3,10 +3,15 @@
 Counterpart: benchmarks/scaling.py and benchmarks/multiproc_scaling.py.
 Times the sharded train step (rtwc_tpu_torch/dist) at mesh sizes 1..N on
 the same whole image and prints one JSON record on stdout: per mesh size
-the ms a step (the slowest rank's), rays/s, every step's loss, and
-whether every rank's losses and parameters agreed bit for bit, and each
-rank's kernel launches a step; a human
-summary goes to stderr.
+the ms a step (the slowest rank's), rays/s, every step's loss, whether
+every rank's losses and parameters agreed bit for bit, whether the step
+ran as CUDA graphs (`graph`: on a card it does, the scene and the camera
+on the rank's device), each rank's launches of one replayed step, counted
+at its capture (`replay_launches`), and the launches counted a timed step
+(`launches_per_step`: none when replayed); a human summary goes to
+stderr. One process runs the step as one graph; ranks run a graph up to
+the all-reduce, the all-reduce, and a graph of the update
+(dist/mesh.py).
 
     python -m rtwc_tpu_torch.benchmarks.scaling                 # one process, the card
     python -m rtwc_tpu_torch.benchmarks.scaling --ranks 2       # 1 and 2 processes on the card
@@ -63,16 +68,22 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def run_rank(args, device: str) -> dict:
+def run_rank(args, device: str, graph: bool | None = None) -> dict:
     """Build the step on a mesh of one band a rank (of the initialised
-    group, or this process alone), run 2 warm-up steps and --iters timed
-    ones; returns this rank's timing, losses and a digest of its params."""
+    group, or this process alone), with the scene and the camera on
+    `device`, run 2 warm-up steps and --iters timed ones; returns this
+    rank's timing, losses, a digest of its params and its launches. graph:
+    make_sharded_train_step's (None: CUDA graphs on the card, the first
+    warm-up step captures them). `replay_launches` are one replayed step's
+    launches, counted at its capture (None when eager); `launches` those
+    counted a timed step, which are none on the graph path (a replay counts
+    nothing)."""
     import torch
 
     from rtwc_tpu_torch.camera import default_camera
     from rtwc_tpu_torch.config import RenderConfig
     from rtwc_tpu_torch.dist import make_mesh, make_sharded_train_step
-    from rtwc_tpu_torch.render.soft_core import LAUNCHES
+    from rtwc_tpu_torch.render.step_graph import launch_counts, launch_delta
     from rtwc_tpu_torch.scene import random_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -81,10 +92,10 @@ def run_rank(args, device: str) -> dict:
                        shadows=args.shadows)
     scene = random_scene(args.spheres, max_spheres=args.spheres, max_planes=4, seed=0,
                          device=device)
-    cam = default_camera()
+    cam = default_camera().to(device)
     target = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=device)
     step = make_sharded_train_step(cfg, make_mesh(), tau=args.tau, backend=args.backend,
-                                   animate=args.animate)
+                                   animate=args.animate, graph=graph)
     params = (scene, cam)
     state = step.init(params)
     tick = 1.0 / 60.0
@@ -94,20 +105,22 @@ def run_rank(args, device: str) -> dict:
         losses.append(float(loss))
     if device.startswith("cuda"):
         torch.cuda.synchronize(device)
-    before = dict(LAUNCHES)
+    before = launch_counts()
     t0 = time.perf_counter()
     for _ in range(args.iters):
         params, state, loss = step(params, state, target, tick)
     losses.append(float(loss))
-    launches = {k: (v - before[k]) / args.iters for k, v in LAUNCHES.items() if v > before[k]}
+    launches = {k: v / args.iters for k, v in launch_delta(before).items()}
     if device.startswith("cuda"):
         torch.cuda.synchronize(device)
     ms = (time.perf_counter() - t0) / args.iters * 1e3
     digest = hashlib.sha256()
     for v in state.leaves.values():
         digest.update(v.detach().cpu().numpy().tobytes())
-    return {"ms_per_step": ms, "losses": [x.hex() for x in losses], "launches": launches,
-            "params_sha256": digest.hexdigest(), "device": device}
+    in_graph = state.phases[0].graph
+    return {"ms_per_step": ms, "losses": [x.hex() for x in losses], "graph": in_graph,
+            "replay_launches": state.replay_launches if in_graph else None,
+            "launches": launches, "params_sha256": digest.hexdigest(), "device": device}
 
 
 def _worker(args) -> int:
@@ -177,6 +190,8 @@ def _row(n: int, recs: list, rays: int) -> dict:
     return {"mesh": n, "ms_per_step": round(ms, 3), "rays_per_s": round(rays / ms * 1e3, 1),
             "losses": [float.fromhex(x) for x in recs[0]["losses"]],
             "rank_losses": [r["losses"][-1] for r in recs],
+            "graph": all(r["graph"] for r in recs),
+            "replay_launches": [r["replay_launches"] for r in recs],
             "launches_per_step": [r["launches"] for r in recs],
             "losses_bit_equal": all(r["losses"] == recs[0]["losses"] for r in recs),
             "params_bit_equal": all(r["params_sha256"] == recs[0]["params_sha256"]
@@ -242,7 +257,8 @@ def main(argv=None) -> int:
             row["efficiency"] = round(row["rays_per_s"] * base[0] / (base[1] * n), 4)
             eff_txt = f"  eff={row['efficiency'] * 100:5.1f}% (vs mesh={base[0]})"
         print(f"mesh={n:3d}  {row['ms_per_step']:8.2f} ms/step  {row['rays_per_s'] / 1e6:8.1f} "
-              f"Mrays/s  losses bit-equal {row['losses_bit_equal']}, params "
+              f"Mrays/s  {'replayed' if row['graph'] else 'eager'}, "
+              f"losses bit-equal {row['losses_bit_equal']}, params "
               f"{row['params_bit_equal']}"
               + (eff_txt or ("  [simulated: topology only]" if simulated else "")),
               file=sys.stderr)

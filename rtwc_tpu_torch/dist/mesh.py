@@ -29,7 +29,10 @@ torch renderers (render/reference.py, render/softmin.py). "auto" picks
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -43,6 +46,7 @@ from rtwc_tpu_torch.render.reference import Framebuffer, shade, trace_hard
 from rtwc_tpu_torch.render.soft_core import SO_B, SO_R, _packed
 from rtwc_tpu_torch.render.soft_kernel import soft_band_mse_loss, soft_band_packed
 from rtwc_tpu_torch.render.softmin import trace_soft
+from rtwc_tpu_torch.render.step_graph import CapturedCall, card_adam
 from rtwc_tpu_torch.scene import Planes, Scene, Spheres, update_scene
 
 TILE_AXIS = "tiles"
@@ -106,21 +110,100 @@ def _backend(backend: str, device: torch.device) -> str:
     return backend
 
 
-def _render_band(scene: Scene, camera: Camera, config: RenderConfig, row0: int, rows: int,
-                 backend: str) -> Framebuffer:
+def _k7_bands(scene: Scene, cam: torch.Tensor, config: RenderConfig, bands: range,
+              rows: int) -> Framebuffer:
+    """Bands of `rows` rows on the kernel path, stitched: the scene packed
+    once, the list kernel and K7 (hard_band_packed) a band; cam is the
+    packed camera [1, 16] on the scene's device."""
+    sph, pl, counts = P.pack_scene(scene)
+    out = torch.cat([hard_band_packed(sph, pl, counts, cam, b * rows, config=config,
+                                      band_h=rows)[:, :rows, :config.width]
+                     for b in bands], 1)
+    return planes_to_framebuffer(out, config, out.shape[1])
+
+
+def _render_bands(scene: Scene, camera: Camera, config: RenderConfig, mesh: Mesh,
+                  rows: int, backend: str) -> Framebuffer:
+    """This process's bands in turn, stitched: "pallas" is _k7_bands,
+    "jnp" the plain reference renderer a band."""
     if backend == "pallas":
-        sph, pl, counts = P.pack_scene(scene)
-        cam = P.pack_camera(camera, scene.device)
-        out = hard_band_packed(sph, pl, counts, cam, row0, config=config, band_h=rows)
-        return planes_to_framebuffer(out, config, rows)
+        return _k7_bands(scene, P.pack_camera(camera, scene.device), config, mesh.bands(),
+                         rows)
     e1, e2 = projection_elements(config)
-    origin, dirs = camera_rays(camera, config.width, config.height, e1, e2, row_start=row0,
-                               n_rows=rows, device=scene.device)
-    t, normal, color, shading = trace_hard(scene, origin, dirs)
-    rgb = shade(scene, origin, dirs, t, normal, color, config)
-    hit = t <= config.far
-    return Framebuffer(rgb=rgb, normal=normal, depth=t, shading=shading, hit=hit,
-                       coverage=hit.float(), alpha=hit.float())
+    parts = []
+    for b in mesh.bands():
+        origin, dirs = camera_rays(camera, config.width, config.height, e1, e2,
+                                   row_start=b * rows, n_rows=rows, device=scene.device)
+        t, normal, color, shading = trace_hard(scene, origin, dirs)
+        rgb = shade(scene, origin, dirs, t, normal, color, config)
+        hit = t <= config.far
+        parts.append(Framebuffer(rgb=rgb, normal=normal, depth=t, shading=shading, hit=hit,
+                                 coverage=hit.float(), alpha=hit.float()))
+    return Framebuffer(**{f: torch.cat([getattr(b, f) for b in parts], 0) for f in _FB_FIELDS})
+
+
+def _scene_leaves(scene: Scene) -> list:
+    return [getattr(group, f.name) for group in (scene.spheres, scene.planes)
+            for f in dataclasses.fields(group)]
+
+
+def _own(scene: Scene, device: torch.device) -> Scene:
+    """A copy of scene on device in tensors of its own."""
+    def node(group):
+        return group.replace(**{f.name: getattr(group, f.name).detach().to(device, copy=True)
+                                for f in dataclasses.fields(group)})
+    return Scene(spheres=node(scene.spheres), planes=node(scene.planes))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether b is a itself or a view of a's whole storage (a step's
+    returned leaves, passed back in)."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype
+                      and a.device == b.device)
+
+
+class _FrameGraph:
+    """render_frame_sharded's "pallas" frame as one CUDA graph over static
+    buffers: the scene's leaves and the packed camera [1, 16]. Each call
+    copies the caller's scene and camera into them (a spawn's new capacity
+    replaces them, and the next call captures again), then replays
+    _k7_bands. Made and cached per (config, band count, this process's
+    bands), as JAX caches its jitted shard_map per (config, mesh,
+    backend)."""
+
+    def __init__(self, config: RenderConfig, size: int, bands: range, device: torch.device,
+                 graph: bool = True):
+        self.config, self.bands = config, bands
+        self.rows = _check_divisible(config.height, size)
+        self.scene: Scene | None = None
+        self.cam = torch.zeros((1, P.CAM_LEN), dtype=torch.float32, device=device)
+        self.call = CapturedCall(self._frame, device, graph=graph)
+
+    def _frame(self) -> Framebuffer:
+        return _k7_bands(self.scene, self.cam, self.config, self.bands, self.rows)
+
+    @torch.no_grad()
+    def __call__(self, scene: Scene, camera: Camera) -> Framebuffer:
+        new = _scene_leaves(scene)
+        if self.scene is None or any(a.shape != b.shape or a.dtype != b.dtype
+                                     for a, b in zip(_scene_leaves(self.scene), new)):
+            self.scene = _own(scene, self.cam.device)
+        else:
+            for a, b in zip(_scene_leaves(self.scene), new):
+                if not _same(a, b):
+                    a.copy_(b)
+        cam = P.pack_camera(camera)
+        if self.cam.is_cuda and cam.device.type == "cpu":
+            cam = cam.pin_memory()
+        self.cam.copy_(cam, non_blocking=True)
+        return self.call(tuple((t.shape, t.data_ptr()) for t in _scene_leaves(self.scene)))
+
+
+@functools.lru_cache(maxsize=32)
+def _frame_graph(config: RenderConfig, size: int, bands: range,
+                 device: torch.device) -> _FrameGraph:
+    return _FrameGraph(config, size, bands, device)
 
 
 def _gather_rows(fb: Framebuffer, mesh: Mesh) -> Framebuffer:
@@ -144,17 +227,32 @@ def _gather_rows(fb: Framebuffer, mesh: Mesh) -> Framebuffer:
 
 
 def render_frame_sharded(scene: Scene, camera: Camera, config: RenderConfig, mesh: Mesh,
-                         backend: str = "auto") -> Framebuffer:
+                         backend: str = "auto", graph: bool | None = None) -> Framebuffer:
     """Tile-sharded forward render: each band of image rows is rendered
     against the replicated scene, this process's bands in turn, and with
     several processes every process receives the whole frame. backend:
-    "pallas" runs K7 (hard_band_packed) a band, "jnp" the plain reference
-    renderer, "auto" picks by the scene's device. Pixels equal the
-    single render's (K7's bit for bit on the card)."""
+    "pallas" packs the scene and camera once and runs the list kernel and
+    K7 (hard_band_packed) a band, "jnp" the plain reference renderer,
+    "auto" picks by the scene's device. Pixels equal the single render's
+    (K7's bit for bit on the card).
+
+    graph: None replays the "pallas" frame on a CUDA device as one CUDA
+    graph, cached per config and mesh and captured again when the scene's
+    capacity changes (JAX's jit(shard_map), cached per config, mesh and
+    backend); its framebuffer is the graph's output, which the next frame
+    of that config and mesh overwrites. False keeps the frame eager; the
+    two are torch.equal. The "jnp" backend and CPU scenes run eagerly. With
+    several processes the all-gather runs eagerly after the replay."""
     rows = _check_divisible(config.height, mesh.size)
     backend = _backend(backend, scene.device)
-    bands = [_render_band(scene, camera, config, b * rows, rows, backend) for b in mesh.bands()]
-    fb = Framebuffer(**{f: torch.cat([getattr(b, f) for b in bands], 0) for f in _FB_FIELDS})
+    use_graph = backend == "pallas" and scene.device.type == "cuda" if graph is None else graph
+    if use_graph:
+        if backend != "pallas" or scene.device.type != "cuda":
+            raise ValueError("a graph-replayed sharded frame needs the pallas backend and a "
+                             f"CUDA scene, not {backend!r} on {scene.device}")
+        fb = _frame_graph(config, mesh.size, mesh.bands(), scene.device)(scene, camera)
+    else:
+        fb = _render_bands(scene, camera, config, mesh, rows, backend)
     return fb if mesh.group is None else _gather_rows(fb, mesh)
 
 
@@ -178,17 +276,47 @@ def _params(leaves: dict):
             node(Camera, "camera"))
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class TrainState:
-    """step.init's optimiser state: the optimiser and the leaf tensors it
-    updates (named as _leaves names them)."""
+    """step.init's state: the static buffers a step reads and writes.
+
+    leaves: the trained tensors (named as _leaves names them) on the
+    scene's device; optimizer: the optimiser over them; flat: one buffer of
+    every leaf's gradient, then the loss (each leaf's .grad is a view of
+    it); dt: the physics tick, one f32 on the device; opt_in_graph: the
+    optimiser is capturable and steps inside the update (else eagerly after
+    it); target: the static target, made at the first step and made again
+    when its shape changes; target_src: the caller's tensor last copied
+    into it and that tensor's version counter (unchanged: nothing to copy).
+    phases: the step's CapturedCalls (one without a process group; with
+    one, the bands before the all-reduce and the update after it)."""
 
     leaves: dict
     optimizer: torch.optim.Optimizer
+    flat: torch.Tensor
+    dt: torch.Tensor
+    opt_in_graph: bool = False
+    target: torch.Tensor | None = None
+    target_src: tuple | None = None
+    phases: tuple = ()
+
+    @property
+    def replay_launches(self) -> dict | None:
+        """The kernel launches of one replayed step, counted at capture
+        (None before the first capture, or on the eager path)."""
+        counts = [p.replay_launches for p in self.phases]
+        if any(c is None for c in counts):
+            return None
+        out: dict = {}
+        for c in counts:
+            for k, v in c.items():
+                out[k] = out.get(k, 0) + v
+        return out
 
 
 def _adam(leaves: dict) -> torch.optim.Optimizer:
-    return torch.optim.Adam(list(leaves.values()), lr=1e-2)
+    params = list(leaves.values())
+    return torch.optim.Adam(params, lr=1e-2, **card_adam(params))
 
 
 def make_sharded_train_step(
@@ -199,6 +327,7 @@ def make_sharded_train_step(
     loss_scale: float = 1.0 / 255.0,
     backend: str = "jnp",
     animate: bool = False,
+    graph: bool | None = None,
 ) -> Callable:
     """The multi-band inverse-rendering train step (BASELINE configs 4-5).
 
@@ -207,16 +336,37 @@ def make_sharded_train_step(
     all-reduce averages the gradients and the loss over the bands, and the
     optimiser steps. Returns step(params, opt_state, target, dt=0.0) ->
     (params, opt_state, loss) with params = (scene, camera), target [H, W,
-    3], and step.init(params) -> opt_state. The returned params are new
-    tensors; the optimiser keeps its own leaves.
+    3], and step.init(params) -> opt_state.
+
+    step.init makes the leaves once, on the scene's device, with the flat
+    gradient buffer and the optimiser. A step copies the caller's params,
+    target and dt into its static buffers only where they are not already
+    those buffers (a target tensor already copied and not written since is
+    not copied again). The returned params are a (scene, camera) of aliases of
+    the leaves, valid until the next step (pass them back in: nothing is
+    copied then); the loss is a tensor of its own.
+
+    graph: None runs the step as CUDA graphs on a CUDA device and eagerly
+    elsewhere; True needs a CUDA device; False keeps every step eager, the
+    same launches queued from Python and torch.equal to the graph. Without
+    a process group the whole step is one graph: the bands, the backward,
+    the flat buffer, the division by the band count and, for a capturable
+    optimiser, its update. With one, a graph of the bands, the backward and
+    the flat buffer, then the all-reduce eagerly (gloo's goes through the
+    host), then a graph of the division and the update. An optimiser that
+    is not capturable steps eagerly after the replay. Every step runs
+    without a host sync under set_sync_debug_mode("error") when the
+    caller's params are the step's own leaves (or on the device) and dt is
+    a float or a device tensor.
 
     optimizer: a function of the named leaf tensors ({"spheres.center": t,
     ...}) to a torch.optim.Optimizer over the leaves it trains (default:
-    Adam at lr 1e-2 over every leaf, as optax.adam(1e-2)). backend "pallas"
-    runs soft_band_mse_loss (K3, or K6 with shadows) at the standard
-    loss_scale 1/255 and soft_band_packed (K1 / K2 or K4 / K5) and the MSE
-    in torch otherwise; "jnp" the plain soft renderer (render/softmin.py)
-    in sub-bands under torch.utils.checkpoint. animate=True ticks the sphere
+    Adam at lr 1e-2 over every leaf, as optax.adam(1e-2); on a CUDA device
+    capturable and fused, step_graph.card_adam). backend "pallas" runs
+    soft_band_mse_loss (K3, or K6 with shadows) at the standard loss_scale
+    1/255 and soft_band_packed (K1 / K2 or K4 / K5) and the MSE in torch
+    otherwise; "jnp" the plain soft renderer (render/softmin.py) in
+    sub-bands under torch.utils.checkpoint. animate=True ticks the sphere
     physics (update_scene) by `dt` inside the step, differentiably. JAX's
     `interpret` has no counterpart: CPU tensors run the kernels' plain
     versions."""
@@ -257,37 +407,77 @@ def make_sharded_train_step(
         return torch.mean(err * err)
 
     def init(params) -> TrainState:
-        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in _leaves(params).items()}
-        return TrainState(leaves, make_opt(leaves))
+        device = params[0].device
+        leaves = {k: v.detach().to(device, copy=True).requires_grad_(True)
+                  for k, v in _leaves(params).items()}
+        flat = torch.zeros(sum(v.numel() for v in leaves.values()) + 1, dtype=torch.float32,
+                           device=device)
+        off = 0
+        for v in leaves.values():
+            v.grad = flat[off:off + v.numel()].view(v.shape)
+            off += v.numel()
+        opt = make_opt(leaves)
+        st = TrainState(leaves, opt, flat, torch.zeros(1, dtype=torch.float32, device=device),
+                        all(group.get("capturable", False) for group in opt.param_groups))
+
+        def bands():
+            """Loss and gradients of this process's bands into flat."""
+            scene, camera = _params(st.leaves)
+            if animate:
+                scene = update_scene(scene, st.dt, config.bob_min_y, config.bob_max_y)
+            loss = sum(band_loss(scene, camera, st.target[b * rows:(b + 1) * rows], b * rows)
+                       for b in mesh.bands())
+            grads = torch.autograd.grad(loss, list(st.leaves.values()), allow_unused=True)
+            for v, g in zip(st.leaves.values(), grads):
+                if g is None:
+                    v.grad.zero_()
+                else:
+                    v.grad.copy_(g)
+            st.flat[-1:].copy_(loss.detach().reshape(1))
+
+        def update():
+            """The band mean, then the optimiser when it is capturable."""
+            st.flat.div_(mesh.size)
+            if st.opt_in_graph:
+                st.optimizer.step()
+
+        def whole():
+            bands()
+            update()
+
+        phases = (whole,) if mesh.group is None else (bands, update)
+        st.phases = tuple(CapturedCall(fn, device, graph=graph) for fn in phases)
+        return st
 
     def step(params, opt_state: TrainState, target, dt=0.0):
-        leaves = opt_state.leaves
+        st = opt_state
         with torch.no_grad():
             for k, v in _leaves(params).items():
-                if v is not leaves[k]:
-                    leaves[k].copy_(v)
-        scene, camera = _params(leaves)
-        if animate:
-            scene = update_scene(scene, dt, config.bob_min_y, config.bob_max_y)
-        loss = sum(band_loss(scene, camera, target[b * rows:(b + 1) * rows], b * rows)
-                   for b in mesh.bands())
-        names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
-        # one buffer on the loss's device (the camera's leaves live on the host)
-        flat = torch.cat([(torch.zeros_like(leaves[k]) if g is None else g).reshape(-1)
-                          .to(loss.device) for k, g in zip(names, grads)]
-                         + [loss.detach().reshape(1)])
+                if not _same(st.leaves[k], v):
+                    st.leaves[k].copy_(v)
+            if st.target is None or st.target.shape != target.shape:
+                st.target = torch.empty(target.shape, dtype=torch.float32,
+                                        device=st.flat.device)
+                st.target_src = None
+            src = st.target_src
+            if not (_same(st.target, target)
+                    or (src and src[0] is target and src[1] == target._version)):
+                st.target.copy_(target)
+                st.target_src = (target, target._version)
+            if animate:
+                if isinstance(dt, torch.Tensor):
+                    st.dt.copy_(dt.reshape(1))
+                else:
+                    st.dt.fill_(float(np.float32(dt)))
+        key = (st.target.shape, st.target.data_ptr())
+        st.phases[0](key)
         if mesh.group is not None:
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
-        flat = flat / mesh.size
-        off = 0
-        for k in names:
-            n = leaves[k].numel()
-            leaves[k].grad = flat[off:off + n].reshape(leaves[k].shape).to(leaves[k].device)
-            off += n
-        opt_state.optimizer.step()
-        new = _params({k: v.detach().clone() for k, v in leaves.items()})
-        return new, opt_state, flat[-1]
+            dist.all_reduce(st.flat, op=dist.ReduceOp.SUM, group=mesh.group)
+            st.phases[1](key)
+        if not st.opt_in_graph:
+            st.optimizer.step()
+        new = _params({k: v.detach() for k, v in st.leaves.items()})
+        return new, st, st.flat[-1].clone()
 
     step.init = init
     return step

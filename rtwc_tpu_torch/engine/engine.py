@@ -37,7 +37,7 @@ from rtwc_tpu_torch.heads import encode_frame, framebuffer_to_cells
 from rtwc_tpu_torch.io import ConsolePresenter, InputHandler
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render.hard_kernel import render_frame_kernel, render_frame_packed
-from rtwc_tpu_torch.render.step_graph import launch_counts, launch_delta
+from rtwc_tpu_torch.render.step_graph import warm_and_capture
 from rtwc_tpu_torch.render.reference import (
     downsample_framebuffer,
     render_frame,
@@ -154,18 +154,8 @@ class DisplayGraph:
             self._graph.replay()
             return self._cells
         self._graph, self._config = None, config
-        main = torch.cuda.current_stream(self.cam.device)
-        side = torch.cuda.Stream(self.cam.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            cells = self._step(config)
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(graph):
-            self._cells = self._step(config)
-        self.replay_launches = launch_delta(before)
-        self._graph = graph
+        cells, self._graph, self._cells, self.replay_launches = warm_and_capture(
+            lambda: self._step(config), lambda: self._step(config), self.cam.device)
         self.captures += 1
         return cells
 

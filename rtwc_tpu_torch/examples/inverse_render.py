@@ -105,23 +105,62 @@ def loss_of(fb, target, target_a, w_sil: float, quantized: bool):
     return loss
 
 
+def centre_noise(true_scene, perturb: float, seed: int) -> np.ndarray:
+    """Phase A's perturbation of the centres [N, 3] f32, drawn from `seed`
+    as examples/inverse_render.py draws it (0 on inactive slots)."""
+    live = true_scene.spheres.active.numpy() > 0.5
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(0, perturb, size=(live.shape[0], 3)).astype(np.float32)
+    noise[~live] = 0.0
+    return noise
+
+
+def centre_errors(cfg: RenderConfig, true_scene, fit_centers: np.ndarray):
+    """(reprojection error, size error) in pixels of each live sphere's
+    fitted centre under the default camera: the distance between the true
+    and fitted centres' pixel positions, and the difference of the true
+    radius's pixel size at the two depths."""
+    e1, e2 = projection_elements(cfg)
+    W, H = cfg.width, cfg.height
+    cam = default_camera()
+    r, u, f = basis(cam.rot)
+    B = np.stack([r.numpy(), u.numpy(), f.numpy()])
+
+    def project_px(pts):
+        v = (pts - cam.pos.numpy()) @ B.T
+        return np.stack([v[:, 0] / v[:, 2] / e1 * (W / 2),
+                         v[:, 1] / v[:, 2] / e2 * (H / 2)], axis=1)
+
+    idx = np.flatnonzero(true_scene.spheres.active.numpy() > 0.5)
+    centers = true_scene.spheres.center.numpy()
+    reproj = np.linalg.norm(project_px(centers[idx]) - project_px(fit_centers[idx]), axis=1)
+    radii = true_scene.spheres.radius.numpy()[idx]
+    size_px = np.abs(radii / fit_centers[idx, 2] - radii / centers[idx, 2]) / e1 * (W / 2)
+    return reproj, size_px
+
+
 def fit(render_args, params, stages, steps: int, lr: float, target, target_a,
-        w_sil: float, quantized: bool, graph: bool | None = None):
+        w_sil: float, quantized: bool, graph: bool | None = None, adam: dict | None = None,
+        render=render_frame_soft_kernel, stage_end=None):
     """Adam with a cosine decay to 0 over `steps`, spread over the stages
     (remainder to the earliest); the silhouette term drops out at the last
     stage. render_args() -> (scene, camera) built around the trained
     leaves `params`. Each step is a CapturedStep (a CUDA graph of the
     render, the loss and the backward on the card unless graph=False,
     captured again at each stage), then torch's default Adam, eagerly.
-    Returns (final loss, per-stage log)."""
-    opt = torch.optim.Adam(params, lr=lr)
+    adam: torch.optim.Adam's options beside lr (default none: torch's
+    default Adam); render(scene, camera, config, tau=) -> a framebuffer with
+    rgb and alpha (default the kernel path); stage_end() -> a dict added to
+    each stage's log entry at its end. Returns (final loss, per-stage
+    log)."""
+    opt = torch.optim.Adam(params, lr=lr, **(adam or {}))
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda i: 0.5 * (1.0 + math.cos(math.pi * min(i, steps) / steps)))
     stage = {}
 
     def step_loss():
         scene, cam = render_args()
-        fb = render_frame_soft_kernel(scene, cam, stage["cfg"], tau=stage["tau"])
+        fb = render(scene, cam, stage["cfg"], tau=stage["tau"])
         return loss_of(fb, target, target_a, stage["ws"], quantized)
 
     step = CapturedStep(step_loss, opt, graph=graph)
@@ -135,7 +174,8 @@ def fit(render_args, params, stages, steps: int, lr: float, target, target_a,
             sched.step()
         value = float(loss.detach())
         print(f"  stage tau={tau:7.3f}  loss {value:.6f}", flush=True)
-        log.append({"tau": float(tau), "steps": n, "loss": value})
+        log.append({"tau": float(tau), "steps": n, "loss": value,
+                    **(stage_end() if stage_end else {})})
     return float(loss.detach()), log
 
 
@@ -171,7 +211,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
 
     cfg, true_scene = build(args.width, args.height, args.spheres)
-    e1, e2 = projection_elements(cfg)
+    e1, _ = projection_elements(cfg)
     W, H = cfg.width, cfg.height
     stages = list(AnnealSchedule(n_stages=args.anneal, tau0=args.tau0, tau1=args.tau).configs(cfg))
     true_cam = default_camera()
@@ -179,24 +219,13 @@ def main(argv=None) -> int:
     cam_d = true_cam.to(dev)
     target, target_a = make_target(scene_d, cam_d, stages[-1], args.quantized)
 
-    def project_px(rot, pts):
-        """World points -> pixel coordinates under the true camera position
-        and rotation `rot` (the ray generation inverted)."""
-        r, u, f = basis(torch.as_tensor(rot, dtype=torch.float32))
-        B = np.stack([r.numpy(), u.numpy(), f.numpy()])
-        v = (pts - true_cam.pos.numpy()) @ B.T
-        return np.stack([v[:, 0] / v[:, 2] / e1 * (W / 2),
-                         v[:, 1] / v[:, 2] / e2 * (H / 2)], axis=1)
-
-    rng = np.random.default_rng(args.seed)
     live = true_scene.spheres.active.numpy() > 0.5
     idx = np.flatnonzero(live)
     centers = true_scene.spheres.center.numpy()
     t0 = time.perf_counter()
 
     # ---- phase A: geometry (camera known) -----------------------------------
-    noise = rng.normal(0, args.perturb, size=(cfg.max_spheres, 3)).astype(np.float32)
-    noise[~live] = 0.0
+    noise = centre_noise(true_scene, args.perturb, args.seed)
     center = torch.from_numpy(centers + noise).to(dev).requires_grad_(True)
     print(f"phase A: recover sphere centers (max perturbation "
           f"{np.linalg.norm(noise[idx], axis=1).max():.2f} world units)")
@@ -204,16 +233,15 @@ def main(argv=None) -> int:
     def scene_a():
         return scene_d.replace(spheres=scene_d.spheres.replace(center=center)), cam_d
 
+    def stage_errors():
+        """Every live sphere's reprojection error after a stage (px)."""
+        return {"reproj_px": np.round(centre_errors(
+            cfg, true_scene, center.detach().cpu().numpy())[0], 4).tolist()}
+
     _, log_a = fit(scene_a, [center], stages, args.steps, args.lr, target, target_a,
-                   args.w_sil, args.quantized)
-    fit_centers = center.detach().cpu().numpy()
-    tp = project_px(true_cam.rot, centers[idx])
-    fp = project_px(true_cam.rot, fit_centers[idx])
-    reproj = np.linalg.norm(tp - fp, axis=1)
-    z_t, z_f = centers[idx, 2], fit_centers[idx, 2]
-    radii = true_scene.spheres.radius.numpy()[idx]
-    size_px = np.abs(radii / z_f - radii / z_t) / e1 * (W / 2)
-    reproj0 = np.linalg.norm(tp - project_px(true_cam.rot, (centers + noise)[idx]), axis=1)
+                   args.w_sil, args.quantized, stage_end=stage_errors)
+    reproj, size_px = centre_errors(cfg, true_scene, center.detach().cpu().numpy())
+    reproj0 = centre_errors(cfg, true_scene, centers + noise)[0]
 
     # ---- phase B: camera pose (geometry known); pitch / yaw only ------------
     rot = (true_cam.rot + torch.tensor([0.02, -0.03, 0.0])).to(dev).requires_grad_(True)

@@ -440,7 +440,7 @@ def hard_band_packed(sph, pl, counts, cam, row0: int, *, config: RenderConfig,
     """Render `band_h` rows starting at image row `row0` from packed tables
     (pallas_kernel.py:328-344); returns the [8, Hp, Wp] stack of the band."""
     cam = cam.clone()
-    cam[0, P.C_ROW0] = float(row0)
+    cam[:, P.C_ROW0].fill_(float(row0))  # a fill kernel: no copy from the host
     lists = tile_lists(sph, cam, config, bh, bw, rows=band_h)
     return hard_render_packed(sph, pl, counts.reshape(1, 2), cam, lists,
                               config=config, bh=bh, bw=bw, band_h=band_h)

@@ -554,7 +554,7 @@ def _at_row(cam: torch.Tensor, row0: int) -> torch.Tensor:
     """cam with the band's first image row in C_ROW0 (differentiable in the
     other slots)."""
     cam = cam.clone()
-    cam[0, P.C_ROW0] = float(row0)
+    cam[:, P.C_ROW0].fill_(float(row0))  # a fill kernel: no copy from the host
     return cam
 
 

@@ -33,6 +33,10 @@ examples/ end where their eager loops end, bit for bit.
 Python, so the two are `torch.equal` step for step. A capture that fails
 raises; nothing falls back to eager on its own.
 
+`CapturedCall(fn, device)` is the same capture for any function of static
+buffers that returns tensors (no loss, no optimiser of its own): the
+sharded train step's phases and the sharded frame (dist/mesh.py).
+
 The launch counters of the kernel modules count at capture only: a replay
 launches what `replay_launches` records and counts nothing.
 """
@@ -64,6 +68,25 @@ def launch_delta(before: dict) -> dict:
     """The launches counted since `before` (a launch_counts() snapshot),
     the kernels launched at least once."""
     return {k: v - before.get(k, 0) for k, v in launch_counts().items() if v != before.get(k, 0)}
+
+
+def warm_and_capture(warm: Callable[[], object], capture: Callable[[], object],
+                     device: torch.device) -> tuple:
+    """warm() eagerly on a side stream (it makes every cached table and
+    lazily built state, away from the capture), then capture() as a CUDA
+    graph. Returns (warm's result, the graph, capture's result, the kernel
+    launches counted during the capture: what a replay launches)."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = warm()
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
+    with torch.cuda.graph(graph):
+        static = capture()
+    return out, graph, static, launch_delta(before)
 
 
 def card_adam(params) -> dict:
@@ -124,23 +147,57 @@ class CapturedStep:
                 self.opt.step()
             return self._loss
         self._graph, self._loss, self._key = None, None, key
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            loss = self._eager()
-        main.wait_stream(side)
-        # the capture's backward allocates each .grad in the graph's pool;
-        # a replay writes them there
-        self.opt.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(graph):
-            static = self.loss_fn()
-            static.backward()
-            if self.in_graph:
-                self.opt.step()
-        self.replay_launches = launch_delta(before)
+        loss, self._graph, self._loss, self.replay_launches = warm_and_capture(
+            self._eager, self._captured, self.device)
         self.captures += 1
-        self._graph, self._loss = graph, static.detach()
         return loss
+
+    def _captured(self) -> torch.Tensor:
+        # .grad set to None first: the capture's backward allocates each
+        # .grad in the graph's pool, and a replay writes them there
+        self.opt.zero_grad(set_to_none=True)
+        static = self.loss_fn()
+        static.backward()
+        if self.in_graph:
+            self.opt.step()
+        return static.detach()
+
+
+class CapturedCall:
+    """fn() as one CUDA graph: fn reads and writes only tensors that stay put
+    between calls (static buffers the caller updates in place), and returns
+    tensors. On a CUDA device the first call of a key runs fn eagerly on a
+    side stream (it makes every cached table and lazily built state) and
+    then captures it; later calls with that key replay the graph and return
+    the captured outputs, which the next replay overwrites. The key holds
+    what a replay needs unchanged (the shapes and storage of the buffers fn
+    reads): a new key captures again.
+
+    graph: None runs a graph on a CUDA device and eagerly elsewhere; True
+    needs a CUDA device; False always calls fn eagerly, the same launches
+    queued from Python."""
+
+    def __init__(self, fn: Callable[[], object], device: torch.device | str, *,
+                 graph: bool | None = None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.graph = self.device.type == "cuda" if graph is None else graph
+        if self.graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        self.replay_launches: dict | None = None
+        self.captures = 0
+        self._graph: torch.cuda.CUDAGraph | None = None
+        self._key: Hashable = None
+        self._out = None
+
+    def __call__(self, key: Hashable = None):
+        if not self.graph:
+            return self.fn()
+        if self._graph is not None and key == self._key:
+            self._graph.replay()
+            return self._out
+        self._graph, self._out, self._key = None, None, key
+        out, self._graph, self._out, self.replay_launches = warm_and_capture(
+            self.fn, self.fn, self.device)
+        self.captures += 1
+        return out

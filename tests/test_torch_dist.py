@@ -305,6 +305,90 @@ def test_sharded_train_step_decreases_loss():
     assert torch.equal(params[1].rot, cam.rot)  # only the centres train
 
 
+@pytest.mark.parametrize("n", [1, 2])
+def test_sharded_step_keeps_static_buffers(n):
+    """The step's buffers stay put: step.init makes the leaves once, each
+    leaf's .grad is a view of the one flat buffer (every gradient, then the
+    loss), the returned params are aliases of the leaves (passed back in,
+    nothing is copied), the loss is a tensor of its own, a target of a new
+    shape gets a new static target, and a caller's fresh params are copied
+    into the leaves in place. graph=False and graph=None (eager on the CPU)
+    are bit-equal, and a graph on the CPU is refused."""
+    cfg = STEP_CFG.replace(shadows=True)
+    scene, cam = TS.default_scene(cfg), TC.default_camera()
+    target = torch.zeros((cfg.height, cfg.width, 3))
+    runs = []
+    for graph in (None, False):
+        step = make_sharded_train_step(cfg, make_mesh(n), tau=0.5, backend="pallas",
+                                       animate=True, graph=graph)
+        state = step.init((scene, cam))
+        leaves = dict(state.leaves)
+        ptrs = {k: v.data_ptr() for k, v in leaves.items()}
+        off = 0
+        for v in leaves.values():
+            assert v.grad.data_ptr() == state.flat.data_ptr() + 4 * off
+            off += v.numel()
+        assert off + 1 == state.flat.numel() and state.replay_launches is None
+        assert not state.phases[0].graph
+        params, losses = (scene, cam), []
+        for i in range(3):
+            params, state, loss = step(params, state, target, torch.tensor([1.0 / 60.0]))
+            losses.append(loss)
+            tgt_ptr = state.target.data_ptr()
+            assert loss.data_ptr() != state.flat.data_ptr() + 4 * off
+            for k, v in _leaves(params).items():
+                assert v.data_ptr() == ptrs[k] and not v.requires_grad
+        assert state.leaves == leaves and float(losses[0]) != float(losses[-1])
+        assert state.target_src[0] is target  # copied once, then left as it was
+        target.add_(1.0)  # written in place: copied again at the next step
+        step(params, state, target)
+        assert torch.equal(state.target, target)
+        target.sub_(1.0)
+        params, state, loss = step(params, state, target[:, :, :2].repeat(1, 1, 2)[..., :3])
+        assert state.target.data_ptr() == tgt_ptr  # same shape: the same buffer
+        runs.append((torch.stack(losses), [v.detach().clone() for v in leaves.values()]))
+        fresh = (TS.default_scene(cfg), cam)
+        step(fresh, state, torch.zeros((cfg.height, cfg.width, 3)))
+        assert all(v.data_ptr() == ptrs[k] for k, v in state.leaves.items())
+    (l0, p0), (l1, p1) = runs
+    assert torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(p0, p1))
+    step = make_sharded_train_step(cfg, make_mesh(n), tau=0.5, graph=True)
+    with pytest.raises(ValueError):
+        step.init((scene, cam))
+
+
+def test_sharded_frame_graph_buffers_on_the_cpu():
+    """render_frame_sharded's graph object in its eager form on the CPU
+    (its CUDA graph runs on the card only, chip_smoke.py phase 7): equal to
+    the single render; a scene of the same capacity is copied into the
+    static buffers, one of a new capacity replaces them; a graph on the CPU
+    is refused."""
+    from rtwc_tpu_torch.dist import mesh as M
+
+    cfg = CFG.replace(shadows=True)
+    mesh = make_mesh(4)
+    fg = M._FrameGraph(cfg, mesh.size, mesh.bands(), torch.device("cpu"), graph=False)
+    cam = TC.default_camera()
+    scenes = [TS.scene_from_numpy(JS.random_scene(k, 1, max_spheres=16, max_planes=4, seed=s))
+              for k, s in ((10, 3), (6, 4))]
+    scenes.append(TS.grow_scene(scenes[0], max_spheres=32))
+    for i, scene in enumerate(scenes):
+        before = fg.scene
+        fb = fg(scene, cam)
+        single = render_frame_kernel(scene, cam, cfg)
+        for name in ("rgb", "normal", "depth", "shading", "hit", "coverage", "alpha"):
+            assert torch.equal(getattr(fb, name), getattr(single, name)), (i, name)
+        assert fg.scene is not scene
+        if i == 1:
+            assert fg.scene is before  # copied in place
+        if i == 2:
+            assert fg.scene is not before  # a new capacity: new buffers
+    with pytest.raises(ValueError):
+        M._frame_graph(cfg, mesh.size, mesh.bands(), torch.device("cpu"))
+    with pytest.raises(ValueError):
+        render_frame_sharded(scenes[0], cam, cfg, mesh, backend="pallas", graph=True)
+
+
 # -- gloo meshes of processes ---------------------------------------------------------------
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -349,3 +433,79 @@ def test_gloo_ranks_match_one_rank(world, tmp_path):
             assert np.array_equal(r[f"fb.{f}"], getattr(single, f).numpy()), f
     for k in g1:
         assert_close_tree(g1[k], ranks[0][f"grad.{k}"], what=k)
+
+
+# -- Adam across band counts, in both packages (ROADMAP queue 3, settled) ------------------
+
+DRIFT_CFG = RenderConfig(width=128, height=64, max_spheres=16, max_planes=4,
+                         soft_miss_penalty=300.0, soft_mask_k=10.0)
+DRIFT_BANDS, DRIFT_STEPS = (1, 2, 4), 9
+EARLY_RTOL = 1e-5     # steps 1-4 across band counts, in each package
+DRIFT_MARGIN = 2.0    # the port's spread at the last step against JAX's own
+SGD_RTOL = 2e-6       # SGD: every step across band counts, in each package
+
+
+def _band_losses(cfg, optimizer: str) -> tuple:
+    """[len(DRIFT_BANDS), DRIFT_STEPS] losses of JAX's and the port's
+    sharded step (jnp backend) on 1, 2 and 4 bands from random_scene(16),
+    tau 0.5, a zero target, `optimizer` at lr 1e-2 on every leaf."""
+    jscene = JS.random_scene(16, max_spheres=16, max_planes=4, seed=0)
+    jcam = JC.default_camera()
+    target = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    j_opt = optax.adam(1e-2) if optimizer == "adam" else optax.sgd(1e-2)
+    t_opt = torch.optim.Adam if optimizer == "adam" else torch.optim.SGD
+    jl, pl = [], []
+    for n in DRIFT_BANDS:
+        jstep = j_step(cfg, j_make_mesh(n), tau=0.5, optimizer=j_opt, backend="jnp")
+        params, losses = (jscene, jcam), []
+        state = jstep.init(params)
+        for _ in range(DRIFT_STEPS):
+            params, state, loss = jstep(params, state, jnp.asarray(target))
+            losses.append(float(loss))
+        jl.append(losses)
+        step = make_sharded_train_step(cfg, make_mesh(n), tau=0.5, backend="jnp",
+                                       optimizer=lambda lv: t_opt(list(lv.values()), lr=1e-2))
+        params, losses = (TS.scene_from_numpy(jscene), TC.camera_from_numpy(jcam)), []
+        state = step.init(params)
+        for _ in range(DRIFT_STEPS):
+            params, state, loss = step(params, state, torch.from_numpy(target))
+            losses.append(float(loss))
+        pl.append(losses)
+    return np.array(jl), np.array(pl)
+
+
+def _spread(losses: np.ndarray) -> np.ndarray:
+    """Each step's spread across band counts, relative to its largest loss."""
+    return (losses.max(0) - losses.min(0)) / np.abs(losses).max(0)
+
+
+@pytest.mark.parametrize("shadows", [False, True], ids=["unshadowed", "shadows"])
+def test_adam_runs_part_across_band_counts_in_jax_too(shadows):
+    """Adam at lr 1e-2 on every leaf, 9 steps on 1, 2 and 4 bands: JAX's own
+    losses part across band counts from step 5 on, as the port's do (128x64,
+    at step 9: JAX 9.1e-3 unshadowed and 3.3e-3 shadowed, the port 6.7e-3
+    and 5.5e-4). Adam moves every leaf whose gradient clears eps by about
+    lr times that gradient's sign, so it turns the bands' last bits in
+    near-zero gradients into whole steps; under SGD the band counts stay
+    together (the next test). Held: steps 1-4 agree across band counts to
+    EARLY_RTOL in each package; JAX's last step spreads past 1e-4; the
+    port's last-step spread is at most DRIFT_MARGIN times JAX's; step 1
+    agrees across the packages to 2e-6."""
+    jl, pl = _band_losses(DRIFT_CFG.replace(shadows=shadows), "adam")
+    for name, losses in (("jax", jl), ("port", pl)):
+        early = _spread(losses)[:4]
+        assert early.max() < EARLY_RTOL, (name, early)
+    js, ps = _spread(jl)[-1], _spread(pl)[-1]
+    assert js > 1e-4, jl[:, -1]
+    assert ps <= DRIFT_MARGIN * js, (ps, js, pl[:, -1], jl[:, -1])
+    np.testing.assert_allclose(pl[:, 0], jl[:, 0], rtol=2e-6)
+
+
+def test_sgd_runs_stay_together_across_band_counts():
+    """The same case unshadowed under SGD at lr 1e-2: every step of 1, 2 and
+    4 bands agrees to SGD_RTOL in each package (about 6e-7 in JAX, 1.2e-7
+    in the port), so the bands' roundings are small and Adam amplifies
+    them."""
+    jl, pl = _band_losses(DRIFT_CFG, "sgd")
+    for name, losses in (("jax", jl), ("port", pl)):
+        assert _spread(losses).max() < SGD_RTOL, (name, _spread(losses))
