@@ -160,6 +160,7 @@ Longer tables go to chip_smoke_out/.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -747,6 +748,371 @@ def _cull_scenes(width: int, height: int):
     return cases
 
 
+# The grazing cases of phase 8 (and of tests/test_torch_list_kernel.py):
+# 256x128 images (16 x 8 tiles of 16x16) under the default camera, built so
+# that many list decisions sit within an ulp of their thresholds. Each
+# sphere's radius (or a plane's offset or tilt) is bisected until the plain
+# broad phase's own float32 decision for one (tile, object) pair flips
+# between two neighbouring float32 values, and one of the two is kept.
+GRAZE_W, GRAZE_H = 256, 128
+
+
+def _f32_flip(pred, lo: float, hi: float):
+    """Neighbouring float32 values (a, b) in [lo, hi] (0 < lo < hi) with
+    pred(a) != pred(b), by bisection over the float32 values between them;
+    None when pred(lo) == pred(hi)."""
+    import numpy as np
+
+    def f(i):
+        return float(np.int32(i).view(np.float32))
+
+    a, b = int(np.float32(lo).view(np.int32)), int(np.float32(hi).view(np.int32))
+    pa = pred(f(a))
+    if pred(f(b)) == pa:
+        return None
+    while b - a > 1:
+        m = (a + b) // 2
+        if pred(f(m)) == pa:
+            a = m
+        else:
+            b = m
+    return f(a), f(b)
+
+
+def _f64_flip(pred, lo: float, hi: float, steps: int = 64):
+    """(a, b) with pred(a) != pred(b) and b - a at float64 resolution, by
+    bisection; None when pred(lo) == pred(hi)."""
+    pa = pred(lo)
+    if pred(hi) == pa:
+        return None
+    for _ in range(steps):
+        m = 0.5 * (lo + hi)
+        if m in (lo, hi):
+            break
+        if pred(m) == pa:
+            lo = m
+        else:
+            hi = m
+    return lo, hi
+
+
+def _graze_config(ns: int, npl: int):
+    from rtwc_tpu_torch.config import RenderConfig
+
+    return RenderConfig(width=GRAZE_W, height=GRAZE_H, max_spheres=ns, max_planes=npl,
+                        shadows=True, **SOFT_KW)
+
+
+def _add_plane_normal(n):
+    """A plane's normal as `add_plane` stores it (normalised in float64)."""
+    import numpy as np
+
+    n = np.asarray(n, np.float64)
+    return (n / max(np.linalg.norm(n), 1e-20)).astype(np.float32)
+
+
+def _graze_tables(balls, planes=()):
+    """Packed (sph [8, NS], pl [12, NP]) f32 tables on the host, the colours
+    0, every object live (the tables `pack_scene` makes of `_graze_scene`'s
+    scene); an inactive plane where there is none."""
+    import torch
+
+    sph = torch.zeros((8, len(balls)), dtype=torch.float32)
+    for i, (c, r) in enumerate(balls):
+        sph[0:3, i] = torch.tensor(c, dtype=torch.float32)
+        sph[3, i], sph[7, i] = r, 1.0
+    pl = torch.zeros((12, max(1, len(planes))), dtype=torch.float32)
+    for k, (c, n, hw) in enumerate(planes):
+        pl[0:3, k] = torch.tensor(c, dtype=torch.float32)
+        pl[3:6, k] = torch.from_numpy(_add_plane_normal(n))
+        pl[6, k] = pl[7, k] = hw
+        pl[11, k] = 1.0
+    return sph, pl
+
+
+def _graze_scene(cfg, balls, planes=(), seed=0):
+    """The Scene of the tables `_graze_tables` packs (slot order kept)."""
+    import numpy as np
+    from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene
+
+    rng = np.random.default_rng(seed)
+    s = empty_scene(cfg.max_spheres, cfg.max_planes)
+    for c, r in balls:
+        s = add_sphere(s, r, tuple(float(v) for v in c),
+                       tuple(float(v) for v in rng.uniform(30, 220, 3)), speed=1.0)
+    for c, n, hw in planes:
+        s = add_plane(s, tuple(float(v) for v in c), tuple(float(v) for v in n),
+                      (100.0, 100.0, 100.0), 2.0 * hw, 2.0 * hw)
+    return s
+
+
+def _graze_camera(cfg):
+    """(default camera, its packed [1, 16] vector, the tile grid, the tile
+    cones (axis, cos, corner directions), the origin in float64)."""
+    import numpy as np
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.render import broad_phase as BP
+    from rtwc_tpu_torch.render import soft_kernel as SK
+    from rtwc_tpu_torch.scene import empty_scene
+
+    cam = default_camera()
+    camv = SK._packed(empty_scene(1, 1), cam)[2]
+    grid = BP.tile_grid(cfg.height, cfg.width, 16, 16)
+    cones = BP._tile_cones(camv, cfg, 16, 16, grid)
+    return cam, camv, grid, cones, camv[0, :3].double().numpy()
+
+
+def _unit_perp(a, rng):
+    import numpy as np
+
+    p = np.cross(a, rng.normal(size=3))
+    return p / np.linalg.norm(p)
+
+
+def _graze_view(hard: bool, n: int, seed: int):
+    """n spheres, each tangent to one tile's view cone as the view test sees
+    it: `ang` at `cone + alpha` (kind geom), at `cone + alpha40` (geom40, the
+    sky test), with r_eff / dist within 1e-5 of 1 where asin's argument is
+    clamped (clamp), or the camera at `r_eff + reach` from the centre (near)."""
+    import numpy as np
+    import torch
+    from rtwc_tpu_torch.render import broad_phase as BP
+
+    rng = np.random.default_rng(seed)
+    cfg = _graze_config(n, 1)
+    tau = 0.0 if hard else 0.5
+    cam, camv, grid, (axis, cos_cone, _), o = _graze_camera(cfg)
+    cone = torch.arccos(cos_cone).double().numpy()
+    axis = axis.double().numpy()
+    mp, far = cfg.soft_miss_penalty, cfg.far
+    reach = 0.0 if hard else (far + 16.0 * tau) / mp
+    r_scale = 1.0 if hard else float(np.sqrt(1.0 + reach))
+    kinds = ("geom", "clamp") if hard else ("geom", "clamp", "near", "geom40")
+    balls = []
+    for i in range(n):
+        kind = kinds[i % len(kinds)]
+        ti, tj = int(rng.integers(grid[0])), int(rng.integers(grid[1]))
+        a = axis[ti, tj]
+        if kind in ("geom", "geom40"):
+            theta, dist = cone[ti, tj] + rng.uniform(0.01, 0.3), rng.uniform(4.0, 60.0)
+            lo, hi = 1e-3, 0.99 * dist / r_scale
+        elif kind == "clamp":
+            theta, dist = cone[ti, tj] + np.pi / 2 + rng.uniform(-2e-3, 2e-3), rng.uniform(2, 20)
+            lo, hi = 0.9 * dist / r_scale, 1.1 * dist / r_scale
+        else:
+            theta, dist = cone[ti, tj] + rng.uniform(1.2, 1.5), rng.uniform(2.0, 6.0)
+            lo, hi = 0.5 * (dist - reach) / r_scale, 1.05 * (dist - reach) / r_scale
+        c = (o + dist * (np.cos(theta) * a + np.sin(theta) * _unit_perp(a, rng))).astype(
+            np.float32)
+
+        def pred(r, c=c, ti=ti, tj=tj, kind=kind):
+            sph, _ = _graze_tables([(c, r)])
+            lists, aux = BP.sphere_tile_lists(sph, camv, cfg, tau, 16, 16, grid, hard=hard)
+            if kind == "geom40":
+                return not bool(aux[1][ti, tj])
+            return int(lists[ti * grid[1] + tj, 0, 0]) == 1
+        flip = _f32_flip(pred, lo, hi)
+        if flip is not None:
+            balls.append((c, flip[int(rng.integers(2))]))
+    return _graze_scene(cfg, balls, seed=seed), cam, cfg, tau
+
+
+def _graze_occluders(n: int, seed: int):
+    """A sphere around the camera (every tile lists it: no sky tile, and no
+    plane, so every tile's hull runs to `far`) and n occluders, each within
+    an ulp of its radius of entering one tile's shadow list: min over the
+    tile's balls of d - R at r_keep."""
+    import numpy as np
+    from rtwc_tpu_torch.render import broad_phase as BP
+
+    rng = np.random.default_rng(seed)
+    cfg = _graze_config(n + 1, 1)
+    tau = 0.5
+    cam, camv, grid, (axis, cos_cone, _), o = _graze_camera(cfg)
+    axis, cc = axis.double().numpy(), cos_cone.double().numpy()
+    light = np.asarray(cfg.light_pos, np.float64)
+    ks = cfg.soft_shadow_k
+    keep_s, keep_c = np.sqrt(1.0 + 16.0 / ks), 16.0 / ks
+    half = cfg.far / 16.0
+    around = (o.astype(np.float32), 1000.0)
+    balls = [around]
+    for _ in range(n):
+        for _attempt in range(20):
+            ti, tj = int(rng.integers(grid[0])), int(rng.integers(grid[1]))
+            b = int(rng.integers(8))
+            tan = np.sqrt(max(1.0 - cc[ti, tj] ** 2, 0.0)) / max(cc[ti, tj], 0.05)
+            t_mid = (2 * b + 1) * half
+            v = o + axis[ti, tj] * t_mid - light
+            R = np.hypot(half, (t_mid + half) * tan)
+            r0 = rng.uniform(0.3, 2.0)
+            rho = R + r0 * keep_s + r0 + keep_c + 0.02
+            c = (light + rng.uniform(0.2, 0.8) * v + rho * _unit_perp(v, rng)).astype(np.float32)
+
+            def pred(r, c=c, t=ti * grid[1] + tj):
+                sph, pl = _graze_tables([around, (c, r)])
+                _, shl = BP.build_tile_lists(sph, pl, camv, cfg, tau, 16, 16, grid, True)
+                return 1 in shl[t, 0, 1:1 + int(shl[t, 0, 0])].tolist()
+            flip = _f32_flip(pred, 1e-3, 3.0 * r0 + 1.0)
+            if flip is not None:
+                balls.append((c, flip[int(rng.integers(2))]))
+                break
+    return _graze_scene(cfg, balls, seed=seed), cam, cfg, tau
+
+
+def _graze_planes(seed: int):
+    """Ten spheres and eight planes: four facing the camera at the offset
+    where one tile's `covered` certificate (t_max + pen <= cover_lim) flips,
+    two tilted to where one tile's corner rays give dn_u = -1e-3 (front_all)
+    and two to +1e-3 (back_pos)."""
+    import numpy as np
+    import torch
+    from rtwc_tpu_torch.render import broad_phase as BP
+
+    rng = np.random.default_rng(seed)
+    cfg = _graze_config(12, 8)
+    tau = 0.5
+    cam, camv, grid, (axis, _, d_raw), o = _graze_camera(cfg)
+    axis = axis.double().numpy()
+    balls = [((rng.uniform(-8, 8), rng.uniform(-2, 4), rng.uniform(15, 40)),
+              float(np.float32(rng.uniform(0.5, 2.5)))) for _ in range(10)]
+    balls = [(np.asarray(c, np.float32), r) for c, r in balls]
+    cover_lim = cfg.far - 16.0 * tau - 1.0
+
+    def unit32(v):
+        return _add_plane_normal(_add_plane_normal(v))
+
+    planes = []
+    for _ in range(4):
+        ti, tj = int(rng.integers(grid[0])), int(rng.integers(grid[1]))
+        a = axis[ti, tj]
+        n32 = unit32(-a)
+
+        def pred(s, ti=ti, tj=tj, a=a, n32=n32):
+            _, pl = _graze_tables([], [((o + a * s).astype(np.float32), n32, 1000.0)])
+            return bool(BP.plane_depth_bounds(pl, camv, cfg, tau, d_raw)[1][ti, tj])
+        flip = _f64_flip(pred, 1.0, cover_lim + 30.0)
+        if flip is not None:
+            s = flip[int(rng.integers(2))]
+            planes.append(((o + a * s).astype(np.float32), n32, 1000.0))
+    for sign in (-1.0, -1.0, 1.0, 1.0):
+        # a tile corner's ray u and p _|_ (u, z) pointing away from the tile's other
+        # corners (p . d < 0 there): n = sign (p cos(phi) - u sin(phi)) has dn_u =
+        # -sign sin(phi) at u, beyond the threshold at the other corners, and n_z ~
+        # sin(phi) ~ 1e-3, whose float32 steps move dn_u by about one float32 step of
+        # 1e-3: a bisection over phi, then one over n_z, puts u's dn_u within a step
+        # or two of -sign 1e-3
+        found = None
+        while found is None:
+            ti, tj = int(rng.integers(grid[0])), int(rng.integers(grid[1]))
+            corners = d_raw[ti, tj]
+            dq = corners.double().numpy()
+            for q in range(4):
+                u = dq[q] / np.linalg.norm(dq[q])
+                for ps in (1.0, -1.0):
+                    p = ps * np.cross(u, (0.0, 0.0, 1.0))
+                    p /= np.linalg.norm(p)
+                    if all(p @ dq[r] < -1e-3 for r in range(4) if r != q):
+                        found = (u, p)
+        u, p = found
+
+        def past(n, corners=corners, sign=sign):
+            n = torch.from_numpy(unit32(n))
+            dn = corners[:, 0] * n[0] + corners[:, 1] * n[1] + corners[:, 2] * n[2]
+            dn_u = dn / BP._norm3(corners)[:, 0]
+            return bool((dn_u <= -1e-3).all()) if sign < 0 else bool((dn_u >= 1e-3).all())
+
+        def normal(phi, u=u, p=p, sign=sign):
+            return unit32(-sign * (p * np.cos(phi) - u * np.sin(phi)))
+        flip = _f64_flip(lambda phi: past(normal(phi)), 0.0, 0.01)
+        if flip is None:
+            continue
+        n0 = normal(flip[0])
+        zs = 1.0 if n0[2] > 0 else -1.0
+
+        def with_z(m, n0=n0, zs=zs):
+            return np.array([n0[0], n0[1], zs * m], np.float32)
+        fine = _f32_flip(lambda m: past(with_z(m)), 0.5 * abs(float(n0[2])),
+                         2.0 * abs(float(n0[2])))
+        n = unit32(with_z(fine[int(rng.integers(2))])) if fine else n0
+        a = axis[ti, tj]
+        planes.append(((o + a * 40.0 + p * 3.0).astype(np.float32), n, 20.0))
+    return _graze_scene(cfg, balls, planes, seed=seed), cam, cfg, tau
+
+
+def _graze_ties(scene, cam, cfg, tau: float, hard: bool, k: int = 4) -> dict:
+    """Near-ties of a case, counted with the plain broad phase on the host:
+    (tile, sphere) pairs whose view-list or shadow-list membership differs
+    between every radius k float32 steps down and k up; with planes, tile
+    corners whose dn_u lies within k float32 steps of -1e-3 or 1e-3, and
+    (tile, plane) pairs whose `covered` certificate differs between the
+    plane's offset from the camera scaled by (1 -+ k 2^-24)."""
+    import numpy as np
+    import torch
+    from rtwc_tpu_torch.render import broad_phase as BP
+    from rtwc_tpu_torch.render import soft_kernel as SK
+
+    sph, pl, camv = SK._packed(scene, cam)
+    grid = BP.tile_grid(cfg.height, cfg.width, 16, 16)
+
+    def members(r_step, p=pl):
+        s = sph.clone()
+        bits = s[3].numpy().view(np.int32) + r_step
+        s[3] = torch.from_numpy(bits.view(np.float32).copy())
+        lists, shl = BP.build_tile_lists(s, p, camv, cfg, tau, 16, 16, grid, not hard)
+        if hard:
+            lists, _ = BP.sphere_tile_lists(s, camv, cfg, tau, 16, 16, grid, hard=True)
+        out = []
+        for t in (lists, shl):
+            if t is None:
+                continue
+            m = torch.zeros((t.shape[0], s.shape[1] + 1), dtype=torch.bool)
+            slot = torch.arange(t.shape[2] - 1)[None, :] < t[:, 0, :1]
+            m.scatter_(1, torch.where(slot, t[:, 0, 1:].long(), s.shape[1]), slot)
+            out.append(m[:, :-1])
+        return out
+    lo, hi = members(-k), members(k)
+    ties = {"view": int((lo[0] != hi[0]).sum())}
+    if not hard:
+        ties["shadow"] = int((lo[1] != hi[1]).sum())
+    live = int((pl[11] > 0.5).sum())
+    if live:
+        _, _, d_raw = BP._tile_cones(camv, cfg, 16, 16, grid)
+        n = pl[3:6, :live].T
+        dn = (d_raw[..., None, 0] * n[:, 0] + d_raw[..., None, 1] * n[:, 1]
+              + d_raw[..., None, 2] * n[:, 2])
+        dn_u = (dn / BP._norm3(d_raw)).numpy().ravel()
+        ulp = np.spacing(np.float32(1e-3))
+        ties["dn_u"] = int((np.minimum(np.abs(dn_u + np.float32(1e-3)),
+                                       np.abs(dn_u - np.float32(1e-3))) <= k * ulp).sum())
+        o = camv[0, :3]
+        covered = []
+        for sgn in (-1.0, 1.0):
+            cov = []
+            for j in range(live):
+                q = pl[:, j:j + 1].clone()
+                q[0:3, 0] = (o.double() + (q[0:3, 0].double() - o.double())
+                             * (1.0 + sgn * k * 2.0 ** -24)).float()
+                cov.append(BP.plane_depth_bounds(q, camv, cfg, tau, d_raw)[1])
+            covered.append(torch.stack(cov))
+        ties["covered"] = int((covered[0] != covered[1]).sum())
+    return ties
+
+
+def _grazing_scenes():
+    """{label: (scene, camera, config, tau, hard)}: phase 8's grazing cases,
+    built on the host from fixed seeds."""
+    scenes = {}
+    for hard in (False, True):
+        scene, cam, cfg, tau = _graze_view(hard, 48, 11 + hard)
+        scenes[f"grazing view cones ({'hard' if hard else 'soft'})"] = (scene, cam, cfg, tau,
+                                                                        hard)
+    scene, cam, cfg, tau = _graze_occluders(32, 13)
+    scenes["grazing occluder balls"] = (scene, cam, cfg, tau, False)
+    scene, cam, cfg, tau = _graze_planes(14)
+    scenes["grazing planes (cover_lim, dn_u at +-1e-3)"] = (scene, cam, cfg, tau, False)
+    return scenes
+
+
 def _many_planes(n: int):
     """The default scene's spheres over n small tiles of floor in a grid."""
     from rtwc_tpu_torch.config import RenderConfig
@@ -1077,7 +1443,8 @@ def _k5_barriers(shl, gates, ns: int) -> dict:
 
     main = gates[:, 0].sum(1).double()
     listed = torch.arange(ns, device=shl.device)[None, :] < shl[:, 0, 0].long()[:, None]
-    rows = gates[:, 1].gather(1, shl[:, 0, 1:1 + ns].long().clamp(max=ns - 1))
+    entries = torch.where(listed, shl[:, 0, 1:1 + ns], 0).long()  # past a count: anything
+    rows = gates[:, 1].gather(1, entries)
     shadow = (rows * listed).sum(1).double() + gates[:, 1, ns:].sum(1).double()
     per_object = 1 + 2 * (main + shadow) + 2
     slab = 1 + 2 * (shadow > 0).double() + 2 * (main > 0).double() + 1
@@ -1511,12 +1878,18 @@ def _phase_7(dev, tag, errs):
     return launches, k7_bands
 
 
-# The list kernel's float32 operations (csrc/broad_phase.cu), counted as OPS
-# counts them: a view test of a live sphere against a tile's cone (the
-# vector to it, its distance and direction, the angle, the two radii's
-# asin, the tests and the key), the per-sphere part of an occluder test and
-# its test against one of the NB balls.
-LIST_OPS = dict(view=45, occluder=10, ball=19)
+# The broad phase's float32 operations (render/broad_phase.py, which both
+# list kernels compute), counted as OPS counts them, each part as often as
+# these inputs need it: once a live sphere, its tile-independent view terms
+# (the vector to it, its distance and direction, the two radii's asin, the
+# near tests, dist + r) and occluder terms (w, ww, r_keep); once a tile, its
+# cone (four corner rays, the axis, the angle) and, with shadow lists, the
+# eight balls; once a (tile, live plane), the plane's corner bounds and its
+# four penalties; once a (tile, live sphere), the view test (the angle and
+# the two compares) and, with shadow lists, the test against each of the NB
+# balls.
+LIST_OPS = dict(sphere=28, occluder_sphere=12, cone=160, balls=182, plane=190, view=14,
+                ball=19)
 
 
 def _list_args(SK, BP, scene, cam, cfg, dev, band=None):
@@ -1531,10 +1904,17 @@ def _list_args(SK, BP, scene, cam, cfg, dev, band=None):
 def _list_case(LK, BP, SK, label, scene, cam, cfg, tau, dev, shadows=True, hard=False,
                disable=False, band=None):
     """The list kernel against broad_phase.py on the card, on the same packed
-    tables: the view lists, the shadow lists and the aux planes torch.equal
-    (every row in full: count, listed prefix and excluded tail), and the entry
-    tables' kernel torch.equal to their plain version on the kernel's lists.
-    Returns (view entries, shadow entries)."""
+    tables: the view lists' and the shadow lists' counts and listed prefixes
+    and the aux planes torch.equal (the kernel writes no slot past a count:
+    no card consumer reads there, and the plain versions mask those slots;
+    the plain lists keep their excluded tails). Then the
+    entry tables' kernel against their plain version on the kernel's lists,
+    in three launches (the scratch's epoch advances): offsets and counts
+    torch.equal, the entries below the counts torch.equal (the card writes
+    nothing past them, and no card consumer reads there: the reduction's
+    red_key / warp_key_rounds in csrc/soft_render.cu stop at the counts), and
+    the partial tables, filled with NaN first, zero below the counts and
+    untouched past them. Returns (view entries, shadow entries)."""
     import torch
 
     sph, pl, camv, grid = _list_args(SK, BP, scene, cam, cfg, dev, band)
@@ -1543,47 +1923,223 @@ def _list_case(LK, BP, SK, label, scene, cam, cfg, tau, dev, shadows=True, hard=
     want = LK.tile_lists_plain(sph, pl, camv, cfg, tau, 16, 16, grid, shadows, hard=hard,
                                disable=disable)
     for what, a, b in (("view lists", got[0], want[0]), ("shadow lists", got[1], want[1])):
-        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-            bad = [] if a is None or b is None else (a != b).any(2).any(1).nonzero()[:3, 0].tolist()
+        if (a is None) != (b is None):
+            raise AssertionError(f"{label}: the list kernel's {what}: one of the two is None")
+        if a is None:
+            continue
+        listed = torch.arange(a.shape[2], device=a.device)[None, :] <= b[:, 0, :1]
+        diff = (a[:, 0] != b[:, 0]) & listed
+        if bool(diff.any()):
+            bad = diff.any(1).nonzero()[:3, 0].tolist()
             raise AssertionError(f"{label}: the list kernel's {what} differ from broad_phase.py's"
-                                 f" (tiles {bad}: kernel {[a[t, 0].tolist() for t in bad]}, "
-                                 f"plain {[b[t, 0].tolist() for t in bad]})")
+                                 f" in count or listed prefix (tiles {bad}: kernel "
+                                 f"{[a[t, 0].tolist() for t in bad]}, plain "
+                                 f"{[b[t, 0].tolist() for t in bad]})")
     if (got[2] is None) != (want[2] is None) or (
             got[2] is not None and not all(torch.equal(x, y) for x, y in zip(got[2], want[2]))):
         raise AssertionError(f"{label}: the list kernel's aux planes differ from broad_phase.py's")
-    ent_k, ent_p = LK.entry_tables(got[0], got[1]), LK.entry_tables_plain(got[0], got[1])
-    for a, b, f in zip(ent_k, ent_p, ent_k._fields):
-        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-            raise AssertionError(f"{label}: the entry tables' {f} differ from the plain version's")
-    n, nsh = (int(x) for x in ent_k.counts)
+    ent_p = LK.entry_tables_plain(got[0], got[1])
+    n, nsh = (int(x) for x in ent_p.counts)
+    for launch in range(3):
+        tables = [t.fill_(float("nan")) if t is not None else None
+                  for t in LK.partial_tables(got[0], got[1])]
+        ent_k = LK.entry_tables(got[0], got[1], *tables)
+        for f, a, b in (("offsets", ent_k.offsets, ent_p.offsets),
+                        ("sh_offsets", ent_k.sh_offsets, ent_p.sh_offsets),
+                        ("counts", ent_k.counts, ent_p.counts),
+                        ("pidx below the count", ent_k.pidx[:n], ent_p.pidx[:n]),
+                        ("pshidx below the count", None if ent_k.pshidx is None
+                         else ent_k.pshidx[:nsh], None if ent_p.pshidx is None
+                         else ent_p.pshidx[:nsh])):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"{label}: launch {launch}: the entry tables' {f} differ "
+                                     f"from the plain version's")
+        for name, t, k in (("pvals", tables[0], n), ("psh", tables[1], nsh)):
+            if t is not None and not (bool((t[:k] == 0).all()) and bool(t[k:].isnan().all())):
+                raise AssertionError(f"{label}: launch {launch}: {name} is not zero below the "
+                                     f"count {k} and untouched past it")
     T, ns = got[0].shape[0], sph.shape[1]
     print(f"phase 8: {label} ({'hard' if hard else f'tau {tau}'}"
           f"{', shadows' if shadows else ''}{', disable' if disable else ''}"
           f"{f', rows {band[0]}-{band[0] + band[1] - 1}' if band else ''}): {T} tiles, "
           f"{int((sph[7] > 0.5).sum())} live of {ns} spheres; list kernel torch.equal to "
-          f"broad_phase.py (view lists{', shadow lists' if shadows else ''}"
-          f"{', aux' if not disable else ''}), entry tables torch.equal to their plain version; "
+          f"broad_phase.py in count and listed prefix (view lists"
+          f"{', shadow lists' if shadows else ''}; the slots past a count, which no card "
+          f"consumer reads, are not written){', and in the aux planes' if not disable else ''}; "
+          f"entry tables in 3 launches: offsets, counts and "
+          f"the entries below the counts torch.equal to the plain version's (compared below "
+          f"the counts: the card writes nothing past them and the reduction reads nothing "
+          f"there), the partial tables zero below the counts and untouched past them; "
           f"{n} entries, {nsh} shadow entries")
     return n, nsh
 
 
+def _sum3_orders(dev) -> dict:
+    """How torch's CUDA reduction sums the broad phase's two three-element
+    `.sum(-1)`s (broad_phase.shadow_tile_lists): ww over the transposed
+    sphere table's [NS, 3] (strided last dimension; contiguous for NS = 1)
+    and vv over the balls' contiguous [Ti, Tj, NB, 3]; for each, the share
+    of values equal to (x0 + x1) + x2 and to (x0 + x2) + x1, on random
+    inputs. The list kernel mirrors the order found here."""
+    import torch
+
+    gen = torch.Generator().manual_seed(5)
+    light = torch.tensor([1.0, 50.0, 0.0], device=dev)
+    out = {}
+    for ns in (1, 2, 20, 200, 3000):  # NS = 1: 64 tables of one sphere
+        out[f"ww ns={ns}"] = [(torch.randn((8, ns), generator=gen) * 30.0).to(dev)[0:3].T - light
+                              for _ in range(64 if ns == 1 else 1)]
+    out["vv 68x120x8"] = [(torch.randn((68, 120, 8, 3), generator=gen) * 30.0).to(dev) - light]
+    shares = {}
+    for label, xs in out.items():
+        got = torch.cat([(x * x).sum(-1).reshape(-1) for x in xs])
+        sq = torch.cat([(x * x).reshape(-1, 3) for x in xs])
+        shares[label] = (float((got == (sq[:, 0] + sq[:, 1]) + sq[:, 2]).double().mean()),
+                         float((got == (sq[:, 0] + sq[:, 2]) + sq[:, 1]).double().mean()))
+    return shares
+
+
+def _list_cases(dev):
+    """Phase 8a: the list kernel and the entry tables against their plain
+    versions (`_list_case`) in every case: the bench headline, 4K/200, the
+    display's lists, a pitched posed camera, two bands, K7's cull cases
+    (hard and soft), the slab crowd, an empty scene, culling off, 4096
+    sphere slots (hard and soft), and the grazing cases (`_grazing_scenes`), each with its near-ties counted on
+    the host (`_graze_ties`)."""
+    import torch
+
+    from rtwc_tpu_torch.camera import Camera, default_camera
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.render import broad_phase as BP
+    from rtwc_tpu_torch.render import list_kernel as LK
+    from rtwc_tpu_torch.render import soft_kernel as SK
+    from rtwc_tpu_torch.scene import empty_scene, random_scene
+
+    cam = default_camera()
+    cfg_hl = RenderConfig(width=1920, height=1080, max_spheres=20, max_planes=4, shadows=True,
+                          **SOFT_KW)
+    scene_hl = random_scene(20, max_spheres=20, max_planes=4, seed=0, device=dev)
+    cfg_4k = cfg_hl.replace(width=3840, height=2160, max_spheres=200)
+    scene_4k = random_scene(200, max_spheres=200, max_planes=4, seed=0, device=dev)
+    posed = Camera(pos=torch.tensor([3.0, 2.0, -5.0]), rot=torch.tensor([0.25, 2.8, 0.0]))
+    orders = _sum3_orders(dev)
+    print(f"phase 8: torch's three-element sums, share equal to (x0 + x1) + x2 and to "
+          f"(x0 + x2) + x1: {orders}")
+    if not (all(v[0] == 1.0 for k, v in orders.items() if k.startswith("ww") and k != "ww ns=1")
+            and orders["ww ns=1"][1] == 1.0 and orders["vv 68x120x8"][1] == 1.0):
+        raise AssertionError("torch sums ww or vv in another order than the list kernel does")
+    _list_case(LK, BP, SK, "bench headline 1920x1080 random_scene(20)", scene_hl, cam, cfg_hl,
+               0.5, dev)
+    _list_case(LK, BP, SK, "3840x2160 random_scene(200)", scene_4k, cam, cfg_4k, 0.5, dev)
+    _list_case(LK, BP, SK, "3840x1000 random_scene(100), the display's lists",
+               random_scene(100, seed=0), cam, RenderConfig(width=3840, height=1000), 0.0, dev,
+               shadows=False, hard=True)
+    _list_case(LK, BP, SK, "400x150 random_scene(24, seed=7), pitched posed camera",
+               random_scene(24, max_spheres=24, max_planes=4, seed=7), posed,
+               RenderConfig(width=400, height=150, max_spheres=24, shadows=True, **SOFT_KW),
+               0.5, dev)
+    _list_case(LK, BP, SK, "400x150 pitched posed camera, the display's lists",
+               random_scene(24, max_spheres=24, max_planes=4, seed=7), posed,
+               RenderConfig(width=400, height=150, max_spheres=24), 0.0, dev, shadows=False,
+               hard=True)
+    for band in ((540, 540), (270, 270)):
+        _list_case(LK, BP, SK, "bench headline band", scene_hl, cam,
+                   cfg_hl, 0.5, dev, band=band)
+    cull = dict(_cull_scenes(400, 150))
+    cull["the engine's scene after spawns doubled its capacity"] = (
+        _grown_scene(dev), RenderConfig(width=400, height=150, shadows=True))
+    for label, (scene, cfg) in cull.items():
+        _list_case(LK, BP, SK, label, scene, cam, cfg, 0.0, dev, shadows=False, hard=True)
+        _list_case(LK, BP, SK, label, scene, cam, cfg.replace(**SOFT_KW), 0.5, dev)
+    _list_case(LK, BP, SK, "96x32 40-sphere slab crowd", _slab_crowd(), cam,
+               RenderConfig(width=96, height=32, max_spheres=48, max_planes=2, shadows=True,
+                            **SOFT_KW), 0.5, dev)
+    _list_case(LK, BP, SK, "bench headline config, empty scene", empty_scene(20, 4, device=dev),
+               cam, cfg_hl, 0.5, dev)
+    _list_case(LK, BP, SK, "bench headline", scene_hl, cam, cfg_hl, 0.5, dev, disable=True)
+    big = RenderConfig(width=400, height=150, max_spheres=4096, shadows=True)
+    for hard in (True, False):  # the engine's largest scene: every slot staged at once
+        _list_case(LK, BP, SK, "400x150 random_scene(300) in 4096 sphere slots",
+                   random_scene(300, max_spheres=4096, seed=3), cam,
+                   big if hard else big.replace(**SOFT_KW), 0.0 if hard else 0.5, dev,
+                   shadows=not hard, hard=hard)
+    for label, (scene, gcam, cfg, tau, hard) in _grazing_scenes().items():
+        ties = _graze_ties(scene, gcam, cfg, tau, hard)
+        print(f"phase 8: {label}: near-ties on the host (membership that differs between the "
+              f"radii 4 float32 steps down and up; dn_u within 4 steps of +-1e-3; covered "
+              f"under the offset scaled by 1 -+ 2^-22) {ties}")
+        _list_case(LK, BP, SK, label, scene, gcam, cfg, tau, dev, shadows=not hard, hard=hard)
+
+
+@contextlib.contextmanager
+def _plain_broad_phase():
+    """The train step's broad phase in its plain torch version on the card:
+    broad_phase.py's lists, entry_tables_plain and zero-filled partial
+    tables in place of the two kernels, by swapping the names the soft
+    kernels' modules call."""
+    import torch
+
+    from rtwc_tpu_torch.render import broad_phase as BP
+    from rtwc_tpu_torch.render import list_kernel as LK
+    from rtwc_tpu_torch.render import shadow_kernel as SH
+    from rtwc_tpu_torch.render import soft_kernel as SK
+
+    def zeros(lists, shl=None):
+        return tuple(None if t is None else torch.zeros_like(t)
+                     for t in LK.partial_tables(lists, shl))
+    swaps = ((SK, "sphere_tile_lists", BP.sphere_tile_lists),
+             (SH, "build_tile_lists", BP.build_tile_lists),
+             (SK, "entry_tables", LK.entry_tables_plain), (SK, "partial_tables", zeros))
+    kept = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    try:
+        for m, name, f in swaps:
+            setattr(m, name, f)
+        yield
+    finally:
+        for m, name, f in kept:
+            setattr(m, name, f)
+
+
+def _replay_kernel_names(step) -> list:
+    """The names of the device kernels of one replay of a CapturedStep
+    (after its warm-up and capture), from the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    step()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then returns a run without device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    raise AssertionError("the profiler recorded no kernel of the replay in three tries")
+
+
 def _list_work(sph, pl, lists, shl, aux, ent):
     """(bytes, float32 operations) of one tile_lists launch and of one
-    entry_tables launch on these inputs: tile_lists reads the tables and
-    writes the rows and the aux planes, tests every live sphere against
-    every tile's cone and, with shadow lists, against the NB balls;
-    entry_tables reads each row's count and listed entries and writes the
-    offsets and the [T NS] tables in full (their -1 tail included) and the
-    counts."""
+    entry_tables launch on these inputs, the least these inputs need, the
+    same for any design: tile_lists reads the tables and writes each row's
+    count and listed entries (what any consumer reads) and the aux planes,
+    with the work LIST_OPS counts; entry_tables reads each row's count and
+    listed entries and writes the offsets, the entries, the counts and the
+    zeroed rows of the partial tables the gradient kernels fill (8 floats a
+    view entry, 4 a shadow entry)."""
     T = lists.shape[0]
     live = int((sph[7] > 0.5).sum())
-    lists_b = _nbytes(sph, pl, lists, shl, *(aux or ()))
-    ops = T * live * (LIST_OPS["view"] + (0 if shl is None else
-                                          LIST_OPS["occluder"] + 8 * LIST_OPS["ball"]))
-    listed = int(ent.counts.long().sum())
+    live_pl = int((pl[11] > 0.5).sum()) if pl is not None else 0
+    n, nsh = (int(x) for x in ent.counts)
     n_lists = 1 if shl is None else 2
-    ent_b = 4 * (n_lists * T + listed) + 4 * n_lists * T + _nbytes(ent.pidx, ent.pshidx,
-                                                                    ent.counts)
+    lists_b = _nbytes(sph, pl, *(aux or ())) + 4 * (n_lists * T + n + nsh)
+    ops = (live * LIST_OPS["sphere"] + T * LIST_OPS["cone"] + T * live * LIST_OPS["view"])
+    if shl is not None:
+        ops += (live * LIST_OPS["occluder_sphere"] + T * LIST_OPS["balls"]
+                + T * live_pl * LIST_OPS["plane"] + T * live * 8 * LIST_OPS["ball"])
+    ent_b = 4 * (n_lists * T + n + nsh) * 2 + _nbytes(ent.counts) + 32 * n + 16 * nsh
     return (lists_b, float(ops)), (ent_b, 0.0)
 
 
@@ -1619,48 +2175,23 @@ def _phase_8(dev, tag):
 
     # -- 8a: the list kernel against broad_phase.py
     before = launch_counts()
-    _list_case(LK, BP, SK, "bench headline 1920x1080 random_scene(20)", scene_hl, cam, cfg_hl,
-               0.5, dev)
-    _list_case(LK, BP, SK, "3840x2160 random_scene(200)", scene_4k, cam, cfg_4k, 0.5, dev)
-    _list_case(LK, BP, SK, "3840x1000 random_scene(100), the display's lists",
-               random_scene(100, seed=0), cam, RenderConfig(width=3840, height=1000), 0.0, dev,
-               shadows=False, hard=True)
-    _list_case(LK, BP, SK, "400x150 random_scene(24, seed=7), pitched posed camera",
-               random_scene(24, max_spheres=24, max_planes=4, seed=7), posed,
-               RenderConfig(width=400, height=150, max_spheres=24, shadows=True, **SOFT_KW),
-               0.5, dev)
-    _list_case(LK, BP, SK, "400x150 pitched posed camera, the display's lists",
-               random_scene(24, max_spheres=24, max_planes=4, seed=7), posed,
-               RenderConfig(width=400, height=150, max_spheres=24), 0.0, dev, shadows=False,
-               hard=True)
-    for band in ((540, 540), (270, 270)):
-        _list_case(LK, BP, SK, "bench headline band", scene_hl, cam,
-                   cfg_hl, 0.5, dev, band=band)
-    cull = dict(_cull_scenes(400, 150))
-    cull["the engine's scene after spawns doubled its capacity"] = (
-        _grown_scene(dev), RenderConfig(width=400, height=150, shadows=True))
-    for label, (scene, cfg) in cull.items():
-        _list_case(LK, BP, SK, label, scene, cam, cfg, 0.0, dev, shadows=False, hard=True)
-        _list_case(LK, BP, SK, label, scene, cam, cfg.replace(**SOFT_KW), 0.5, dev)
-    _list_case(LK, BP, SK, "96x32 40-sphere slab crowd", _slab_crowd(), cam,
-               RenderConfig(width=96, height=32, max_spheres=48, max_planes=2, shadows=True,
-                            **SOFT_KW), 0.5, dev)
-    _list_case(LK, BP, SK, "bench headline config, empty scene", empty_scene(20, 4, device=dev),
-               cam, cfg_hl, 0.5, dev)
-    _list_case(LK, BP, SK, "bench headline", scene_hl, cam, cfg_hl, 0.5, dev, disable=True)
+    _list_cases(dev)
     print(f"phase 8: launches of the comparisons {launch_delta(before)}")
+
 
     # the list kernels' timings at the bench headline (the train step's shape)
     sph, pl, camv, grid = _list_args(SK, BP, scene_hl, cam_d, cfg_hl, dev)
     lists_fn = lambda: LK.tile_lists_with_aux(sph, pl, camv, cfg_hl, 0.5, 16, 16, grid, True)  # noqa: E731
     lists, shl, aux = lists_fn()
-    ent = LK.entry_tables(lists, shl)
+    tables = LK.partial_tables(lists, shl)  # the step's [T NS] partial tables, zeroed below
+    ent = LK.entry_tables(lists, shl, *tables)
+    plain_tables = [torch.zeros_like(t) for t in tables]
     plain_lists = lambda: LK.tile_lists_plain(sph, pl, camv, cfg_hl, 0.5, 16, 16, grid, True)  # noqa: E731
     timings = {}
     for key, kname, kfn, pfn in (
             ("tile_lists", "tile_lists_kernel", lists_fn, plain_lists),
-            ("entry_tables", "entry_tables_kernel", lambda: LK.entry_tables(lists, shl),
-             lambda: LK.entry_tables_plain(lists, shl))):
+            ("entry_tables", "entry_tables_kernel", lambda: LK.entry_tables(lists, shl, *tables),
+             lambda: LK.entry_tables_plain(lists, shl, *plain_tables))):
         k_ms, p_ms = _time_ms(kfn), _time_ms(pfn, reps=5, warm=1)
         d_ms, g_ms = _kernel_device_ms(kfn, name=kname), _graph_ms(kfn)[0]
         timings[key] = (k_ms, p_ms, d_ms, g_ms)
@@ -1672,9 +2203,10 @@ def _phase_8(dev, tag):
     sph4, pl4, camv4, grid4 = _list_args(SK, BP, scene_4k, cam_d, cfg_4k, dev)
     fn4 = lambda: LK.tile_lists_with_aux(sph4, pl4, camv4, cfg_4k, 0.5, 16, 16, grid4, True)  # noqa: E731
     l4 = fn4()
-    ent4 = LK.entry_tables(l4[0], l4[1])
+    tables4 = LK.partial_tables(l4[0], l4[1])
+    ent4 = LK.entry_tables(l4[0], l4[1], *tables4)
     work_4k = dict(zip(("tile_lists", "entry_tables"), _list_work(sph4, pl4, *l4, ent4)))
-    ent4_fn = lambda: LK.entry_tables(l4[0], l4[1])  # noqa: E731
+    ent4_fn = lambda: LK.entry_tables(l4[0], l4[1], *tables4)  # noqa: E731
     dev_4k = {"tile_lists": _kernel_device_ms(fn4, reps=5, name="tile_lists_kernel"),
               "entry_tables": _kernel_device_ms(ent4_fn, reps=5, name="entry_tables_kernel")}
     graph_4k = {"tile_lists": _graph_ms(fn4)[0], "entry_tables": _graph_ms(ent4_fn)[0]}
@@ -1747,6 +2279,23 @@ def _phase_8(dev, tag):
     print("phase 8: an eager display frame at 1920x500 x2 with shadows (physics, pack, lists, "
           "K7, downsample, cells) ran under set_sync_debug_mode('error')")
 
+    # a replay of the fused headline step: two broad-phase launches, no fill
+    # of a [T NS] partial table (counted at the capture), no scan kernel
+    broad = {k: v for k, v in replay["shadowed fused"].items()
+             if k in ("tile_lists", "entry_tables", "partial_fill")}
+    if broad != {"tile_lists": 1, "entry_tables": 1}:
+        raise AssertionError(f"a replay of the fused headline step launches {broad} of the broad "
+                             f"phase (want tile_lists 1, entry_tables 1, no partial_fill)")
+    names = _replay_kernel_names(B.train_step(cfg_hl, scene_hl, cam_d, zero_hl, graph=True))
+    scans = sorted({n for n in names if "scan" in n.lower() or "cumsum" in n.lower()})
+    if scans:
+        raise AssertionError(f"a replay of the fused headline step runs scan kernels {scans}")
+    fills = sum("fill" in n.lower() for n in names)
+    print(f"phase 8: a replay of the fused headline step: broad-phase launches {broad} (counters "
+          f"at the capture; no partial_fill: no [T NS] table filled), {len(names)} kernel "
+          f"records, none a scan or cumsum, {fills} fill kernels (the [T, NP, 12] and [T, 13, 2] "
+          f"partials, the gates and the like)")
+
     # -- 8c: graph against eager, bit for bit
     for label, (cfg, scene, target, fused), n in (
             ("shadowed fused, bench headline", paths["shadowed fused"], 10),
@@ -1763,6 +2312,28 @@ def _phase_8(dev, tag):
                                  f"(losses {le.tolist()} vs {lg.tolist()})")
         print(f"phase 8: {label}: {n} graph-replayed steps torch.equal to {n} eager ones in "
               f"every loss ({float(le[0])!r} -> {float(le[-1])!r}) and all {len(pe)} parameters")
+    # the card's broad phase against the plain one (broad_phase.py,
+    # entry_tables_plain, zero-filled partial tables), eagerly: the plain
+    # version copies host constants, which a capture refuses
+    for label, cfg, scene, target in (
+            ("shadowed fused, bench headline", cfg_hl, scene_hl, zero_hl),
+            ("shadowed fused, 3840x2160 random_scene(200)", cfg_4k, scene_4k,
+             torch.zeros((2160, 3840, 3), device=dev))):
+        runs = []
+        for plain in (False, True):
+            with _plain_broad_phase() if plain else contextlib.nullcontext():
+                step = B.train_step(cfg, scene, cam_d, target, graph=not plain)
+                losses = torch.stack([step().clone() for _ in range(10)])
+            runs.append((losses, [p.detach().clone() for p in step.opt.param_groups[0]["params"]]))
+        (lk, pk), (lp, pp) = runs
+        if not (torch.equal(lk, lp) and all(torch.equal(a, b) for a, b in zip(pk, pp))):
+            raise AssertionError(f"{label}: 10 replayed steps with the card's broad phase differ "
+                                 f"from 10 with the plain one (losses {lk.tolist()} vs "
+                                 f"{lp.tolist()})")
+        print(f"phase 8: {label}: 10 graph-replayed steps with the list kernel, the entry tables "
+              f"and uninitialised partial tables zeroed below the counts torch.equal to 10 steps "
+              f"with the plain broad phase and zero-filled tables, in every loss "
+              f"({float(lk[0])!r} -> {float(lk[-1])!r}) and all {len(pk)} parameters")
     # inverse_render.fit: a graph of render, loss and backward a stage (the
     # key changes at the stage), torch's default Adam after each replay
     fits = []
@@ -1895,7 +2466,7 @@ def main() -> int:
     for fn_name in C._ENTRIES:
         C._fn(fn_name)
     LK._fn("rtwc_tile_lists", 7, LK.ListParams)
-    LK._fn("rtwc_entry_tables", 6, LK.EntryParams)
+    LK._fn("rtwc_entry_tables", 8, LK.EntryParams)
     print(f"phase 1: built {', '.join(os.path.relpath(v, ROOT) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_cuda.build_seconds[k]:.2f} s" for k in libs)
@@ -2425,7 +2996,8 @@ def main() -> int:
           f"{steps_hl} fused steps and soft_tile_diagnostics: losses {gl[0]!r} -> {gl[-1]!r} "
           f"(generic), {fl[0]!r} -> {fl[-1]!r} (fused); launches {hl_launches}")
     want = dict(soft_fwd=0, soft_bwd=0, soft_mse=0, soft_sh_fwd=steps_hl, soft_sh_bwd=steps_hl,
-                soft_sh_mse=steps_hl, soft_sh_stats=1, soft_grad_reduce=2 * steps_hl)
+                soft_sh_mse=steps_hl, soft_sh_stats=1, soft_grad_reduce=2 * steps_hl,
+                partial_fill=0)
     if hl_launches != want or not all(np.isfinite(gl + fl)) or abs(gl[0] - fl[0]) > 1e-5 * gl[0]:
         raise AssertionError(f"shadowed train path: launches {hl_launches} (want {want}), "
                              f"losses {gl}, {fl}")
@@ -2444,7 +3016,7 @@ def main() -> int:
     # 2 + 2 renders before the fit; its 300 steps: one eager warm-up step and
     # one capture, then 299 replays
     want = dict(soft_fwd=2, soft_bwd=0, soft_mse=0, soft_sh_fwd=4, soft_sh_bwd=2,
-                soft_sh_mse=0, soft_sh_stats=0, soft_grad_reduce=2)
+                soft_sh_mse=0, soft_sh_stats=0, soft_grad_reduce=2, partial_fill=0)
     if rc != 0 or fit_launches != want:
         raise AssertionError(f"fit_from_shadow: exit {rc}, launches {fit_launches} (want {want})")
     cmd = [sys.executable, "-m", "rtwc_tpu_torch.examples.fit_from_shadow"]

@@ -263,7 +263,9 @@ def _trace(sph, pl, counts, cam, lists, config, bh, bw, band_h):
     tab = lists[:, 0, :]
     cnt = tab[:, 0][tile]
     for kk in range(int(tab[:, 0].max().item()) if tab.shape[0] else 0):
-        k = tab[:, 1 + kk].long()[tile]
+        # slots past a tile's count hold anything on the card (the list kernel
+        # writes the listed prefix only): gather sphere 0 there, masked below
+        k = torch.where(kk < tab[:, 0], tab[:, 1 + kk], 0).long()[tile]
         scx, scy, scz, r = (sph[row][k] for row in (P.S_CX, P.S_CY, P.S_CZ, P.S_R))
         t, valid = _camera_sphere_t(scx, scy, scz, r, o3, d3)
         win = valid & (t < t_best) & (kk < cnt)

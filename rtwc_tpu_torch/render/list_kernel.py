@@ -3,22 +3,32 @@
 Counterpart: rtwc_tpu/render/pallas_soft.py:619-982 (`_build_tile_lists`
 at :968), which JAX compiles with the train step into one device program.
 The plain version is render/broad_phase.py (torch ops); on the card the
-kernel's tables are `torch.equal` to it: slot 0, every row in full (the
-listed prefix and the excluded tail, which the plain kernels read as gather
-indices), and the aux planes.
+kernel's tables are `torch.equal` to it in what any consumer reads: slot 0
+(the count), the listed prefix, and the aux planes. The kernel writes no
+slot past a row's count (the plain versions' excluded tail): the CUDA
+consumers read a row up to its count, and the plain kernels mask those
+slots (they gather sphere 0 there).
 
 - `sphere_tile_lists` / `build_tile_lists` (broad_phase.py's names) build
   the view lists (and their aux planes) and, with shadows, the
-  shadow-occluder lists in one launch of `tile_lists_kernel`: one warp a
-  tile; `tile_lists_with_aux` returns all three, to compare them.
+  shadow-occluder lists in one launch of `tile_lists_kernel`: warps that
+  walk tiles over spheres staged once a block; `tile_lists_with_aux`
+  returns all three, to compare them.
 - `entry_tables` turns the lists into the compact entry tables of the soft
-  kernels' partials with one device cumsum and one launch of
-  `entry_tables_kernel`: each tile's offset, the sphere of every entry in a
+  kernels' partials in one launch of `entry_tables_kernel`, which scans
+  the counts itself: each tile's offset, the sphere of every entry in a
   [T NS] table (the exact worst case: no entry is ever dropped, and the
-  partial tables sized from it need no count from the device), -1 in every
-  slot past the total, and the totals [2] (main, shadow) in device memory.
-  Nothing reads the host, so a step that uses them runs under
-  `torch.cuda.set_sync_debug_mode("error")` and inside a CUDA graph.
+  partial tables sized from it need no count from the device), and the
+  totals [2] (main, shadow) in device memory. Given the partial tables
+  (`partial_tables`: [T NS, 8] and [T NS, 4], uninitialised on the card),
+  the same launch zeroes their rows below the totals, the rows the
+  gradient kernels and the reduction use. On the card nothing past the
+  totals is written: the reduction reads the entries below the counts
+  only. The plain version (`entry_tables_plain`, which the CPU runs) puts
+  -1 in every slot past the total. Nothing reads the host, so a step that
+  uses them runs under `torch.cuda.set_sync_debug_mode("error")` and
+  inside a CUDA graph; the launch's scratch (per-block totals, made once
+  a device, outside any capture) needs no reset between launches.
 
 Each wrapper runs the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises, and counts the launch in `LAUNCHES`.
@@ -37,13 +47,18 @@ from rtwc_tpu_torch.render import _cuda
 from rtwc_tpu_torch.render import broad_phase as BP
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render.reference import _FLT_EPSILON
+from rtwc_tpu_torch.render.soft_core import capacity
 
 LAUNCHES = {"tile_lists": 0, "entry_tables": 0}
-# Spheres a tile_lists warp keys in shared memory: 16 B each, 128 KB.
-MAX_SPHERES = 8192
-LIST_WARPS = 4     # csrc/broad_phase.cu: tiles (warps) a tile_lists block
-THREADS = 128      # csrc/broad_phase.cu: an entry_tables block
-NB = BP._NB        # balls of the truncated view cone (csrc/broad_phase.cu NB)
+LIST_WARPS = 8       # csrc/broad_phase.cu: warps a tile_lists block
+SPHERE_BYTES = 52    # csrc/broad_phase.cu: shared memory a staged sphere takes
+QUEUE = 64           # csrc/broad_phase.cu: a warp's queue for the exact occluder test
+# Spheres a tile_lists block stages (csrc/broad_phase.cu list_smem within 227 KB):
+# the engine grows a scene to EngineConfig.max_grow_spheres = 4096 slots
+MAX_SPHERES = 4096
+ENTRY_THREADS = 256  # csrc/broad_phase.cu: tiles (threads) an entry_tables block
+ENTRY_MAX_BLOCKS = 1024  # csrc/broad_phase.cu: a list's entry_tables blocks at most
+NB = BP._NB          # balls of the truncated view cone (csrc/broad_phase.cu NB)
 
 
 class ListParams(ctypes.Structure):
@@ -75,9 +90,10 @@ class EntryParams(ctypes.Structure):
 class Entries(NamedTuple):
     """The soft kernels' entry tables: offsets [T] i32 (where each tile's
     slots start), pidx [T NS] i32 (the sphere of each entry in tile then
-    slot order, -1 past the total), the same two for the shadow lists (None
-    without them), and counts [2] i32 (the main and shadow totals; shadow 0
-    without shadow lists)."""
+    slot order; past the total -1 in the plain version, unwritten on the
+    card), the same two for the shadow lists (None without them), and
+    counts [2] i32 (the main and shadow totals; shadow 0 without shadow
+    lists)."""
 
     offsets: torch.Tensor
     pidx: torch.Tensor
@@ -147,7 +163,7 @@ def _check(sph, pl, cam):
     if cam.shape[1] != P.CAM_LEN:
         raise ValueError(f"cam must be [1, {P.CAM_LEN}], got {tuple(cam.shape)}")
     if sph.shape[1] > MAX_SPHERES:
-        raise ValueError(f"the list kernel keys at most {MAX_SPHERES} spheres a tile, "
+        raise ValueError(f"the list kernel stages at most {MAX_SPHERES} spheres a block, "
                          f"got {sph.shape[1]}")
     if dev.type != "cuda":
         raise ValueError(f"the list kernel runs on cuda (plain version on cpu), not {dev}")
@@ -221,6 +237,18 @@ def tile_lists_with_aux(sph, pl, cam, config: RenderConfig, tau: float, bh: int,
 
 # -- the entry tables -----------------------------------------------------------------
 
+def partial_tables(lists: torch.Tensor, shl: torch.Tensor | None = None):
+    """(pvals [T NS, 8], psh [T NS, 4] or None) f32: the partial tables the
+    gradient kernels fill, for `entry_tables` to zero below the counts. On
+    the card they are allocated and not filled (the entry-table launch
+    zeroes the rows that are read); on the CPU they are zeros."""
+    make = torch.empty if lists.device.type == "cuda" else torch.zeros
+    pvals = make((capacity(lists), 8), dtype=torch.float32, device=lists.device)
+    psh = None if shl is None else make((capacity(shl), 4), dtype=torch.float32,
+                                        device=lists.device)
+    return pvals, psh
+
+
 def _entries_plain(lists: torch.Tensor):
     T, ns = lists.shape[0], lists.shape[2] - 1
     cnt = lists[:, 0, 0]
@@ -235,42 +263,86 @@ def _entries_plain(lists: torch.Tensor):
     return off.contiguous(), pidx[:T * ns].contiguous(), total
 
 
-def entry_tables_plain(lists: torch.Tensor, shl: torch.Tensor | None = None) -> Entries:
+def _zero_below(rows: torch.Tensor | None, n: torch.Tensor) -> None:
+    """Zero rows [0, n) of a partial table in place, n on the table's device."""
+    if rows is not None:
+        below = torch.arange(rows.shape[0], device=rows.device) < n
+        rows.masked_fill_(below[:, None], 0.0)
+
+
+def entry_tables_plain(lists: torch.Tensor, shl: torch.Tensor | None = None,
+                       pvals: torch.Tensor | None = None,
+                       psh: torch.Tensor | None = None) -> Entries:
     """The entry tables in torch ops, with no boolean mask: a scatter of
     every listed slot to its tile's offset plus its slot, the rest to a
-    spare slot that is cut off."""
+    spare slot that is cut off (-1 past the total); pvals' and psh's rows
+    below the main and shadow totals zeroed in place."""
     off, pidx, n = _entries_plain(lists)
+    _zero_below(pvals, n)
     if shl is None:
         return Entries(off, pidx, None, None, torch.cat([n, torch.zeros_like(n)]))
     sh_off, pshidx, n_sh = _entries_plain(shl)
+    _zero_below(psh, n_sh)
     return Entries(off, pidx, sh_off, pshidx, torch.cat([n, n_sh]))
 
 
+_SCRATCH: dict = {}
+
+
+def _scratch(lists: torch.Tensor) -> torch.Tensor:
+    """The entry-table launch's scratch on the lists' card: each list's
+    per-block totals (tagged with the launch) and the epoch and block
+    counters, zeroed once, outside any CUDA graph capture (a step's eager
+    warm-up makes it)."""
+    key = _device_index(lists)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("entry_tables: call it once outside the CUDA graph capture first "
+                               "(it makes its scratch then)")
+        buf = _SCRATCH[key] = torch.zeros(2 * ENTRY_MAX_BLOCKS + 1, dtype=torch.int64,
+                                          device=lists.device)
+    return buf
+
+
 @torch.no_grad()
-def entry_tables(lists: torch.Tensor, shl: torch.Tensor | None = None) -> Entries:
+def entry_tables(lists: torch.Tensor, shl: torch.Tensor | None = None,
+                 pvals: torch.Tensor | None = None, psh: torch.Tensor | None = None) -> Entries:
     """The soft kernels' entry tables of the view lists and, when given,
-    the shadow lists (see `Entries`)."""
+    the shadow lists (see `Entries`); pvals / psh (`partial_tables`), when
+    given, get their rows below the main / shadow totals zeroed by the same
+    launch."""
     if lists.dtype != torch.int32 or lists.dim() != 3 or lists.shape[1] != 1:
         raise ValueError(f"lists must be i32 [T, 1, NS+1], got {lists.dtype} "
                          f"{tuple(lists.shape)}")
     if shl is not None and (shl.shape != lists.shape or shl.dtype != lists.dtype
                             or shl.device != lists.device):
         raise ValueError("shadow lists must match the view lists")
+    if psh is not None and shl is None:
+        raise ValueError("psh goes with the shadow lists")
+    for name, t, width, lst in (("pvals", pvals, 8, lists), ("psh", psh, 4, shl)):
+        if t is not None and (t.device != lists.device or t.dtype != torch.float32
+                              or tuple(t.shape) != (capacity(lst), width)
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 [{capacity(lst)}, {width}] "
+                             f"tensor on {lists.device}")
     dev = lists.device
     if dev.type == "cpu":
-        return entry_tables_plain(lists, shl)
+        return entry_tables_plain(lists, shl, pvals, psh)
     if dev.type != "cuda":
         raise ValueError(f"entry_tables runs on cuda or cpu, not {dev}")
     ls = [lists.contiguous()] + ([] if shl is None else [shl.contiguous()])
     T, ns = lists.shape[0], lists.shape[2] - 1
-    ends = torch.cumsum(torch.stack([x[:, 0, 0] for x in ls]), dim=1, dtype=torch.int32)
+    if T > ENTRY_THREADS * ENTRY_MAX_BLOCKS:
+        raise ValueError(f"entry_tables takes at most {ENTRY_THREADS * ENTRY_MAX_BLOCKS} tiles, "
+                         f"got {T}")
     offsets = torch.empty((len(ls), T), dtype=torch.int32, device=dev)
     pidx = torch.empty((len(ls), T * ns), dtype=torch.int32, device=dev)
     counts = torch.empty(2, dtype=torch.int32, device=dev)
     prm = EntryParams(n_tiles=T, ns=ns, n_lists=len(ls), device=_device_index(lists))
     if T:
-        _call("rtwc_entry_tables", 6, prm,
-              (ls[0], ls[-1], ends, offsets, pidx, counts), dev)
+        _call("rtwc_entry_tables", 8, prm,
+              (ls[0], ls[-1], offsets, pidx, counts, pvals, psh, _scratch(lists)), dev)
         LAUNCHES["entry_tables"] += 1
     else:
         counts.zero_()

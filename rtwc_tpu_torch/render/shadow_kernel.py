@@ -162,8 +162,8 @@ def _sh_forward(c, spec: C.SoftSpec, sph, pl, cam, lists, shl, ray, tile, gates)
     stab = shl[:, 0, :]
     scnt = stab[:, 0]
     for jj in range(int(scnt.max().item()) if T else 0):
-        kt = stab[:, 1 + jj].long()
         live = jj < scnt
+        kt = torch.where(live, stab[:, 1 + jj], 0).long()  # past the count: anything
         disc, dss, b, dist = O.shadow_sphere_preA(c, *C._sphere_geo_args(sph, kt[tile]), lr)
         min_arg, args = O.shadow_sphere_preB(disc, dss, b, dist)
         if spec.cull:
@@ -255,8 +255,8 @@ def _sh_backward(c, spec: C.SoftSpec, sph, pl, cam, lists, shl, offsets, sh_offs
     stab = shl[:, 0, :]
     scnt = stab[:, 0]
     for jj in range(int(scnt.max().item()) if T else 0):
-        kt = stab[:, 1 + jj].long()
         live = jj < scnt
+        kt = torch.where(live, stab[:, 1 + jj], 0).long()  # past the count: anything
         rel = live & (gates[tiles, 1, kt] == 1) if spec.bwd_cull else live
         upd = rel[tile]
         geo4 = C._sphere_geo_args(sph, kt[tile])
@@ -398,15 +398,16 @@ def soft_sh_stats(sph, pl, cam, lists, shl, *, spec: C.SoftSpec):
     return _fwd(sph, pl, cam, lists, shl, spec, stats=True)
 
 
-def _partials(spec, sph, pl, lists, shl):
-    pvals, ppl, ptf = C._partials(spec, sph, pl, lists)
-    psh = torch.zeros((C.capacity(shl), 4), dtype=torch.float32, device=sph.device)
-    return pvals, psh, ppl, ptf
+def _partials(spec, sph, pl, lists, shl, pvals=None, psh=None):
+    pvals, ppl, ptf = C._partials(spec, sph, pl, lists, pvals)
+    return pvals, C.partial_rows(shl, 4, psh, "psh", sph.device), ppl, ptf
 
 
 def soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g, *,
-                spec: C.SoftSpec):
-    """K5: the partials (pvals, psh, ppl, ptf) for the cotangent planes g."""
+                spec: C.SoftSpec, pvals=None, psh=None):
+    """K5: the partials (pvals, psh, ppl, ptf) for the cotangent planes g;
+    pvals / psh: list_kernel.partial_tables' tables, zeroed below the
+    counts by entry_tables (None: zero-filled here)."""
     _require_shadows(spec)
     Hp, Wp = spec.extent
     _check(spec, sph, pl, cam, lists, shl, offsets=(offsets, torch.int32, 1),
@@ -417,7 +418,7 @@ def soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g, *,
     if sph.device.type == "cpu":
         return soft_sh_bwd_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g,
                                  spec=spec)
-    parts = _partials(spec, sph, pl, lists, shl)
+    parts = _partials(spec, sph, pl, lists, shl, pvals, psh)
     prm = C._params(spec, sph, pl, lists)
     prm.cull = int(spec.bwd_cull)
     C._launch("rtwc_soft_sh_bwd", "soft_sh_bwd",
@@ -425,9 +426,11 @@ def soft_sh_bwd(sph, pl, cam, lists, shl, offsets, sh_offsets, gates, sav, g, *,
     return parts
 
 
-def soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.SoftSpec):
+def soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.SoftSpec,
+                pvals=None, psh=None):
     """K6: the partials (pvals, psh, ppl, ptf) of the fused shadowed MSE step
-    at loss-cotangent 1; ptf's slot 12 holds the loss sum."""
+    at loss-cotangent 1; ptf's slot 12 holds the loss sum. pvals / psh as
+    soft_sh_bwd takes them."""
     _require_shadows(spec)
     Hp, Wp = spec.extent
     _check(spec, sph, pl, cam, lists, shl, offsets=(offsets, torch.int32, 1),
@@ -436,7 +439,7 @@ def soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.S
         raise ValueError(f"target must be [3, {Hp}, {Wp}], got {tuple(tgt.shape)}")
     if sph.device.type == "cpu":
         return soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec)
-    parts = _partials(spec, sph, pl, lists, shl)
+    parts = _partials(spec, sph, pl, lists, shl, pvals, psh)
     prm = C._params(spec, sph, pl, lists)
     prm.cull = int(spec.cull)
     C._launch("rtwc_soft_sh_mse", "soft_sh_mse",

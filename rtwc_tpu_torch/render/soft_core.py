@@ -30,7 +30,10 @@ MAX_PLANES = 1024
 MAX_THREADS = 256
 
 LAUNCHES = {"soft_fwd": 0, "soft_bwd": 0, "soft_mse": 0, "soft_grad_reduce": 0,
-            "soft_sh_fwd": 0, "soft_sh_bwd": 0, "soft_sh_mse": 0, "soft_sh_stats": 0}
+            "soft_sh_fwd": 0, "soft_sh_bwd": 0, "soft_sh_mse": 0, "soft_sh_stats": 0,
+            # fills of a [T NS] partial table on the card: a gradient kernel called
+            # without the tables the entry-table launch zeroed (list_kernel.partial_tables)
+            "partial_fill": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,11 +220,27 @@ def capacity(lists: torch.Tensor) -> int:
     return max(1, lists.shape[0] * (lists.shape[2] - 1))
 
 
-def _partials(spec: SoftSpec, sph, pl, lists):
-    """Zeroed partial tables (pvals [T NS, 8], ppl [T, NP, 12], ptf [T, 13, 2])."""
+def partial_rows(lists, width: int, given, name: str, dev):
+    """A gradient kernel's [T NS, width] partial table: `given` (from
+    list_kernel.partial_tables, its rows below the counts zeroed by the
+    entry-table launch), checked; or, when None, a zero-filled one
+    (counted in LAUNCHES["partial_fill"])."""
+    if given is None:
+        LAUNCHES["partial_fill"] += 1
+        return torch.zeros((capacity(lists), width), dtype=torch.float32, device=dev)
+    if (given.device != dev or given.dtype != torch.float32 or not given.is_contiguous()
+            or tuple(given.shape) != (capacity(lists), width)):
+        raise ValueError(f"{name} must be a contiguous f32 [{capacity(lists)}, {width}] tensor "
+                         f"on {dev}")
+    return given
+
+
+def _partials(spec: SoftSpec, sph, pl, lists, pvals=None):
+    """The partial tables (pvals [T NS, 8], ppl [T, NP, 12], ptf [T, 13, 2]):
+    pvals as `partial_rows` gives it, ppl and ptf zeroed."""
     T = spec.grid[0] * spec.grid[1]
     dev = sph.device
-    return (torch.zeros((capacity(lists), 8), dtype=torch.float32, device=dev),
+    return (partial_rows(lists, 8, pvals, "pvals", dev),
             torch.zeros((T, pl.shape[1], P.PL_ROWS), dtype=torch.float32, device=dev),
             torch.zeros((T, NTF, 2), dtype=torch.float32, device=dev))
 
@@ -346,8 +365,10 @@ def object_sweep(c, spec: SoftSpec, sph, pl, cam, lists, ray, tile, m_now, visit
     tab = lists[:, 0, :]
     cnt = tab[:, 0]
     for kk in range(int(cnt.max().item()) if T else 0):
-        kt = tab[:, 1 + kk].long()
         live = kk < cnt
+        # slots past a tile's count hold anything on the card (the list kernel
+        # writes the listed prefix only): gather sphere 0 there, masked by live
+        kt = torch.where(live, tab[:, 1 + kk], 0).long()
         geo4 = _sphere_geo_args(sph, kt[tile])
         if spec.cull:
             lb, t2, dss = O.sphere_lb_ex(c, *geo4, dx, dy, dz, ox, oy, oz)
@@ -410,8 +431,8 @@ def _backward_sweep(c, spec: SoftSpec, sph, pl, cam, lists, offsets, gates, ray,
     cnt = tab[:, 0]
     tiles = torch.arange(T, device=dev)
     for kk in range(int(cnt.max().item()) if T else 0):
-        kt = tab[:, 1 + kk].long()
         live = kk < cnt
+        kt = torch.where(live, tab[:, 1 + kk], 0).long()  # past the count: anything
         rel = live & (gates[tiles, 0, kt] == 1) if spec.bwd_cull else live
         upd = rel[tile]
         args = _sphere_args(sph, kt[tile])

@@ -56,7 +56,8 @@ from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render import shadow_kernel as SH
 from rtwc_tpu_torch.render import soft_core as C
 from rtwc_tpu_torch.render import soft_objects as O
-from rtwc_tpu_torch.render.list_kernel import Entries, entry_tables, sphere_tile_lists
+from rtwc_tpu_torch.render.list_kernel import (Entries, entry_tables, partial_tables,
+                                               sphere_tile_lists)
 from rtwc_tpu_torch.render.reference import Framebuffer
 from rtwc_tpu_torch.render.soft_core import (  # noqa: F401 (LAUNCHES, NTF: shared names)
     LAUNCHES, NTF, SLOT_LOSS, SO_ALPHA, SO_B, SO_DEPTH, SO_M, SO_NX, SO_NZ, SO_R, SO_S,
@@ -290,9 +291,11 @@ def soft_fwd(sph, pl, cam, lists, *, spec: SoftSpec):
     return out, gates
 
 
-def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec):
+def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec, pvals=None):
     """K2: the partials (pvals, ppl, ptf) for the cotangent planes g; pvals
-    holds capacity(lists) rows, a tile's entries at offsets[tile] + slot."""
+    holds capacity(lists) rows, a tile's entries at offsets[tile] + slot.
+    pvals: list_kernel.partial_tables' table, zeroed below the count by
+    entry_tables (None: zero-filled here)."""
     Hp, Wp = spec.extent
     _check(spec, sph, pl, cam, lists, offsets=(offsets, torch.int32, 1),
            gates=(gates, torch.int32, 3), sav=(sav, torch.float32, 3), g=(g, torch.float32, 3))
@@ -300,7 +303,7 @@ def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec):
         raise ValueError(f"saved planes and cotangents must be [10, {Hp}, {Wp}]")
     if sph.device.type == "cpu":
         return soft_bwd_plain(sph, pl, cam, lists, offsets, gates, sav, g, spec=spec)
-    pvals, ppl, ptf = _partials(spec, sph, pl, lists)
+    pvals, ppl, ptf = _partials(spec, sph, pl, lists, pvals)
     prm = _params(spec, sph, pl, lists)
     prm.cull = int(spec.bwd_cull)
     _launch("rtwc_soft_bwd", "soft_bwd",
@@ -308,9 +311,10 @@ def soft_bwd(sph, pl, cam, lists, offsets, gates, sav, g, *, spec: SoftSpec):
     return pvals, ppl, ptf
 
 
-def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec):
+def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec, pvals=None):
     """K3: the partials (pvals, ppl, ptf) of the fused MSE step at
-    loss-cotangent 1; ptf's slot 12 holds the loss sum."""
+    loss-cotangent 1; ptf's slot 12 holds the loss sum. pvals as soft_bwd
+    takes it."""
     Hp, Wp = spec.extent
     _check(spec, sph, pl, cam, lists, offsets=(offsets, torch.int32, 1),
            tgt=(tgt, torch.float32, 3))
@@ -318,7 +322,7 @@ def soft_mse(sph, pl, cam, lists, offsets, tgt, *, spec: SoftSpec):
         raise ValueError(f"target must be [3, {Hp}, {Wp}], got {tuple(tgt.shape)}")
     if sph.device.type == "cpu":
         return soft_mse_plain(sph, pl, cam, lists, offsets, tgt, spec=spec)
-    pvals, ppl, ptf = _partials(spec, sph, pl, lists)
+    pvals, ppl, ptf = _partials(spec, sph, pl, lists, pvals)
     prm = _params(spec, sph, pl, lists)
     prm.cull = int(spec.cull)
     _launch("rtwc_soft_mse", "soft_mse",
@@ -407,6 +411,14 @@ def _forward_planes(sph, pl, cam, spec: SoftSpec):
     return soft_fwd(sph, pl, cam, lists, spec=spec) + (lists, shl)
 
 
+def _entries(lists, shl):
+    """(entry tables, (pvals, psh)): the partial tables of the gradient
+    kernels, their rows below the counts zeroed by the entry-table launch
+    (no fill of the [T NS] tables on the card)."""
+    tables = partial_tables(lists, shl)
+    return entry_tables(lists, shl, *tables), tables
+
+
 def _reduce(sph, ent: Entries, parts):
     """soft_grad_reduce over K2 / K3 partials (no shadow entries), or K5 /
     K6 partials with their shadow-occluder table."""
@@ -440,13 +452,14 @@ class SoftRender(torch.autograd.Function):
         spec = ctx.spec
         if spec.bwd_cull != spec.cull:
             lists, shl = _lists(sph, pl, cam, spec, spec.bwd_cull)
-        ent = entry_tables(lists, shl)
+        ent, tables = _entries(lists, shl)
         g = g.contiguous()
         if shl is None:
-            parts = soft_bwd(sph, pl, cam, lists, ent.offsets, gates, out, g, spec=spec)
+            parts = soft_bwd(sph, pl, cam, lists, ent.offsets, gates, out, g, spec=spec,
+                             pvals=tables[0])
         else:
             parts = SH.soft_sh_bwd(sph, pl, cam, lists, shl, ent.offsets, ent.sh_offsets, gates,
-                                   out, g, spec=spec)
+                                   out, g, spec=spec, pvals=tables[0], psh=tables[1])
         dsph, dpl, dtf = _reduce(sph, ent, parts)
         return dsph, dpl, _dcam(dtf), None
 
@@ -478,12 +491,12 @@ class SoftMSE(torch.autograd.Function):
         H, W = spec.rows, spec.config.width
         inv_n = 1.0 / (3.0 * H * W)
         lists, shl = _lists(sph, pl, cam, spec, spec.cull)
-        ent = entry_tables(lists, shl)
+        ent, tables = _entries(lists, shl)
         if shl is None:
-            parts = soft_mse(sph, pl, cam, lists, ent.offsets, tgt, spec=spec)
+            parts = soft_mse(sph, pl, cam, lists, ent.offsets, tgt, spec=spec, pvals=tables[0])
         else:
             parts = SH.soft_sh_mse(sph, pl, cam, lists, shl, ent.offsets, ent.sh_offsets, tgt,
-                                   spec=spec)
+                                   spec=spec, pvals=tables[0], psh=tables[1])
         dsph, dpl, dtf = _reduce(sph, ent, parts)
         loss = (dtf[SLOT_LOSS, 0] + dtf[SLOT_LOSS, 1]) * O.f32(1.0 / 255.0 ** 2) * inv_n
         ctx.save_for_backward(dsph, dpl, _dcam(dtf), sph, pl, cam, tgt)

@@ -7,22 +7,31 @@ The list kernel itself (csrc/broad_phase.cu) runs only on a card, where
 wrappers run the plain version, which tests/test_torch_pack_broadphase.py
 and tests/test_torch_shadow_broadphase.py hold to the JAX package. What is
 checked here: the mask-free entry tables equal the masked compaction they
-replace on its first E slots with -1 after them; the reduction over
-capacity-sized tables with device counts is torch.equal to the reduction
-over the compact tables; the constants and structs of the CUDA source
-mirror the wrappers and broad_phase.py; the kernel's f32 constants are
-broad_phase.py's; CapturedStep's eager form equals the loops it replaced in
-bench.py and inverse_render.fit, and its capture key holds every
-parameter; the engine's device step equals `_render_step`."""
+replace on its first E slots with -1 after them, also on edge cases of the
+scan (one tile, every row empty, every row full, a tile count that is not
+a multiple of the kernel's block); the partial tables the entry tables
+zero below the counts, and the reduction's indifference to anything
+(NaN included) past the counts; the reduction over capacity-sized tables
+with device counts is torch.equal to the reduction over the compact
+tables; chip_smoke.py's grazing scenes hold the near-ties they are built
+for, and there the plain lists differ from JAX's only at near-ties; the
+constants and structs of the CUDA source mirror the wrappers and
+broad_phase.py; the kernel's f32 constants are broad_phase.py's;
+CapturedStep's eager form equals the loops it replaced in bench.py and
+inverse_render.fit, and its capture key holds every parameter; the
+engine's device step equals `_render_step`."""
 import dataclasses
 import math
 import os
 import re
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from rtwc_tpu.config import RenderConfig as JaxConfig
+from rtwc_tpu.render.pallas_soft import _build_tile_lists
 from rtwc_tpu_torch import bench
 from rtwc_tpu_torch.camera import Camera, default_camera
 from rtwc_tpu_torch.config import EngineConfig, RenderConfig, RenderMode
@@ -33,6 +42,7 @@ from rtwc_tpu_torch.render import broad_phase as BP
 from rtwc_tpu_torch.render import list_kernel as LK
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render import shadow_kernel as SH
+from rtwc_tpu_torch.render import soft_core as SC
 from rtwc_tpu_torch.render import soft_kernel as SK
 from rtwc_tpu_torch.render.step_graph import CapturedStep
 from rtwc_tpu_torch.scene import add_plane, add_sphere, empty_scene, random_scene
@@ -107,6 +117,169 @@ def test_entry_tables_equal_the_masked_compaction(case, disable):
     assert torch.equal(view_only.pidx, ent.pidx) and int(view_only.counts[1]) == 0
 
 
+def _synthetic_lists(T, ns, fill, seed):
+    """[T, 1, NS+1] i32 rows: a count, then a permutation of the spheres
+    (the listed prefix first). fill: "empty", "full" or "random" counts."""
+    rng = np.random.default_rng(seed)
+    counts = {"empty": np.zeros(T, int), "full": np.full(T, ns),
+              "random": rng.integers(0, ns + 1, T)}[fill]
+    rows = np.stack([np.concatenate([[c], rng.permutation(ns)]) for c in counts])
+    return torch.from_numpy(rows.astype(np.int32))[:, None, :]
+
+
+EDGE = {  # (T, NS, fill): LK.ENTRY_THREADS tiles a block of the kernel's scan
+    "one tile": (1, 5, "random"),
+    "every row empty": (300, 6, "empty"),
+    "every row full": (300, 6, "full"),
+    "tiles not a multiple of the block": (LK.ENTRY_THREADS + 44, 7, "random"),
+    "three blocks and a tile": (2 * LK.ENTRY_THREADS + 1, 3, "random"),
+}
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("edge", list(EDGE))
+def test_entry_tables_plain_on_the_scans_edges(edge, shadow):
+    """The entry tables' plain form (what the kernel is held to on the card)
+    against the masked compaction, and the partial tables zeroed below the
+    counts and untouched past them, on the scan's edge cases."""
+    T, ns, fill = EDGE[edge]
+    lists = _synthetic_lists(T, ns, fill, 1)
+    shl = _synthetic_lists(T, ns, "random" if fill == "random" else fill, 2) if shadow else None
+    pvals, psh = (None if t is None else t.fill_(float("nan"))
+                  for t in LK.partial_tables(lists, shl))
+    ent = LK.entry_tables_plain(lists, shl, pvals, psh)
+    for got_off, got_idx, total, lst, rows in ((ent.offsets, ent.pidx, ent.counts[0], lists, pvals),
+                                               (ent.sh_offsets, ent.pshidx, ent.counts[1], shl,
+                                                psh)):
+        if lst is None:
+            assert got_off is None and got_idx is None and int(total) == 0 and rows is None
+            continue
+        off, idx = _masked_entries(lst)
+        n = idx.shape[0]
+        assert int(total) == n == int(lst[:, 0, 0].sum())
+        assert torch.equal(got_off, off) and torch.equal(got_idx[:n], idx)
+        assert (got_idx[n:] == -1).all() and got_idx.shape == (T * ns,)
+        assert (rows[:n] == 0).all() and rows[n:].isnan().all()
+    assert torch.equal(LK.entry_tables(lists, shl).counts, ent.counts)  # the CPU wrapper
+
+
+@pytest.mark.parametrize("case", ["slab crowd", "random 12, 96x48"])
+def test_partial_tables_zeroed_below_the_counts(case):
+    """The wrappers' contract: partial_tables makes the [T NS, 8] / [T NS, 4]
+    tables (zeros on the CPU), entry_tables zeroes their rows below the
+    counts and leaves the rest, the gradient wrappers take them (on the CPU
+    they run their plain versions, equal with and without), and misshapen
+    tables are refused."""
+    spec, sph, pl, cam, lists, shl = _packed_lists(case)
+    pvals, psh = LK.partial_tables(lists, shl)
+    assert pvals.shape == (SK.capacity(lists), 8) and psh.shape == (SK.capacity(shl), 4)
+    assert (pvals == 0).all() and (psh == 0).all()
+    assert LK.partial_tables(lists)[1] is None
+    pvals.fill_(float("nan"))
+    psh.fill_(float("nan"))
+    ent = LK.entry_tables(lists, shl, pvals, psh)
+    n, nsh = (int(x) for x in ent.counts)
+    assert (pvals[:n] == 0).all() and pvals[n:].isnan().all()
+    assert (psh[:nsh] == 0).all() and psh[nsh:].isnan().all()
+    tgt = torch.from_numpy(np.random.default_rng(1).uniform(0, 255, (3,) + spec.extent)
+                           .astype(np.float32))
+    args = (sph, pl, cam, lists, shl, ent.offsets, ent.sh_offsets, tgt)
+    with_tables = SH.soft_sh_mse(*args, spec=spec, pvals=pvals, psh=psh)
+    assert all(torch.equal(a, b) for a, b in zip(with_tables, SH.soft_sh_mse(*args, spec=spec)))
+    with pytest.raises(ValueError):
+        LK.entry_tables(lists, shl, pvals[:-1], psh)
+    with pytest.raises(ValueError):
+        LK.entry_tables(lists, None, pvals, psh)
+    with pytest.raises(ValueError):
+        LK.entry_tables(lists, shl, pvals.double(), psh)
+    with pytest.raises(ValueError):
+        SC.partial_rows(lists, 8, pvals[:, :4], "pvals", pvals.device)
+    assert SC.partial_rows(lists, 8, pvals, "pvals", pvals.device) is pvals
+
+
+@pytest.mark.parametrize("case", ["slab crowd", "random 12, 96x48"])
+def test_reduction_ignores_nan_past_the_counts(case):
+    """NaN in every partial row past the counts, and any index in the entry
+    tables past them (the card leaves both as they were): the reduction is
+    torch.equal to its result on the clean tables."""
+    spec, sph, pl, cam, lists, shl = _packed_lists(case)
+    ent = LK.entry_tables(lists, shl)
+    n, nsh = (int(x) for x in ent.counts)
+    tgt = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, (3,) + spec.extent)
+                           .astype(np.float32))
+    pvals, psh, ppl, ptf = SH.soft_sh_mse(sph, pl, cam, lists, shl, ent.offsets, ent.sh_offsets,
+                                          tgt, spec=spec)
+    ns = sph.shape[1]
+    want = SK.soft_grad_reduce(pvals, ent.pidx, ppl, ptf, ns, psh=psh, pshidx=ent.pshidx,
+                               counts=ent.counts)
+    rng = np.random.default_rng(3)
+    dirty = []
+    for rows, idx, k in ((pvals, ent.pidx, n), (psh, ent.pshidx, nsh)):
+        rows, idx = rows.clone(), idx.clone()
+        rows[k:] = float("nan")
+        idx[k:] = torch.from_numpy(rng.integers(-5, ns + 5, idx.shape[0] - k).astype(np.int32))
+        dirty += [rows, idx]
+    got = SK.soft_grad_reduce(dirty[0], dirty[1], ppl, ptf, ns, psh=dirty[2], pshidx=dirty[3],
+                              counts=ent.counts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.fixture(scope="module")
+def grazing():
+    import chip_smoke as CS
+
+    return CS, CS._grazing_scenes()
+
+
+# near-ties each grazing case holds at least (chip_smoke._graze_ties, 4 float32
+# steps): view / shadow pairs, dn_u corners, covered (tile, plane) pairs
+GRAZE_TIES = {"grazing view cones (soft)": {"view": 30},
+              "grazing view cones (hard)": {"view": 30},
+              "grazing occluder balls": {"shadow": 16},
+              "grazing planes (cover_lim, dn_u at +-1e-3)": {"dn_u": 3, "covered": 3}}
+
+
+def _members(table, ns):
+    m = torch.zeros((table.shape[0], ns + 1), dtype=torch.bool)
+    slot = torch.arange(table.shape[2] - 1)[None, :] < table[:, 0, :1]
+    m.scatter_(1, torch.where(slot, table[:, 0, 1:].long(), ns), slot)
+    return m[:, :ns]
+
+
+@pytest.mark.parametrize("label", list(GRAZE_TIES))
+def test_grazing_scenes_hold_near_ties(grazing, label):
+    """chip_smoke.py phase 8's grazing cases put decisions within a few
+    float32 steps of their thresholds: at least GRAZE_TIES near-ties each,
+    counted with the plain version. At zero pitch the plain lists differ
+    from JAX's only at those near-ties (where the two float32 evaluations
+    round apart): elsewhere the view lists are equal and the shadow lists a
+    superset, as tests/test_torch_shadow_broadphase.py requires."""
+    CS, scenes = grazing
+    scene, cam, cfg, tau, hard = scenes[label]
+    ties = CS._graze_ties(scene, cam, cfg, tau, hard)
+    assert all(ties[k] >= v for k, v in GRAZE_TIES[label].items()), ties
+    if hard:
+        return
+    sph, pl, camv = SK._packed(scene, cam)
+    ns = sph.shape[1]
+    grid = BP.tile_grid(cfg.height, cfg.width, 16, 16)
+    jcfg = JaxConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+    jax_lists = [torch.from_numpy(np.array(t)) for t in _build_tile_lists(
+        *(jnp.asarray(t.numpy()) for t in (sph, pl, camv)), jcfg, tau, 16, 16, grid, True)]
+    near = []
+    for step in (-4, 4):
+        s = sph.clone()
+        s[3] = torch.from_numpy((s[3].numpy().view(np.int32) + step).view(np.float32).copy())
+        near.append([_members(t, ns) for t in BP.build_tile_lists(s, pl, camv, cfg, tau, 16, 16,
+                                                                   grid, True)])
+    ours = [_members(t, ns) for t in BP.build_tile_lists(sph, pl, camv, cfg, tau, 16, 16, grid,
+                                                         True)]
+    theirs = [_members(t, ns) for t in jax_lists]
+    tie = [a != b for a, b in zip(*near)]
+    assert not ((ours[0] != theirs[0]) & ~tie[0]).any()
+    assert not (theirs[1] & ~ours[1] & ~tie[1]).any()
+
+
 @pytest.mark.parametrize("case", ["slab crowd", "random 12, 96x48"])
 def test_capacity_reduction_equals_the_compact_one(case):
     """The plain K5 / K6 partials (now sized T NS) through the plain reduction
@@ -152,7 +325,9 @@ def test_reduction_reads_only_the_counted_entries():
 
 
 def test_list_kernel_constants_mirror_the_cuda_source():
-    """NB, the table rows and camera slots, the block size, both structs'
+    """NB, the table rows and camera slots, the block sizes, the shared
+    memory a block of the list kernel takes at MAX_SPHERES, the entry
+    tables' scratch, the pre-tests' margins (powers of two), both structs'
     fields in order, and t_cap / (2 NB) as the kernel's multiply."""
     with open(SRC) as f:
         src = f.read()
@@ -161,12 +336,31 @@ def test_list_kernel_constants_mirror_the_cuda_source():
     for name, value in rows.items():
         assert getattr(P, name) == int(value), name
     assert len(rows) >= 20
-    assert re.search(r"constexpr int LIST_WARPS = (\d+);", src).group(1) == str(LK.LIST_WARPS)
-    assert re.findall(r"__launch_bounds__\(([^)]+)\)", src) == ["LIST_WARPS * 32",
-                                                              str(LK.THREADS)]
-    assert re.findall(r"<<<(?:dim3\([^)]*\)|[^,]+), (\w+),", src) == ["block", "block",
-                                                                       str(LK.THREADS)]
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    for name in ("LIST_WARPS", "SPHERE_BYTES", "QUEUE", "ENTRY_THREADS", "ENTRY_MAX_BLOCKS"):
+        assert const(name) == getattr(LK, name), name
+    assert re.findall(r"__launch_bounds__\(([^)]+)\)", src) == [
+        "LIST_WARPS * 32, LIST_MIN_BLOCKS", "ENTRY_THREADS"]
+    assert re.findall(r"<<<(?:dim3\([^)]*\)|[^,]+), (\w+),", src) == ["block", "ENTRY_THREADS"]
     assert re.search(r"LIST_SMEM = (\d+) \* 1024;", src).group(1) == "227"
+    # list_smem at MAX_SPHERES: the staged spheres, the warps' scratch (each
+    # warp's float4s: its balls and its plane batch; its three masks and its
+    # queue), over which the prologue's sort keys lie, and the block's masks
+    ns, warps = LK.MAX_SPHERES, LK.LIST_WARPS
+    nw = (ns + 31) // 32
+    scratch = warps * (4 * (2 * LK.NB + const("PLANE_BATCH")) + 3 * nw + LK.QUEUE)
+    assert LK.SPHERE_BYTES * ns + 4 * scratch + 8 * nw <= 227 * 1024
+    assert scratch >= (ns + 3) & ~3
+    assert "WARP_F4 = 2 * NB + PLANE_BATCH;" in src
+    assert "LIST_WARPS * (4 * WARP_F4 + 3 * mask_words(ns) + QUEUE)" in src
+    # the engine's scenes grow to max_grow_spheres slots, all of which the lists take
+    assert LK.MAX_SPHERES >= EngineConfig().max_grow_spheres
+    # the scratch: two lists' per-block totals (u64), then the epoch and block counters
+    assert "status + 2 * ENTRY_MAX_BLOCKS" in src
+    for name, power in (("KAPPA", -12), ("VIEW_MARGIN", -8), ("OCC_REL", -6), ("OCC_ABS", -8)):
+        assert float(re.search(rf"{name} = ([0-9.]+)f;", src).group(1)) == 2.0 ** power, name
     # the reduction's warps: at most RED_WARP_CHUNKS, as reduce_params sizes them
     with open(os.path.join(os.path.dirname(SRC), "soft_render.cu")) as f:
         red = f.read()
@@ -179,7 +373,7 @@ def test_list_kernel_constants_mirror_the_cuda_source():
         fields = [f.split("[")[0] for decl in body.split(";") if decl.strip()
                   for f in decl.strip().split(None, 1)[1].replace(" ", "").split(",")]
         assert fields == [name for name, _ in mirror._fields_], struct
-    assert LK.MAX_SPHERES * 16 <= 227 * 1024  # 4 keys a sphere in shared memory
+    assert LK.MAX_SPHERES * LK.SPHERE_BYTES <= 227 * 1024
 
 
 @pytest.mark.parametrize("hard", [False, True])
