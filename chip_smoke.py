@@ -138,6 +138,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      spawn among them, the graph's cells torch.equal to the eager engine's;
      launches a replay; eager and graph ms a step at the headline, 4K/200
      and an empty scene, in turns, and lists_pack_ms
+  9  the NCCL path (dist/mesh.py's one-graph layout), in a subprocess so
+     that no process group outlives it: a one-rank NCCL group over a TCP
+     store and make_mesh(2) over it; 10 fused (K6) and 3 generic (K4 / K5)
+     shadowed animated steps at the scaling defaults, each as one CUDA
+     graph with the all-reduce inside (one capture, the replays under
+     set_sync_debug_mode("error")), torch.equal to as many eager steps
+     (graph=False) and to the group-less graph's steps, losses and every
+     leaf; a replay's launches equal to an eager step's, nothing counted
+     while replaying, one cudaGraphLaunch and no collective call from the
+     host a replayed step (profiler; chip_smoke_out/profile_graph_nccl*.txt,
+     with NCCL's own device records), ms a step against the group-less
+     graph in turns; render_frame_sharded over 2 bands with its all-gather
+     in the graph: one capture, two replays, each torch.equal to
+     render_frame_kernel; the scaling entry point as one spawned NCCL rank
+     (`--ranks 1 --dist-backend nccl`) and under torchrun (`python -m
+     torch.distributed.run --standalone --nproc-per-node 1 -m
+     rtwc_tpu_torch.benchmarks.scaling --dist-backend nccl`): exit 0, one
+     CUDA graph a step, ms a step; `--ranks 2 --dist-backend nccl` refused
+     on one card with initialize_multihost's message before any rank
+     starts (with two or more cards: run, ranks bit-equal)
 Then a JSON line describing the kernels (each with its bound: the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s, counted
 from this run's lists and gate tables, K4's, K5's and K6's also at 4K/200;
@@ -148,7 +168,9 @@ SMs x 128 x the maximum clock; `launches` counts one main-path step at the
 row's shape, each count set to 0 just before it: a generic or fused train
 step, one engine frame at 1920x1080 for K7, one soft_tile_diagnostics call
 for K4-stats; `launches_elsewhere` the other counted runs with their
-shapes; `launches_sharded` those of phase 7's sharded paths; the soft kernels add `floor_ms`, the calibrated floor of phase 6c
+shapes; `launches_sharded` those of phase 7's sharded paths;
+`launches_nccl` those of phase 9's NCCL graph runs, each count set to 0
+just before its run; the soft kernels add `floor_ms`, the calibrated floor of phase 6c
 from this run's calibration, and `graph_device_ms`; the reduction's `library_ms` is its whole
 function in float64 PyTorch calls, index_add_ and sums, held to the
 kernel's sums, `library_device_ms` the same calls' device time, from CUDA
@@ -162,6 +184,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -541,6 +564,11 @@ def _profile_steps(step, out_name: str, label: str, tag: str, reps: int = 20, ph
           f"device time in {len(kern) / reps!r} kernel records a step {tag}")
     print(f"phase {phase}: top device time: " + "; ".join(
         f"{nm[:40]} {us / reps:.1f} us/step" for nm, us in top[:8]))
+    host = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            host[e.name] = host.get(e.name, 0) + 1
+    return {nm: us / reps for nm, us in by_name.items()}, {nm: n / reps for nm, n in host.items()}
 
 
 def _nbytes(*tensors) -> int:
@@ -1688,7 +1716,7 @@ def _phase_7(dev, tag, errs):
             if not all(torch.equal(getattr(fr, f), getattr(single, f)) for f in fields):
                 raise AssertionError(f"phase 7: sharded frame {i} over {n} bands (graph) "
                                      f"differs from render_frame_kernel")
-        fg = MESH._frame_graph(cfg, n, range(n), scene.device)
+        fg = MESH._frame_graph(cfg, n, range(n), scene.device, None)
         if fg.call.captures != 1 or fg.call.replay_launches != {"hard_render": n,
                                                                 "tile_lists": n}:
             raise AssertionError(f"phase 7: sharded frame over {n} bands: {fg.call.captures} "
@@ -2407,6 +2435,277 @@ def _phase_8(dev, tag):
             "graph_4k": graph_4k,
             "replay": replay, "display_replay": disp.replay_launches, "step_ms": ms,
             "lists_pack_ms": lp}
+
+
+def _collective_calls(host: dict) -> dict:
+    """The host's collective calls a step in a profile's host records
+    (c10d's all-reduce and all-gather, NCCL's)."""
+    return {k: v for k, v in host.items()
+            if any(w in k.lower() for w in ("allreduce", "all_reduce", "allgather",
+                                             "all_gather", "nccl"))}
+
+
+def _phase_9_rank() -> int:
+    """Phase 9's process: one NCCL rank over a TCP store on cuda:0, the
+    sharded step and frame with their collectives inside one CUDA graph
+    each. Prints its lines, then one line "PHASE9 {json}" of the launches
+    counted over each NCCL graph run (the counts set to 0 just before it)
+    and the ms a step and a frame. Run by _phase_9 in a subprocess, so no
+    process group outlives it."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from rtwc_tpu_torch.benchmarks.scaling import _free_port
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.dist import (initialize_multihost, make_mesh, make_sharded_train_step,
+                                     render_frame_sharded)
+    from rtwc_tpu_torch.dist import mesh as MESH
+    from rtwc_tpu_torch.render import hard_kernel as HK
+    from rtwc_tpu_torch.render.step_graph import (launch_counts, launch_delta,
+                                                  reset_launch_counts)
+    from rtwc_tpu_torch.scene import random_scene
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tag = f"[{_card_line()}]"
+    if not initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0, "nccl"):
+        raise AssertionError("phase 9: initialize_multihost declined")
+    mesh = make_mesh(2)
+    if dist.get_backend(mesh.group) != "nccl" or mesh.world != 1 or mesh.size != 2:
+        raise AssertionError(f"phase 9: mesh {mesh} over {dist.get_backend(mesh.group)}")
+    print(f"phase 9: one NCCL rank (torch {torch.__version__}, NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}) over a TCP store on cuda:0, "
+          f"make_mesh(2): 2 bands on 1 process")
+    alone = MESH.Mesh(2)  # the same bands with no group
+    cfg_s = RenderConfig(width=1920, height=1080, max_spheres=100, max_planes=4, shadows=True,
+                         **SOFT_KW)
+    scene_s = random_scene(100, max_spheres=100, max_planes=4, seed=0, device=dev)
+    cam = default_camera().to(dev)
+    tgt = torch.zeros((1080, 1920, 3), device=dev)
+    tick = 1.0 / 60.0
+    out = {"launches": {}, "ms": {}}
+
+    def steps(kind, m, graph, n):
+        """n steps from the same start: losses, leaves, the launches of the
+        first step and those counted over the rest, the step and its state."""
+        step = make_sharded_train_step(
+            cfg_s, m, tau=0.5, backend="pallas", animate=True, graph=graph,
+            loss_scale=1.0 / 255.0 if kind == "fused" else 1.0 / 256.0)
+        box = [(scene_s, cam), None]
+        box[1] = step.init(box[0])
+        before = launch_counts()
+        box[0], box[1], loss = step(box[0], box[1], tgt, tick)
+        torch.cuda.synchronize()
+        first, losses = launch_delta(before), [loss]
+        before = launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(n - 1):
+                box[0], box[1], loss = step(box[0], box[1], tgt, tick)
+                losses.append(loss)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        rest = launch_delta(before)
+        return (torch.stack(losses), [v.detach().clone() for v in box[1].leaves.values()],
+                first, rest, step, box)
+
+    kernels = {"fused": ("soft_sh_mse",), "generic": ("soft_sh_fwd", "soft_sh_bwd")}
+    for kind, n in (("fused", 10), ("generic", 3)):
+        le, pe, eager_counts, _, _, est = steps(kind, mesh, False, n)
+        reset_launch_counts()
+        lg, pg, _, replay_counted, gstep, gbox = steps(kind, mesh, None, n)
+        torch.cuda.synchronize()
+        out["launches"][kind] = {k: v for k, v in launch_counts().items() if v}
+        la, pa, _, _, astep, abox = steps(kind, alone, None, n)
+        gst = gbox[1]
+        want = {k: 2 for k in kernels[kind] + ("soft_grad_reduce", "tile_lists", "entry_tables")}
+        if len(gst.phases) != 1 or gst.phases[0].captures != 1 or len(est[1].phases) != 1:
+            raise AssertionError(f"phase 9: {kind} NCCL step: {len(gst.phases)} phases, "
+                                 f"{gst.phases[0].captures} captures")
+        if eager_counts != want or gst.replay_launches != want or replay_counted:
+            raise AssertionError(f"phase 9: {kind} NCCL step: an eager step launched "
+                                 f"{eager_counts}, a replay {gst.replay_launches} (counted "
+                                 f"while replaying: {replay_counted}); want {want}")
+        for label, (l2, p2) in (("eager NCCL", (le, pe)), ("group-less graph", (la, pa))):
+            if not (torch.equal(lg, l2) and all(torch.equal(a, b) for a, b in zip(pg, p2))):
+                raise AssertionError(f"phase 9: {kind} NCCL step: {n} replayed steps differ "
+                                     f"from {n} {label} steps ({lg.tolist()} vs {l2.tolist()})")
+        print(f"phase 9: {kind} shadowed animated step at the scaling defaults on the NCCL "
+              f"mesh (2 bands): {n} steps as one CUDA graph with the all-reduce inside (1 "
+              f"phase, 1 capture, {n - 1} replays under set_sync_debug_mode('error')) "
+              f"torch.equal to {n} eager steps (graph=False) and to {n} steps of the group-less "
+              f"graph, every loss ({float(lg[0])!r} -> {float(lg[-1])!r}) and all {len(pg)} "
+              f"leaves; a replay launches {gst.replay_launches}, an eager step "
+              f"{eager_counts}, nothing counted while replaying")
+        if kind != "fused":
+            continue
+
+        def nccl_step(box=gbox, step=gstep):
+            box[0], box[1], _ = step(box[0], box[1], tgt, tick)
+
+        def alone_step(box=abox, step=astep):
+            box[0], box[1], _ = step(box[0], box[1], tgt, tick)
+
+        dev_n, host_n = _profile_steps(nccl_step, "profile_graph_nccl", "NCCL one-graph "
+                                       "sharded step (2 bands, 1 rank), replayed", tag,
+                                       phase="9")
+        dev_a, host_a = _profile_steps(alone_step, "profile_graph_nccl_alone", "group-less "
+                                       "sharded step (2 bands), replayed", tag, phase="9")
+        nccl_dev = {k: v for k, v in dev_n.items() if "nccl" in k.lower()}
+        calls = _collective_calls(host_n)
+        graph_launches = host_n.get("cudaGraphLaunch", 0.0)
+        if graph_launches != 1.0 or calls:
+            raise AssertionError(f"phase 9: a replayed NCCL step makes {graph_launches} graph "
+                                 f"launches and these collective calls from the host: {calls}")
+        print(f"phase 9: a replayed NCCL step from the host: {graph_launches!r} cudaGraphLaunch, "
+              f"{host_n.get('cudaLaunchKernel', 0.0)!r} cudaLaunchKernel (group-less "
+              f"{host_a.get('cudaLaunchKernel', 0.0)!r}), no collective call; on the "
+              f"device NCCL's own records {nccl_dev or 'none'}, kernels only in the NCCL step's "
+              f"profile {sorted(set(dev_n) - set(dev_a)) or 'none'}")
+        ms = {"nccl": [], "alone": []}
+        for which in ("nccl", "alone", "alone", "nccl"):  # in turns
+            ms[which].append(_step_ms(nccl_step if which == "nccl" else alone_step, 20))
+        out["ms"]["step"] = ms
+        print(f"phase 9: ms a replayed step, fused, 2 bands: NCCL one graph {ms['nccl']}, "
+              f"group-less graph {ms['alone']} (in turns) {tag}")
+
+    # the sharded frame over 2 bands, its all-gather in the graph
+    cfg = RenderConfig(width=1920, height=1080, shadows=True)
+    scene = random_scene(20, seed=0, device=dev)
+    cam0 = default_camera()
+    single = HK.render_frame_kernel(scene, cam0, cfg)
+    fields = ("rgb", "normal", "depth", "shading", "hit", "coverage", "alpha")
+    reset_launch_counts()
+    ptrs = []
+    for i in range(3):  # the warm-up and capture, then two replays
+        fr = render_frame_sharded(scene, cam0, cfg, mesh, backend="pallas")
+        if not all(torch.equal(getattr(fr, f), getattr(single, f)) for f in fields):
+            raise AssertionError(f"phase 9: NCCL sharded frame {i} differs from "
+                                 f"render_frame_kernel")
+        ptrs.append(fr.rgb.data_ptr())
+    torch.cuda.synchronize()
+    out["launches"]["frame"] = {k: v for k, v in launch_counts().items() if v}
+    fg = MESH._frame_graph(cfg, 2, range(2), scene.device, mesh.group)
+    if not fg.gathers or fg.call.captures != 1 or fg.call.replay_launches != {
+            "hard_render": 2, "tile_lists": 2} or ptrs[1] != ptrs[2]:
+        raise AssertionError(f"phase 9: NCCL frame: gathers {fg.gathers}, {fg.call.captures} "
+                             f"captures, a replay launches {fg.call.replay_launches}")
+    _, host_f = _profile_steps(lambda: render_frame_sharded(scene, cam0, cfg, mesh,
+                                                            backend="pallas"),
+                               "profile_graph_nccl_frame", "NCCL sharded frame (2 bands), "
+                               "replayed", tag, phase="9")
+    calls = _collective_calls(host_f)
+    if host_f.get("cudaGraphLaunch", 0.0) != 1.0 or calls:
+        raise AssertionError(f"phase 9: a replayed NCCL frame: {host_f.get('cudaGraphLaunch')} "
+                             f"graph launches, collective calls {calls}")
+    fms = {"nccl": [], "alone": []}
+    for which in ("nccl", "alone", "alone", "nccl"):
+        m = mesh if which == "nccl" else alone
+        fms[which].append(_step_ms(lambda: render_frame_sharded(scene, cam0, cfg, m,
+                                                                backend="pallas"), 20))
+    out["ms"]["frame"] = fms
+    print(f"phase 9: render_frame_sharded over 2 bands on the NCCL mesh as one CUDA graph with "
+          f"its all-gather inside (a capture, two replays): every frame torch.equal to "
+          f"render_frame_kernel in all 7 fields, the replays' fields the graph's own buffers; a "
+          f"replay launches {fg.call.replay_launches}, one cudaGraphLaunch and no collective "
+          f"call from the host; ms a frame NCCL {fms['nccl']}, group-less {fms['alone']} "
+          f"(in turns) {tag}")
+    del fg, gstep, gbox, astep, abox
+    MESH._frame_graph.cache_clear()  # no graph of the group outlives it
+    gc.collect()
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    print("PHASE9 " + json.dumps(out), flush=True)
+    return 0
+
+
+def _phase_9(tag: str) -> dict:
+    """Phase 9: the NCCL path on the card (dist/mesh.py's one-graph
+    layout). In a subprocess (_phase_9_rank): a one-rank NCCL group over a
+    TCP store and make_mesh(2) over it; 10 fused and 3 generic shadowed
+    steps at the scaling defaults as one CUDA graph each, the all-reduce
+    inside, under set_sync_debug_mode("error") after the capture,
+    torch.equal to eager steps and to the group-less graph's; a replay's
+    launches equal an eager step's, nothing counted while replaying, one
+    graph launch and no collective call from the host a step (profiler);
+    the sharded frame over 2 bands with its all-gather in the graph, one
+    capture, two replays, each torch.equal to render_frame_kernel. Then the
+    scaling entry point spawned as one NCCL rank and under torchrun (exit
+    0, one CUDA graph a step, ms a step); `--ranks 2 --dist-backend nccl`,
+    refused on one card with initialize_multihost's message, run and held
+    bit-equal on two or more. Returns the launches of each NCCL graph run
+    by kernel."""
+    import torch
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    proc = subprocess.run([sys.executable, "-c",
+                           "import sys, chip_smoke as C; sys.exit(C._phase_9_rank())"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    with open(os.path.join(OUT_DIR, "nccl_phase9.log"), "w") as f:
+        f.write(proc.stdout + "\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 9's NCCL rank exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    res = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("PHASE9 "):
+            res = json.loads(line[7:])
+        elif line.startswith("phase 9"):
+            print(line)
+    if res is None:
+        raise AssertionError("phase 9's NCCL rank printed no result")
+
+    per_rank = {"soft_sh_mse": 1, "soft_grad_reduce": 1, "tile_lists": 1, "entry_tables": 1}
+    runs = {"spawned": ["-m", "rtwc_tpu_torch.benchmarks.scaling", "--ranks", "1"],
+            "torchrun": ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                         "-m", "rtwc_tpu_torch.benchmarks.scaling"]}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs["2 ranks"] = ["-m", "rtwc_tpu_torch.benchmarks.scaling", "--ranks", "2",
+                           "--sizes", "2"]
+    res["scaling"] = {}
+    for label, argv in runs.items():
+        cmd = [sys.executable] + argv + ["--dist-backend", "nccl", "--iters", "10"]
+        t = time.perf_counter()
+        p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t
+        with open(os.path.join(OUT_DIR, f"scaling_nccl_{label.replace(' ', '_')}.log"),
+                  "w") as f:
+            f.write(p.stderr + "\n" + p.stdout)
+        if p.returncode != 0:
+            raise AssertionError(f"phase 9: {' '.join(cmd[1:])} exited {p.returncode}: "
+                                 f"{p.stderr[-3000:]}")
+        rec = json.loads(p.stdout.strip().splitlines()[-1])
+        for row in rec["results"]:
+            if not (row["graph"] and set(row["phases"]) == {1}
+                    and all(lc == per_rank for lc in row["replay_launches"])
+                    and not any(row["launches_per_step"]) and row["losses_bit_equal"]
+                    and row["params_bit_equal"]):
+                raise AssertionError(f"phase 9: {label} NCCL scaling row {row}")
+            res["scaling"][label] = row["ms_per_step"]
+            print(f"phase 9: {' '.join(cmd[1:])}: exit 0 in {secs:.1f} s, mesh {row['mesh']}, "
+                  f"{row['ms_per_step']!r} ms a step, one CUDA graph a step with the "
+                  f"all-reduce inside, a replay launches {row['replay_launches']}, losses "
+                  f"{row['losses'][0]!r} -> {row['losses'][-1]!r} {tag}")
+    if cards < 2:
+        cmd = [sys.executable, "-m", "rtwc_tpu_torch.benchmarks.scaling", "--ranks", "2",
+               "--dist-backend", "nccl", "--iters", "2"]
+        p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        want = ("nccl needs a card a rank: 2 ranks on this host, 1 cards (ranks that share a "
+                "card take backend='gloo')")
+        if p.returncode == 0 or p.stderr.strip().splitlines()[-1:] != [want] or p.stdout \
+                or "Traceback" in p.stderr:
+            raise AssertionError(f"phase 9: {' '.join(cmd[1:])} on one card: exit "
+                                 f"{p.returncode}, stderr {p.stderr[-2000:]!r}")
+        print(f"phase 9: {' '.join(cmd[1:])} on one card: refused as expected, exit "
+              f"{p.returncode}, before any rank started: {want!r}")
+        print(f"phase 9: 2 NCCL ranks not run: {cards} card on this machine, and NCCL refuses "
+              f"two ranks on one device")
+    return res["launches"]
 
 
 def main() -> int:
@@ -3426,6 +3725,23 @@ def main() -> int:
     lap("7")
     p8 = _phase_8(dev, tag)
     lap("8")
+    p9 = _phase_9(tag)
+    lap("9")
+    nccl_runs = {
+        "fused": ("10 fused shadowed steps at the scaling defaults on a one-rank NCCL mesh of 2 "
+                  "bands, one CUDA graph with the all-reduce inside (phase 9; counted at the "
+                  "eager warm-up and the capture, replays count nothing)",
+                  ("soft_sh_mse", "soft_grad_reduce", "tile_lists", "entry_tables")),
+        "generic": ("3 generic shadowed steps, the same way (phase 9)",
+                    ("soft_sh_fwd", "soft_sh_bwd", "soft_grad_reduce", "tile_lists",
+                     "entry_tables")),
+        "frame": ("render_frame_sharded over 2 bands on the NCCL mesh, 1920x1080 "
+                  "random_scene(20), shadows, the all-gather in the graph: a capture and two "
+                  "replays (phase 9)", ("hard_render", "tile_lists"))}
+    for run, (_, names) in nccl_runs.items():
+        missing = [k for k in names if p9.get(run, {}).get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"phase 9: the NCCL {run} run launched no {missing}: {p9}")
 
     # -- launches per main-path step at each row's shape: every count set to
     # 0, one step (one engine frame for K7), the counts read
@@ -3648,6 +3964,12 @@ def main() -> int:
                  "floor_ms": floors.get(floor_key), "device_ms": d_ms,
                  "graph_device_ms": graph_timing.get(key), "shape": shape,
                  "launches_elsewhere": [{"run": r, "launches": c} for r, c in elsewhere]}
+        counter = {"K7": "hard_render", "tile_lists": "tile_lists",
+                   "entry_tables": "entry_tables", **SHARDED_KEYS}.get(key)
+        nccl = [{"run": text, "launches": p9[run][counter]}
+                for run, (text, _) in nccl_runs.items() if p9[run].get(counter)]
+        if nccl:
+            entry["launches_nccl"] = nccl
         if key == "K7":
             entry["launches_sharded"] = {
                 "run": "render_frame_sharded over 4 bands, 1920x1080 random_scene(20), shadows "

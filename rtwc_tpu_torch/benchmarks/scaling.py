@@ -6,25 +6,29 @@ the same whole image and prints one JSON record on stdout: per mesh size
 the ms a step (the slowest rank's), rays/s, every step's loss, whether
 every rank's losses and parameters agreed bit for bit, whether the step
 ran as CUDA graphs (`graph`: on a card it does, the scene and the camera
-on the rank's device), each rank's launches of one replayed step, counted
-at its capture (`replay_launches`), and the launches counted a timed step
+on the rank's device), each rank's CUDA graphs a step (`phases`), each
+rank's launches of one replayed step, counted at its capture
+(`replay_launches`), and the launches counted a timed step
 (`launches_per_step`: none when replayed); a human summary goes to
-stderr. One process runs the step as one graph; ranks run a graph up to
-the all-reduce, the all-reduce, and a graph of the update
-(dist/mesh.py).
+stderr. One process, and NCCL ranks, run the step as one graph, the
+all-reduce inside under NCCL; gloo ranks run a graph up to the
+all-reduce, the all-reduce, and a graph of the update (dist/mesh.py).
 
     python -m rtwc_tpu_torch.benchmarks.scaling                 # one process, the card
-    python -m rtwc_tpu_torch.benchmarks.scaling --ranks 2       # 1 and 2 processes on the card
+    python -m rtwc_tpu_torch.benchmarks.scaling --ranks 2       # 1 and 2 gloo processes on the card
+    python -m rtwc_tpu_torch.benchmarks.scaling --ranks 1 --dist-backend nccl   # one NCCL rank
     python -m rtwc_tpu_torch.benchmarks.scaling --simulate 4    # 1, 2 and 4 gloo ranks on the CPU
-    torchrun --nproc-per-node 2 -m rtwc_tpu_torch.benchmarks.scaling [--dist-backend nccl]
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m rtwc_tpu_torch.benchmarks.scaling [--dist-backend nccl]
 
 Each mesh size n of --ranks / --simulate runs n processes, rank r on card
 r % (cards) or on the CPU, joined through initialize_multihost with
---dist-backend (gloo by default: NCCL refuses ranks that share a card).
-Rows whose ranks share a card or run on the CPU are tagged "simulated":
-they prove the collective and the replicas' agreement, never scaling, and
-carry no efficiency. An `efficiency` needs one card a rank and a smaller
-mesh of the same run to compare with.
+--dist-backend (gloo by default). NCCL takes one card a rank: a mesh
+larger than the cards exits with initialize_multihost's message before
+any rank starts. Rows whose ranks share a card or run on the CPU are
+tagged "simulated": they prove the collective and the replicas'
+agreement, never scaling, and carry no efficiency. An `efficiency` needs
+one card a rank and a smaller mesh of the same run to compare with.
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ def run_rank(args, device: str, graph: bool | None = None) -> dict:
     `device`, run 2 warm-up steps and --iters timed ones; returns this
     rank's timing, losses, a digest of its params and its launches. graph:
     make_sharded_train_step's (None: CUDA graphs on the card, the first
-    warm-up step captures them). `replay_launches` are one replayed step's
+    warm-up step captures them). `phases` is the number of CUDA graphs (or
+    eager calls) a step; `replay_launches` are one replayed step's
     launches, counted at its capture (None when eager); `launches` those
     counted a timed step, which are none on the graph path (a replay counts
     nothing)."""
@@ -119,6 +124,7 @@ def run_rank(args, device: str, graph: bool | None = None) -> dict:
         digest.update(v.detach().cpu().numpy().tobytes())
     in_graph = state.phases[0].graph
     return {"ms_per_step": ms, "losses": [x.hex() for x in losses], "graph": in_graph,
+            "phases": len(state.phases),
             "replay_launches": state.replay_launches if in_graph else None,
             "launches": launches, "params_sha256": digest.hexdigest(), "device": device}
 
@@ -191,6 +197,7 @@ def _row(n: int, recs: list, rays: int) -> dict:
             "losses": [float.fromhex(x) for x in recs[0]["losses"]],
             "rank_losses": [r["losses"][-1] for r in recs],
             "graph": all(r["graph"] for r in recs),
+            "phases": [r["phases"] for r in recs],
             "replay_launches": [r["replay_launches"] for r in recs],
             "launches_per_step": [r["launches"] for r in recs],
             "losses_bit_equal": all(r["losses"] == recs[0]["losses"] for r in recs),
@@ -207,17 +214,22 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from rtwc_tpu_torch.dist import initialize_multihost
+    from rtwc_tpu_torch.dist.multihost import check_card_a_rank
 
     rays = args.width * args.height
-    torchrun = initialize_multihost(backend=args.dist_backend)
+    try:
+        torchrun = initialize_multihost(backend=args.dist_backend)
+    except ValueError as e:  # NCCL ranks sharing a card
+        raise SystemExit(str(e)) from None
     if torchrun:  # this process is one rank of torchrun's mesh
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         device = f"cuda:{local % max(1, torch.cuda.device_count())}"
-        recs = [None] * dist.get_world_size()
+        world, rank = dist.get_world_size(), dist.get_rank()
+        recs = [None] * world
         dist.all_gather_object(recs, run_rank(args, device))
-        if dist.get_rank() != 0:
+        dist.destroy_process_group()
+        if rank != 0:
             return 0
-        world = dist.get_world_size()
         rows = [_row(world, recs, rays)]
         n_cards, platform = torch.cuda.device_count(), "gpu"
         shared = int(os.environ.get("LOCAL_WORLD_SIZE", world)) > n_cards
@@ -230,6 +242,11 @@ def main(argv=None) -> int:
                  or [n for n in (1, 2, 4, 8, 16, 32, 64) if n <= n_max])
         n_cards = 0 if on_cpu else torch.cuda.device_count()
         platform = "cpu" if on_cpu else "gpu"
+        if args.ranks and args.dist_backend == "nccl":
+            try:
+                check_card_a_rank(max(sizes))
+            except ValueError as e:
+                raise SystemExit(str(e)) from None
         rows = []
         for n in sizes:
             if args.height % n:
@@ -257,7 +274,8 @@ def main(argv=None) -> int:
             row["efficiency"] = round(row["rays_per_s"] * base[0] / (base[1] * n), 4)
             eff_txt = f"  eff={row['efficiency'] * 100:5.1f}% (vs mesh={base[0]})"
         print(f"mesh={n:3d}  {row['ms_per_step']:8.2f} ms/step  {row['rays_per_s'] / 1e6:8.1f} "
-              f"Mrays/s  {'replayed' if row['graph'] else 'eager'}, "
+              f"Mrays/s  {'replayed' if row['graph'] else 'eager'} "
+              f"({max(row['phases'])} phase{'s' if max(row['phases']) > 1 else ''} a step), "
               f"losses bit-equal {row['losses_bit_equal']}, params "
               f"{row['params_bit_equal']}"
               + (eff_txt or ("  [simulated: topology only]" if simulated else "")),

@@ -13,12 +13,19 @@ step on the same numbers, so the replicas stay bit-equal.
 
 `Mesh` is a small record of the band count and the process group, not a
 `torch.distributed.device_mesh.DeviceMesh`: `init_device_mesh` wants one
-device a rank and an initialised group, while the one-card machine this
-port is measured on runs several ranks on one card through gloo (NCCL
-refuses two ranks on one device), and the tests and the CPU run several
-bands in one process. A process renders its size / world_size
+device a rank and an initialised group, while several ranks may share one
+card through gloo (NCCL takes one card a rank), and the tests and the CPU
+run several bands in one process. A process renders its size / world_size
 consecutive bands in turn, so one process alone holds the whole mesh, as
 JAX's virtual CPU devices do.
+
+Where the collective runs (`_collective_in_graph`): NCCL on a CUDA device
+queues its all-reduce and all-gather on the stream, so the train step and
+the frame are each one CUDA graph with the collective inside, as JAX's
+`pmean` and gather sit inside `jit(shard_map)`. gloo's collectives go
+through the host and cannot be captured: a gloo step replays a graph up to
+the flat buffer, runs the all-reduce, then replays a graph of the update,
+and a gloo frame gathers after its graph.
 
 Backends (JAX's names): "pallas" runs the hand-written CUDA kernels that
 replace the Pallas ones (K7 for the display, K1-K6 and the reduction for
@@ -102,6 +109,14 @@ def _check_divisible(height: int, n: int) -> int:
     return height // n
 
 
+def _collective_in_graph(group: dist.ProcessGroup | None, device: torch.device) -> bool:
+    """Whether `group`'s collective goes inside the CUDA graph of a step or
+    frame on `device`: NCCL's on a CUDA device, which queues device work on
+    the stream. gloo's goes through the host and cannot be captured."""
+    return (group is not None and device.type == "cuda"
+            and dist.get_backend(group) == "nccl")
+
+
 def _backend(backend: str, device: torch.device) -> str:
     if backend == "auto":
         return "pallas" if device.type == "cuda" else "jnp"
@@ -168,20 +183,26 @@ class _FrameGraph:
     buffers: the scene's leaves and the packed camera [1, 16]. Each call
     copies the caller's scene and camera into them (a spawn's new capacity
     replaces them, and the next call captures again), then replays
-    _k7_bands. Made and cached per (config, band count, this process's
-    bands), as JAX caches its jitted shard_map per (config, mesh,
+    _k7_bands and, where `group`'s all-gather can be captured
+    (`gathers`), the gather of every process's rows: the stacked rows, the
+    gathered frame and the fields cut from it are then buffers of the
+    graph. Made and cached per (config, band count, this process's bands,
+    group), as JAX caches its jitted shard_map per (config, mesh,
     backend)."""
 
     def __init__(self, config: RenderConfig, size: int, bands: range, device: torch.device,
-                 graph: bool = True):
+                 group: dist.ProcessGroup | None = None, graph: bool = True):
         self.config, self.bands = config, bands
         self.rows = _check_divisible(config.height, size)
+        self.group = group
+        self.gathers = _collective_in_graph(group, torch.device(device))
         self.scene: Scene | None = None
         self.cam = torch.zeros((1, P.CAM_LEN), dtype=torch.float32, device=device)
         self.call = CapturedCall(self._frame, device, graph=graph)
 
     def _frame(self) -> Framebuffer:
-        return _k7_bands(self.scene, self.cam, self.config, self.bands, self.rows)
+        fb = _k7_bands(self.scene, self.cam, self.config, self.bands, self.rows)
+        return _gather_rows(fb, self.group) if self.gathers else fb
 
     @torch.no_grad()
     def __call__(self, scene: Scene, camera: Camera) -> Framebuffer:
@@ -201,27 +222,34 @@ class _FrameGraph:
 
 
 @functools.lru_cache(maxsize=32)
-def _frame_graph(config: RenderConfig, size: int, bands: range,
-                 device: torch.device) -> _FrameGraph:
-    return _FrameGraph(config, size, bands, device)
+def _frame_graph(config: RenderConfig, size: int, bands: range, device: torch.device,
+                 group: dist.ProcessGroup | None = None) -> _FrameGraph:
+    return _FrameGraph(config, size, bands, device, group)
 
 
-def _gather_rows(fb: Framebuffer, mesh: Mesh) -> Framebuffer:
+def _gather_rows(fb: Framebuffer, group: dist.ProcessGroup) -> Framebuffer:
     """Every process's rows, in band order, on every process: one
-    all_gather of the fields stacked as float32 channels (through the host
-    under gloo, whose all_gather takes CPU tensors only)."""
+    all-gather of the fields stacked as float32 planes [C, rows, W], so
+    that each field is copied plane by plane (stacked with the channels
+    last, the copy runs element by element). Under gloo, whose all_gather
+    takes CPU tensors only, through the host; otherwise into one tensor on
+    the device, with nothing read back, so a CUDA graph can hold it."""
     parts = [getattr(fb, f) for f in _FB_FIELDS]
-    widths = [1 if p.dim() == 2 else p.shape[2] for p in parts]
-    local = torch.cat([p.float().reshape(p.shape[0], p.shape[1], -1) for p in parts], 2)
-    if dist.get_backend(mesh.group) == "gloo":
-        local = local.cpu()
-    chunks = [torch.empty_like(local) for _ in range(mesh.world)]
-    dist.all_gather(chunks, local.contiguous(), group=mesh.group)
-    full = torch.cat(chunks, 0).to(parts[0].device)
+    local = torch.cat([p.float()[None] if p.dim() == 2 else p.float().permute(2, 0, 1)
+                       for p in parts], 0)
+    n, (c_all, rows, width) = dist.get_world_size(group), local.shape
+    if dist.get_backend(group) == "gloo":
+        chunks = [torch.empty_like(local, device="cpu") for _ in range(n)]
+        dist.all_gather(chunks, local.cpu(), group=group)
+        full = torch.cat(chunks, 1).to(parts[0].device)
+    else:
+        full = local.new_empty((n * c_all, rows, width))
+        dist.all_gather_into_tensor(full, local, group=group)
+        full = full.view(n, c_all, rows, width).transpose(0, 1).reshape(c_all, n * rows, width)
     out, c = {}, 0
-    for name, p, w in zip(_FB_FIELDS, parts, widths):
-        v = full[..., c:c + w]
-        out[name] = (v[..., 0] if p.dim() == 2 else v).to(p.dtype)
+    for name, p in zip(_FB_FIELDS, parts):
+        w = 1 if p.dim() == 2 else p.shape[2]
+        out[name] = (full[c] if p.dim() == 2 else full[c:c + w].permute(1, 2, 0)).to(p.dtype)
         c += w
     return Framebuffer(**out)
 
@@ -237,12 +265,16 @@ def render_frame_sharded(scene: Scene, camera: Camera, config: RenderConfig, mes
     (K7's bit for bit on the card).
 
     graph: None replays the "pallas" frame on a CUDA device as one CUDA
-    graph, cached per config and mesh and captured again when the scene's
-    capacity changes (JAX's jit(shard_map), cached per config, mesh and
-    backend); its framebuffer is the graph's output, which the next frame
-    of that config and mesh overwrites. False keeps the frame eager; the
-    two are torch.equal. The "jnp" backend and CPU scenes run eagerly. With
-    several processes the all-gather runs eagerly after the replay."""
+    graph, cached per config, mesh and group and captured again when the
+    scene's capacity changes (JAX's jit(shard_map), cached per config, mesh
+    and backend); its framebuffer is the graph's output, which the next
+    frame of that config and mesh overwrites. False keeps the frame eager;
+    the two are torch.equal. The "jnp" backend and CPU scenes run eagerly.
+    With several processes the all-gather is part of the graph under NCCL
+    (one dispatch a frame) and runs eagerly after the replay under gloo.
+    Every process runs one all-gather a frame, at a capture (its eager
+    warm-up) as at a replay, so processes whose graphs were captured at
+    different frames still pair their gathers."""
     rows = _check_divisible(config.height, mesh.size)
     backend = _backend(backend, scene.device)
     use_graph = backend == "pallas" and scene.device.type == "cuda" if graph is None else graph
@@ -250,10 +282,13 @@ def render_frame_sharded(scene: Scene, camera: Camera, config: RenderConfig, mes
         if backend != "pallas" or scene.device.type != "cuda":
             raise ValueError("a graph-replayed sharded frame needs the pallas backend and a "
                              f"CUDA scene, not {backend!r} on {scene.device}")
-        fb = _frame_graph(config, mesh.size, mesh.bands(), scene.device)(scene, camera)
+        fg = _frame_graph(config, mesh.size, mesh.bands(), scene.device, mesh.group)
+        fb = fg(scene, camera)
+        if fg.gathers:
+            return fb
     else:
         fb = _render_bands(scene, camera, config, mesh, rows, backend)
-    return fb if mesh.group is None else _gather_rows(fb, mesh)
+    return fb if mesh.group is None else _gather_rows(fb, mesh.group)
 
 
 def _leaves(params) -> dict:
@@ -288,8 +323,9 @@ class TrainState:
     it); target: the static target, made at the first step and made again
     when its shape changes; target_src: the caller's tensor last copied
     into it and that tensor's version counter (unchanged: nothing to copy).
-    phases: the step's CapturedCalls (one without a process group; with
-    one, the bands before the all-reduce and the update after it)."""
+    phases: the step's CapturedCalls (one without a process group or with
+    NCCL on a CUDA device, the all-reduce inside; with gloo, the bands
+    before the all-reduce and the update after it)."""
 
     leaves: dict
     optimizer: torch.optim.Optimizer
@@ -351,13 +387,20 @@ def make_sharded_train_step(
     same launches queued from Python and torch.equal to the graph. Without
     a process group the whole step is one graph: the bands, the backward,
     the flat buffer, the division by the band count and, for a capturable
-    optimiser, its update. With one, a graph of the bands, the backward and
-    the flat buffer, then the all-reduce eagerly (gloo's goes through the
-    host), then a graph of the division and the update. An optimiser that
-    is not capturable steps eagerly after the replay. Every step runs
-    without a host sync under set_sync_debug_mode("error") when the
-    caller's params are the step's own leaves (or on the device) and dt is
-    a float or a device tensor.
+    optimiser, its update. With an NCCL group on a CUDA device it is one
+    graph too, the all-reduce between the flat buffer and the division
+    (JAX's pmean inside the jitted step). With a gloo group, whose
+    all-reduce goes through the host, it is a graph of the bands, the
+    backward and the flat buffer, then the all-reduce eagerly, then a graph
+    of the division and the update. The layouts give the same bits. Every
+    process runs one all-reduce a step, at a capture (its eager warm-up) as
+    at a replay, so processes whose graphs were captured at different steps
+    still pair their all-reduces. A capture that fails raises; nothing
+    falls back to the eager collective. An optimiser that is not capturable
+    steps eagerly after the replay. Every step runs without a host sync
+    under set_sync_debug_mode("error") when the caller's params are the
+    step's own leaves (or on the device) and dt is a float or a device
+    tensor.
 
     optimizer: a function of the named leaf tensors ({"spheres.center": t,
     ...}) to a torch.optim.Optimizer over the leaves it trains (default:
@@ -406,6 +449,13 @@ def make_sharded_train_step(
         err = (rgb - target_band) * loss_scale
         return torch.mean(err * err)
 
+    def _all_reduce(flat):
+        """The bands' sum over the processes (SUM, then update()'s division
+        by the band count: gloo has no ReduceOp.AVG, and every layout sums
+        alike)."""
+        if mesh.group is not None:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+
     def init(params) -> TrainState:
         device = params[0].device
         leaves = {k: v.detach().to(device, copy=True).requires_grad_(True)
@@ -443,9 +493,11 @@ def make_sharded_train_step(
 
         def whole():
             bands()
+            _all_reduce(st.flat)
             update()
 
-        phases = (whole,) if mesh.group is None else (bands, update)
+        split = mesh.group is not None and not _collective_in_graph(mesh.group, device)
+        phases = (bands, update) if split else (whole,)
         st.phases = tuple(CapturedCall(fn, device, graph=graph) for fn in phases)
         return st
 
@@ -471,8 +523,8 @@ def make_sharded_train_step(
                     st.dt.fill_(float(np.float32(dt)))
         key = (st.target.shape, st.target.data_ptr())
         st.phases[0](key)
-        if mesh.group is not None:
-            dist.all_reduce(st.flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        if len(st.phases) == 2:
+            _all_reduce(st.flat)
             st.phases[1](key)
         if not st.opt_in_graph:
             st.optimizer.step()

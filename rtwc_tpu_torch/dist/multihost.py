@@ -18,6 +18,17 @@ import torch.distributed as dist
 log = logging.getLogger("rtwc_tpu_torch")
 
 
+def check_card_a_rank(local_ranks: int) -> int:
+    """This host's card count, when it has a card for each of its
+    `local_ranks` NCCL ranks; else a ValueError (NCCL refuses two ranks on
+    one device)."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if local_ranks > cards:
+        raise ValueError(f"nccl needs a card a rank: {local_ranks} ranks on this host, {cards} "
+                         f"cards (ranks that share a card take backend='gloo')")
+    return cards
+
+
 def initialize_multihost(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
@@ -47,11 +58,7 @@ def initialize_multihost(
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"unknown torch.distributed backend {backend!r}")
     if backend == "nccl":
-        local = int(env.get("LOCAL_WORLD_SIZE", world))
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if local > cards:
-            raise ValueError(f"nccl needs a card a rank: {local} ranks on this host, {cards} "
-                             f"cards (ranks that share a card take backend='gloo')")
+        cards = check_card_a_rank(int(env.get("LOCAL_WORLD_SIZE", world)))
         torch.cuda.set_device(int(env.get("LOCAL_RANK", rank % cards)))
     # env:// joins the store torchrun's agent may already host at MASTER_PORT
     init = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"

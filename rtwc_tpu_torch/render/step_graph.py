@@ -42,6 +42,7 @@ launches what `replay_launches` records and counts nothing.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Hashable
 
 import torch
@@ -75,7 +76,13 @@ def warm_and_capture(warm: Callable[[], object], capture: Callable[[], object],
     """warm() eagerly on a side stream (it makes every cached table and
     lazily built state, away from the capture), then capture() as a CUDA
     graph. Returns (warm's result, the graph, capture's result, the kernel
-    launches counted during the capture: what a replay launches)."""
+    launches counted during the capture: what a replay launches).
+
+    Python's cyclic garbage collector is off during the capture: a step
+    or frame that is no longer referenced sits in a reference cycle with
+    its graph, and a collection during the capture would destroy that
+    graph there, which invalidates the capture (torch.cuda.graph no longer
+    collects before it begins)."""
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
@@ -84,8 +91,14 @@ def warm_and_capture(warm: Callable[[], object], capture: Callable[[], object],
     main.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
-    with torch.cuda.graph(graph):
-        static = capture()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            static = capture()
+    finally:
+        if collecting:
+            gc.enable()
     return out, graph, static, launch_delta(before)
 
 

@@ -1,6 +1,6 @@
 """One rank of tests/test_torch_dist.py's gloo meshes (not a test module).
 
-    python tests/_torch_dist_worker.py <coordinator> <world> <rank> <out.npz> <backend> <shadows>
+    python tests/_torch_dist_worker.py <coordinator> <world> <rank> <out.npz> <backend> <shadows> [<layout>]
 
 Joins the group through rtwc_tpu_torch.dist.initialize_multihost, takes
 one SGD step of the sharded train step (one band a rank) on the CPU with
@@ -8,7 +8,15 @@ every torch.distributed.all_reduce call counted, and saves the loss, the
 gradients the step applied ((old - new) / lr), the parameters after it and
 the all-reduce count and sizes, and the whole frame that
 render_frame_sharded gathers from the ranks' bands (K7's plain version)
-to out.npz. Imports nothing of JAX.
+to out.npz.
+
+With <layout> ("split" or "one") it sets the layout of the step and the
+frame instead (dist.mesh._collective_in_graph, which picks "one" for NCCL
+on a CUDA device; here the collectives run eagerly through gloo) and
+takes 2 SGD steps, then 2 Adam steps of a new step, each step's losses,
+parameters and all-reduce sizes saved; "one" gathers the frame inside
+the frame graph's function (_FrameGraph, eager), "split" after it
+(render_frame_sharded). Imports nothing of JAX.
 """
 import sys
 
@@ -19,8 +27,42 @@ import torch.distributed as dist
 LR = 2.0 ** 16
 
 
+def _layout_run(layout, cfg, scene, cam, target, backend, sizes, out):
+    from rtwc_tpu_torch.dist import make_mesh, make_sharded_train_step, render_frame_sharded
+    from rtwc_tpu_torch.dist import mesh as M
+    from rtwc_tpu_torch.dist.mesh import _leaves
+
+    M._collective_in_graph = lambda group, device: layout == "one"
+    saved = {}
+    for name, opt, lr in (("sgd", torch.optim.SGD, LR), ("adam", torch.optim.Adam, 1e-2)):
+        step = make_sharded_train_step(
+            cfg, make_mesh(), tau=0.5, backend=backend,
+            optimizer=lambda leaves: opt(list(leaves.values()), lr=lr))
+        params = (scene, cam)
+        state = step.init(params)
+        saved[f"phases.{name}"] = len(state.phases)
+        for i in range(2):
+            del sizes[:]
+            params, state, loss = step(params, state, target)
+            saved[f"loss.{name}.{i}"] = loss.numpy()
+            saved[f"sizes.{name}.{i}"] = np.asarray(sizes)
+            saved.update({f"param.{name}.{i}.{k}": v.numpy().copy()
+                          for k, v in _leaves(params).items()})
+    mesh = make_mesh()
+    if layout == "one":
+        fg = M._FrameGraph(cfg, mesh.size, mesh.bands(), torch.device("cpu"), mesh.group,
+                           graph=False)
+        assert fg.gathers
+        fb = fg(scene, cam)
+    else:
+        fb = render_frame_sharded(scene, cam, cfg, mesh, backend="pallas")
+    np.savez(out, **saved,
+             **{f"fb.{f}": getattr(fb, f).numpy() for f in ("rgb", "depth", "normal", "hit")})
+
+
 def main() -> int:
     coordinator, world, rank, out, backend, shadows = sys.argv[1:7]
+    layout = sys.argv[7] if len(sys.argv) > 7 else None
     torch.set_num_threads(1)
     from rtwc_tpu_torch.camera import default_camera
     from rtwc_tpu_torch.config import RenderConfig
@@ -44,6 +86,10 @@ def main() -> int:
         return all_reduce(tensor, *args, **kwargs)
 
     dist.all_reduce = counted
+    if layout is not None:
+        _layout_run(layout, cfg, scene, cam, target, backend, sizes, out)
+        dist.destroy_process_group()
+        return 0
     step = make_sharded_train_step(
         cfg, make_mesh(), tau=0.5, backend=backend,
         optimizer=lambda leaves: torch.optim.SGD(list(leaves.values()), lr=LR))
