@@ -285,6 +285,16 @@ def _time_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
+def _device_records(prof) -> list:
+    """The profiler's device records (kernels, copies, fills), without the
+    device-side markers of host ranges (user annotations: the port's rtwc.*
+    spans, torch's optimizer step)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _kernel_device_ms(fn, reps=20, name="hard_render_kernel", tries=3, per_call=False):
     """Mean device time of the kernel `name` over `reps` calls of fn, from
     the profiler's CUDA kernel records whose name contains `name` (with
@@ -293,7 +303,6 @@ def _kernel_device_ms(fn, reps=20, name="hard_render_kernel", tries=3, per_call=
     again, up to `tries` profiles in all (the profiler now and then returns
     a run without its device records); None if none holds one."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -303,8 +312,8 @@ def _kernel_device_ms(fn, reps=20, name="hard_render_kernel", tries=3, per_call=
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and name in e.name]
+        us = [e.time_range.elapsed_us() for e in _device_records(prof)
+              if name in e.name]
         if us:
             return sum(us) / (reps if per_call else len(us)) / 1e3
     return None
@@ -550,7 +559,7 @@ def _profile_steps(step, out_name: str, label: str, tag: str, reps: int = 20, ph
             step()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = _device_records(prof)
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
     by_name = {}
     for e in kern:
@@ -2132,7 +2141,6 @@ def _replay_kernel_names(step) -> list:
     """The names of the device kernels of one replay of a CapturedStep
     (after its warm-up and capture), from the profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -2142,7 +2150,7 @@ def _replay_kernel_names(step) -> list:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        names = [e.name for e in _device_records(prof)]
         if names:
             return names
     raise AssertionError("the profiler recorded no kernel of the replay in three tries")
@@ -3435,7 +3443,6 @@ def main() -> int:
               f"wait for cells {med['wait']!r} ms, encode {med['encode']!r} ms {tag}")
 
     # device busy share over a steady window of engine frames
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for label, rcfg, scene in (("400x150", RenderConfig(width=400, height=150,
@@ -3457,7 +3464,7 @@ def main() -> int:
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
         eng.cleanup()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kern = _device_records(prof)
         busy_us = sum(e.time_range.elapsed_us() for e in kern)
         by_name = {}
         for e in kern:

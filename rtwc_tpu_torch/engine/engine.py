@@ -23,6 +23,12 @@ the camera vector and dt are copied into device buffers before each
 replay, a spawn writes into the static buffers in place, and a capacity
 doubling or a mode change re-captures. `Engine(graph=False)` queues the
 same launches eagerly; the two give the same cells bit for bit.
+
+Under a torch profiler a frame is the span `frame`, with `frame.input`,
+`frame.enqueue` (the step and the download's start), `frame.wait` (the
+event), `encode`, `frame.present` and, once a second, `frame.spawn`
+inside it (utils/telemetry.py); each publish and each scene read of a
+spawn adds one to the counter `host_reads`.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from rtwc_tpu_torch.render.reference import (
 )
 from rtwc_tpu_torch.scene import Scene, default_scene, grow_scene, spawn_random_sphere, update_scene
 from rtwc_tpu_torch.utils import Telemetry, Timer
+from rtwc_tpu_torch.utils.telemetry import count, span
 
 log = logging.getLogger("rtwc_tpu_torch")
 
@@ -201,9 +208,7 @@ class Engine:
         self.input = input_handler if input_handler is not None else (
             InputHandler(mouse=self.ecfg.mouse) if interactive else None)
         self.timer = Timer()
-        self.telemetry = Telemetry(
-            rays_per_frame=self.rcfg.width * self.rcfg.height * self.rcfg.supersample ** 2,
-            update_interval_s=self.ecfg.fps_update_interval_s)
+        self.telemetry = Telemetry(update_interval_s=self.ecfg.fps_update_interval_s)
         self._rng = np.random.default_rng(self.ecfg.seed)
         self._should_quit = False
         self._pending = None  # (host cells, event) of the in-flight frame
@@ -227,33 +232,42 @@ class Engine:
 
     def run_frame(self) -> bool:
         """One iteration of the main loop; False when the loop should exit."""
-        if not self.presenter.check_if_running() or self._should_quit:
-            return False
-        self.timer.update()
-        dt = self.timer.delta_time
+        with span("frame"):
+            if not self.presenter.check_if_running() or self._should_quit:
+                return False
+            self.timer.update()
+            dt = self.timer.delta_time
 
-        if self.input is not None:
-            state = self.input.poll()
-            if state.quit:
-                self._should_quit = True
-            if state.mode is not None and state.mode != self.rcfg.mode:
-                self.rcfg = self.rcfg.replace(mode=state.mode)
-            dp, dy = state.rot_delta
-            if dp or dy:
-                self.camera = add_rot(self.camera, dp, dy, 0.0, self.rcfg.mouse_sensitivity)
-            self.camera = move(self.camera, state.keys, dt, self.rcfg.move_speed)
+            if self.input is not None:
+                with span("frame.input"):
+                    self._apply_input(dt)
 
-        # Queue this frame's device work and its download, then encode and
-        # publish the previous frame while the device runs.
-        prev, self._pending = self._pending, _start_download(self.device_frame(dt))
-        if prev is not None:
-            self._publish(prev)
+            # Queue this frame's device work and its download, then encode and
+            # publish the previous frame while the device runs.
+            with span("frame.enqueue"):
+                pending = _start_download(self.device_frame(dt))
+            prev, self._pending = self._pending, pending
+            if prev is not None:
+                self._publish(prev)
 
-        if self.telemetry.tick():
-            if self.ecfg.spawn:
-                self._spawn()
-            self.presenter.update_rendering_fps(self.telemetry.fps)
-        return True
+            if self.telemetry.tick():
+                if self.ecfg.spawn:
+                    self._spawn()
+                self.presenter.update_rendering_fps(self.telemetry.fps)
+            return True
+
+    def _apply_input(self, dt: float) -> None:
+        """Poll the input handler; apply quit, a mode switch and the camera's
+        rotation and movement."""
+        state = self.input.poll()
+        if state.quit:
+            self._should_quit = True
+        if state.mode is not None and state.mode != self.rcfg.mode:
+            self.rcfg = self.rcfg.replace(mode=state.mode)
+        dp, dy = state.rot_delta
+        if dp or dy:
+            self.camera = add_rot(self.camera, dp, dy, 0.0, self.rcfg.mouse_sensitivity)
+        self.camera = move(self.camera, state.keys, dt, self.rcfg.move_speed)
 
     def device_frame(self, dt: float):
         """Queue one frame's device step at time step dt; returns its cells
@@ -284,21 +298,28 @@ class Engine:
     def _spawn(self) -> None:
         """1 Hz random sphere; when the pool is full its capacity doubles
         first, up to ecfg.max_grow_spheres (engine.py:151-165)."""
-        cap = self.scene.spheres.capacity
-        if self.scene.n_spheres >= cap:
-            if not self.ecfg.auto_grow or cap >= self.ecfg.max_grow_spheres:
-                return
-            self.scene = grow_scene(self.scene,
-                                    max_spheres=min(cap * 2, self.ecfg.max_grow_spheres))
-            log.info("scene grown to %d sphere slots", self.scene.spheres.capacity)
-        self.scene = spawn_random_sphere(self.scene, self._rng)
+        with span("frame.spawn"):
+            cap = self.scene.spheres.capacity
+            if self.scene.n_spheres >= cap:
+                if not self.ecfg.auto_grow or cap >= self.ecfg.max_grow_spheres:
+                    return
+                self.scene = grow_scene(self.scene,
+                                        max_spheres=min(cap * 2, self.ecfg.max_grow_spheres))
+                log.info("scene grown to %d sphere slots", self.scene.spheres.capacity)
+            self.scene = spawn_random_sphere(self.scene, self._rng)
 
     def _publish(self, frame) -> None:
+        """Wait for a frame's download (one host read), encode it and hand
+        it to the presenter."""
         host, event = frame
-        if event is not None:
-            event.synchronize()
+        with span("frame.wait"):
+            if event is not None:
+                event.synchronize()
+        count("host_reads")
         kind, color, char = (c.numpy() for c in host)
-        self.presenter.set_data_in_back_buffer(encode_frame(kind, color, char))
+        data = encode_frame(kind, color, char)
+        with span("frame.present"):
+            self.presenter.set_data_in_back_buffer(data)
 
     def flush(self) -> None:
         """Drain the in-flight frame (shutdown and tests)."""

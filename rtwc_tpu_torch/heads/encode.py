@@ -14,6 +14,8 @@ import logging
 
 import numpy as np
 
+from rtwc_tpu_torch.utils.telemetry import span
+
 log = logging.getLogger("rtwc_tpu_torch")
 
 _ESC, _LB, _SEMI, _M, _NL = 0x1B, ord("["), ord(";"), ord("m"), ord("\n")
@@ -105,13 +107,14 @@ def encode_frame(kind, color, char) -> bytes:
     """Encode host cells to ANSI bytes, preferring the native C++ encoder;
     if it cannot be built, warn once and use the NumPy encoder."""
     global _native_failed
-    kind, color, char = np.asarray(kind), np.asarray(color), np.asarray(char)
-    if not _native_failed:
-        try:
-            from rtwc_tpu_torch.io.native import encode_frame_native
+    with span("encode"):
+        kind, color, char = np.asarray(kind), np.asarray(color), np.asarray(char)
+        if not _native_failed:
+            try:
+                from rtwc_tpu_torch.io.native import encode_frame_native
 
-            return encode_frame_native(kind, color, char)
-        except (OSError, RuntimeError) as e:
-            _native_failed = True
-            log.warning("native ANSI encoder unavailable (%s); using the NumPy encoder", e)
-    return encode_frame_numpy(kind, color, char)
+                return encode_frame_native(kind, color, char)
+            except (OSError, RuntimeError) as e:
+                _native_failed = True
+                log.warning("native ANSI encoder unavailable (%s); using the NumPy encoder", e)
+        return encode_frame_numpy(kind, color, char)

@@ -16,6 +16,8 @@ import tempfile
 
 import numpy as np
 
+from rtwc_tpu_torch.utils.telemetry import span
+
 _NATIVE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 _SRC = os.path.join(_NATIVE_SRC, "ansi_encoder.cpp")
 _PRINT_SRC = os.path.join(_NATIVE_SRC, "print_machine.cpp")
@@ -69,9 +71,10 @@ def encode_frame_native(kind: np.ndarray, color: np.ndarray, char: np.ndarray) -
     char32 = np.ascontiguousarray(char, np.int32)
     out = np.empty(H * W * 20 + H, np.uint8)
     p32 = ctypes.POINTER(ctypes.c_int32)
-    n = lib.rtwc_encode_frame(kind32.ctypes.data_as(p32), color32.ctypes.data_as(p32),
-                              char32.ctypes.data_as(p32), H, W, truecolor,
-                              out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    with span("encode.native"):
+        n = lib.rtwc_encode_frame(kind32.ctypes.data_as(p32), color32.ctypes.data_as(p32),
+                                  char32.ctypes.data_as(p32), H, W, truecolor,
+                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return out[:n].tobytes()
 
 

@@ -38,7 +38,12 @@ buffers that returns tensors (no loss, no optimiser of its own): the
 sharded train step's phases and the sharded frame (dist/mesh.py).
 
 The launch counters of the kernel modules count at capture only: a replay
-launches what `replay_launches` records and counts nothing.
+launches what `replay_launches` records and counts nothing. They are
+sources of `utils/telemetry.counters()` (as `launches.<kernel>`), beside
+`graph.captures`, which every capture adds to. Under a torch profiler a
+replay is the span `step.replay`, an eager `opt.step()` after it
+`step.opt`, and a warm step with its capture `graph.capture`; no span
+opens inside a capture.
 """
 from __future__ import annotations
 
@@ -50,11 +55,15 @@ import torch
 from rtwc_tpu_torch.render import hard_kernel as HK
 from rtwc_tpu_torch.render import list_kernel as LK
 from rtwc_tpu_torch.render import soft_core as SC
+from rtwc_tpu_torch.utils.telemetry import add_source, count, span
 
 
 def launch_counts() -> dict:
     """Every kernel launch counter of the port, by kernel name."""
     return {**SC.LAUNCHES, "hard_render": HK.LAUNCHES, **LK.LAUNCHES}
+
+
+add_source(lambda: {f"launches.{k}": v for k, v in launch_counts().items()})
 
 
 def reset_launch_counts() -> None:
@@ -83,23 +92,25 @@ def warm_and_capture(warm: Callable[[], object], capture: Callable[[], object],
     its graph, and a collection during the capture would destroy that
     graph there, which invalidates the capture (torch.cuda.graph no longer
     collects before it begins)."""
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        out = warm()
-    main.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    before = launch_counts()
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph):
-            static = capture()
-    finally:
-        if collecting:
-            gc.enable()
-    return out, graph, static, launch_delta(before)
+    with span("graph.capture"):
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = warm()
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                static = capture()
+        finally:
+            if collecting:
+                gc.enable()
+        count("graph.captures")
+        return out, graph, static, launch_delta(before)
 
 
 def card_adam(params) -> dict:
@@ -155,9 +166,11 @@ class CapturedStep:
             return self._eager()
         key = self.capture_key(key)
         if self._graph is not None and key == self._key:
-            self._graph.replay()
+            with span("step.replay"):
+                self._graph.replay()
             if not self.in_graph:
-                self.opt.step()
+                with span("step.opt"):
+                    self.opt.step()
             return self._loss
         self._graph, self._loss, self._key = None, None, key
         loss, self._graph, self._loss, self.replay_launches = warm_and_capture(

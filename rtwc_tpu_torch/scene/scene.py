@@ -21,6 +21,7 @@ import torch
 
 from rtwc_tpu_torch.config import RenderConfig
 from rtwc_tpu_torch.mathx import tensor_dataclass
+from rtwc_tpu_torch.utils.telemetry import count
 
 _SPHERE_FIELDS = ("center", "radius", "color", "speed", "mover", "active")
 _PLANE_FIELDS = ("center", "normal", "color", "width", "height", "active")
@@ -61,11 +62,13 @@ class Scene:
 
     @property
     def n_spheres(self) -> int:
-        """Live sphere count (reads the device)."""
+        """Live sphere count (reads the device: one host read)."""
+        count("host_reads")
         return int(self.spheres.active.sum().item())
 
     @property
     def n_planes(self) -> int:
+        count("host_reads")
         return int(self.planes.active.sum().item())
 
     @property
@@ -78,6 +81,8 @@ def _t(a, device=None) -> torch.Tensor:
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
+    """x as a float32 NumPy copy (reads the device: one host read)."""
+    count("host_reads")
     return np.array(x.detach().cpu().numpy(), np.float32)
 
 

@@ -154,7 +154,8 @@ def _split(root, dev, card, graph_ms, kernel_ms, ptxas_report) -> dict:
 
 def _device_ms_a_call(fn, reps: int) -> float:
     """Device ms a call of fn: the profiler's CUDA kernel records (and
-    memsets) of `reps` calls, summed, over reps."""
+    memsets) of `reps` calls, summed, over reps; the device-side markers of
+    host ranges (user annotations) left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -167,7 +168,8 @@ def _device_ms_a_call(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / reps / 1e3
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / reps / 1e3
 
 
 def _times(dev, card, graph_ms, kernel_ms, step_ms, ptxas_report) -> dict:
