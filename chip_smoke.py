@@ -6,8 +6,8 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
   0  card name and power limit (nvidia-smi), torch and CUDA versions
   1  build csrc/hard_render.cu, csrc/soft_render.cu, csrc/soft_shadow.cu,
-     csrc/calibrate.cu and csrc/broad_phase.cu with nvcc for sm_90a, one
-     nvcc each, all at once;
+     csrc/calibrate.cu, csrc/broad_phase.cu and csrc/ansi_encode.cu with
+     nvcc for sm_90a, one nvcc each, all at once;
      print build times and each kernel's ptxas registers and spills
   2  the K7 kernel against its plain torch version on the card, on the
      same packed tables and broad-phase lists: planes bit-equal
@@ -52,7 +52,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      card, 400x150 in all five modes, a forced spawn with a capacity
      doubling, 1920x500 with 100 spheres and 2x supersampling; each frame
      replays the display's CUDA graph, and K7's launch count must equal
-     two for each capture (its eager first frame and the capture)
+     two for each capture (its eager first frame and the capture); every
+     published frame encoded on the card (the counter `encode.device`)
+  3e the device encode (csrc/ansi_encode.cu): its stream against the plain
+     version's and the C++ encoder's on the engine's 1920x500 cells in all
+     five modes and on seeded cells (runs across rows, a width no multiple
+     of 4, one row, one column, every digit count); graph and eager
+     engines at 1920x500 x2 publishing the same bytes, the C++ encoder's
+     on the same cells, through spawns and mode switches that re-capture;
+     the kernel's device time beside its bound and the plain version's
   3b the train paths, counted: an in-process fit whose K1 / K2 launches
      must equal its steps; `python -m rtwc_tpu_torch.examples.inverse_render`
      in process at 1920x1080 with 20 spheres (generic path: K1, K2, the
@@ -2313,7 +2321,7 @@ def _phase_8(dev, tag):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     print("phase 8: an eager display frame at 1920x500 x2 with shadows (physics, pack, lists, "
-          "K7, downsample, cells) ran under set_sync_debug_mode('error')")
+          "K7, downsample, cells, the encode) ran under set_sync_debug_mode('error')")
 
     # a replay of the fused headline step: two broad-phase launches, no fill
     # of a [T NS] partial table (counted at the capture), no scan kernel
@@ -2392,9 +2400,13 @@ def _phase_8(dev, tag):
         if i in (20, 35):  # a capacity doubling, then a spawn into the grown scene
             for e in engines:
                 e._spawn()
-        cells = [e.device_frame(0.016) for e in engines]
-        if not all(torch.equal(a, b) for a, b in zip(*cells)):
-            raise AssertionError(f"display frame {i}: the graph's cells differ from eager ones")
+        (cells_g, (buf_g, n_g)), (cells_e, (buf_e, n_e)) = [e.device_frame(0.016)
+                                                            for e in engines]
+        n = int(n_e)
+        if not (all(torch.equal(a, b) for a, b in zip(cells_g, cells_e))
+                and torch.equal(n_g, n_e) and torch.equal(buf_g[:n], buf_e[:n])):
+            raise AssertionError(f"display frame {i}: the graph's cells or stream differ from "
+                                 f"eager ones")
     disp = engines[0].display
     cap1 = engines[0].scene.spheres.capacity
     if not (cap1 == 2 * cap0 and disp.captures == 2
@@ -2402,8 +2414,8 @@ def _phase_8(dev, tag):
         raise AssertionError(f"display graph: capacity {cap0} -> {cap1}, captures "
                              f"{disp.captures}")
     print(f"phase 8: 50 engine frames at 1920x500 x2 with shadows, a capacity doubling "
-          f"({cap0} -> {cap1} spheres) at frame 20 and a spawn at 35: every frame's cells "
-          f"torch.equal to the eager engine's; {disp.captures} captures; launches a replay "
+          f"({cap0} -> {cap1} spheres) at frame 20 and a spawn at 35: every frame's cells and "
+          f"encoded stream torch.equal to the eager engine's; {disp.captures} captures; launches a replay "
           f"{disp.replay_launches}")
 
     # -- 8d: eager and graph ms a step, the lists' and pack's host cost
@@ -2716,6 +2728,172 @@ def _phase_9(tag: str) -> dict:
     return res["launches"]
 
 
+def _encode_cases(dev) -> dict:
+    """Cells for the device encode on the card: the engine's 1920x500
+    frame (2x supersampling, shadows, 100 spheres) in every mode, and
+    seeded cells with runs across rows at 1920x500 and at 1917x501 (a
+    width no multiple of 4: the kernel's scalar loads), one row, one
+    column, one cell, and every digit count in every channel."""
+    import numpy as np
+    import torch
+
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.config import RenderConfig, RenderMode
+    from rtwc_tpu_torch.engine.engine import _render_step
+    from rtwc_tpu_torch.scene import random_scene
+
+    cases = {}
+    for mode in (RenderMode.BIT_ASCII, RenderMode.BIT_PIXEL, RenderMode.RGB_ASCII,
+                 RenderMode.RGB_PIXEL, RenderMode.RGB_NORMALS):
+        cfg = RenderConfig(width=1920, height=500, mode=mode, supersample=2, shadows=True)
+        _, cells = _render_step(random_scene(100, seed=0, device=dev), default_camera(), 0.016,
+                                cfg)
+        cases[f"engine 1920x500 {mode.value}"] = cells
+    rng = np.random.default_rng(19)
+
+    def seeded(H, W, truecolor):
+        kind = rng.integers(0, 2, size=(H, W))
+        color = rng.integers(0, 256, size=(H, W, 3) if truecolor else (H, W))
+        flat_k, flat_c = kind.reshape(-1), color.reshape(H * W, -1)
+        start = 0
+        while start < H * W:  # constant runs of up to three rows
+            end = start + int(rng.integers(1, 3 * W + 2))
+            flat_k[start:end] = flat_k[start]
+            flat_c[start:end] = flat_c[start]
+            start = end
+        char = rng.integers(32, 127, size=(H, W))
+        return tuple(torch.from_numpy(c.astype(np.int32)).to(dev) for c in (kind, color, char))
+
+    vals = np.array([0, 9, 10, 99, 100, 255])
+    digits = np.stack(np.meshgrid(vals, vals, vals, indexing="ij"), -1).reshape(12, 18, 3)
+    for tc in (False, True):
+        name = "truecolor" if tc else "ansi256"
+        for H, W in ((500, 1920), (501, 1917), (1, 1920), (500, 1), (1, 1)):
+            cases[f"seeded {name} {W}x{H}"] = seeded(H, W, tc)
+        color = digits if tc else np.tile(vals, 6).reshape(4, 9)
+        H, W = color.shape[:2]
+        kind = (np.arange(H * W) // 7 % 2).reshape(H, W)
+        cases[f"digits {name}"] = tuple(torch.from_numpy(c.astype(np.int32)).to(dev) for c in
+                                        (kind, color, np.full((H, W), 35)))
+    return cases
+
+
+def _phase_3e(dev, tag: str) -> dict:
+    """Phase 3e: the device encode (csrc/ansi_encode.cu). The kernel's
+    stream against the plain version's on the card and the native C++
+    encoder's, in every `_encode_cases` case; two engines at 1920x500 x2
+    with shadows, graph and eager, frame by frame through spawns (a
+    capacity doubling) and mode switches: the same published bytes, equal
+    to the C++ encoder's on the frame's cells, one `encode.device` a
+    published frame, a capture for each mode and capacity; the kernel's
+    device time (a CUDA graph of 20 calls, the profiler's records of its
+    two kernels) at 1920x500 in 256 colours and in truecolor, beside its
+    bound and the plain version's time."""
+    import torch
+
+    from rtwc_tpu_torch.config import EngineConfig, RenderConfig, RenderMode
+    from rtwc_tpu_torch.engine import Engine
+    from rtwc_tpu_torch.heads import device_encode as DE
+    from rtwc_tpu_torch.io import FramebufferSink
+    from rtwc_tpu_torch.io.native import encode_frame_native
+    from rtwc_tpu_torch.scene import random_scene
+    from rtwc_tpu_torch.utils import telemetry
+
+    out = {"streams": {}}
+    cases = _encode_cases(dev)
+    for label, cells in cases.items():
+        buf, n = DE.encode_cells(*cells)
+        pbuf, pn = DE.encode_cells_plain(*cells)
+        torch.cuda.synchronize()
+        n, pn = int(n), int(pn)
+        host = [c.cpu().numpy() for c in cells]
+        want = encode_frame_native(*host)
+        got = bytes(buf[:n].cpu().numpy())
+        if not (n == pn == len(want) and torch.equal(buf[:n], pbuf[:n]) and got == want):
+            raise AssertionError(f"{label}: the kernel's stream ({n} B) differs from the plain "
+                                 f"version's ({pn} B) or the C++ encoder's ({len(want)} B)")
+        out["streams"][label] = n
+        print(f"phase 3e: {label}: the kernel's {n} B equal the plain version's and the C++ "
+              f"encoder's (bound {buf.numel()} B)")
+
+    hi = RenderConfig(width=1920, height=500, mode=RenderMode.BIT_PIXEL, supersample=2,
+                      shadows=True)
+    no_spawn = EngineConfig(spawn=False, show_fps=False, seed=1)
+    sinks = [FramebufferSink(keep_all=True) for _ in range(2)]
+    engines = [Engine(hi, no_spawn, scene=random_scene(100, seed=0), presenter=sink,
+                      interactive=False, device=dev, graph=graph)
+               for sink, graph in zip(sinks, (True, False))]
+    switches = {10: RenderMode.RGB_PIXEL, 20: RenderMode.BIT_ASCII, 30: RenderMode.RGB_ASCII,
+                40: RenderMode.RGB_NORMALS, 50: RenderMode.BIT_PIXEL}
+    spawns = (15, 35)
+    before = telemetry.counters().get("encode.device", 0)
+    copies = DE.LAUNCHES["ansi_copy"]
+    cap0 = engines[0].scene.spheres.capacity
+    n_frames = 60
+    for i in range(n_frames):
+        for e in engines:
+            if i in switches:
+                e.rcfg = e.rcfg.replace(mode=switches[i])
+            if i in spawns:
+                e._spawn()
+        frames = [e.device_frame(0.016) for e in engines]
+        downs = [e._start_download(f) for e, f in zip(engines, frames)]
+        for e, d in zip(engines, downs):
+            e._publish(d)
+        want = encode_frame_native(*(c.cpu().numpy() for c in frames[1].cells))
+        if not sinks[0].frames[-1] == sinks[1].frames[-1] == want:
+            raise AssertionError(f"engine frame {i} ({engines[0].rcfg.mode.value}): the graph's "
+                                 f"and the eager engine's bytes differ, or differ from the C++ "
+                                 f"encoder's on the same cells")
+    counted = telemetry.counters().get("encode.device", 0) - before
+    copies = DE.LAUNCHES["ansi_copy"] - copies
+    cap1 = engines[0].scene.spheres.capacity
+    disp = engines[0].display
+    grows = int(cap1 > cap0)
+    if not (counted == copies == 2 * n_frames and grows
+            and disp.captures == 1 + len(switches) + grows
+            and disp.replay_launches.get("ansi_encode") == 2
+            and "ansi_copy" not in disp.replay_launches):
+        raise AssertionError(f"encode.device {counted} and {copies} copies over {n_frames} "
+                             f"frames of two engines, capacity {cap0} -> {cap1}, captures "
+                             f"{disp.captures}, a replay launches {disp.replay_launches}")
+    print(f"phase 3e: {n_frames} frames of two engines at 1920x500 x2 shadows (graph, eager) "
+          f"through 5 mode switches and 2 spawns (capacity {cap0} -> {cap1}): published bytes "
+          f"equal, and equal to the C++ encoder's on the eager frame's cells; encode.device "
+          f"{counted}, copies {copies}; {disp.captures} captures; a replay launches "
+          f"{disp.replay_launches}")
+
+    for label, key in (("ansi256", "engine 1920x500 bit_pixel"),
+                       ("truecolor", "engine 1920x500 rgb_pixel")):
+        cells = cases[key]
+        n = out["streams"][key]
+        graph_ms, runs = _graph_ms(lambda: DE.encode_cells(*cells))
+        kernels_ms = _kernel_device_ms(lambda: DE.encode_cells(*cells), name="ansi_",
+                                       per_call=True)
+        plain_ms = _time_ms(lambda: DE.encode_cells_plain(*cells), reps=5, warm=1)
+        stream = DE.encode_cells(*cells)
+        host = (torch.empty(stream[0].numel(), dtype=torch.uint8, pin_memory=True),
+                torch.empty(1, dtype=torch.int64, pin_memory=True))
+        copy_ms = _kernel_device_ms(lambda: DE.copy_to_host(stream, *host), name="ansi_copy")
+        memcpy_ms = _kernel_device_ms(lambda: host[0].copy_(stream[0], non_blocking=True),
+                                      name="Memcpy")
+        DE.copy_to_host(stream, *host)
+        torch.cuda.synchronize()
+        if bytes(host[0][:n].numpy()) != bytes(stream[0][:n].cpu().numpy()) or int(host[1]) != n:
+            raise AssertionError(f"{key}: the copy kernel's host bytes differ from the stream")
+        nbytes = sum(c.numel() * c.element_size() for c in cells) + n
+        bound_ms = nbytes / 3.35e12 * 1e3
+        out[label] = {"graph_ms": graph_ms, "kernels_ms": kernels_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bytes": nbytes, "stream_bytes": n,
+                      "copy_ms": copy_ms, "bound_memcpy_ms": memcpy_ms}
+        print(f"phase 3e: encode {key}: device {kernels_ms!r} ms (its two kernels, profiler), "
+              f"graph {graph_ms!r} ms a call (runs {runs}); bound {bound_ms!r} ms (bytes: "
+              f"{nbytes / 1e6:.2f} MB, the cells read once and {n} B written); plain version "
+              f"{plain_ms!r} ms; the download: the copy kernel {copy_ms!r} ms for {n} B, a "
+              f"memcpy of the whole {stream[0].numel()} B bound {memcpy_ms!r} ms {tag}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2746,9 +2924,8 @@ def main() -> int:
     from rtwc_tpu_torch.camera import Camera, default_camera
     from rtwc_tpu_torch.config import EngineConfig, RenderConfig, RenderMode
     from rtwc_tpu_torch.engine import Engine
-    from rtwc_tpu_torch.engine.engine import (
-        _render_step, _start_download, resolve_device)
-    from rtwc_tpu_torch.heads import encode_frame
+    from rtwc_tpu_torch.engine.engine import _render_step, resolve_device
+    from rtwc_tpu_torch.utils import telemetry
     from rtwc_tpu_torch.io import FramebufferSink
     from rtwc_tpu_torch.render import _cuda, hard_kernel
     from rtwc_tpu_torch.render import pack as P
@@ -2764,9 +2941,11 @@ def main() -> int:
     from rtwc_tpu_torch.render import soft_kernel as SK
 
     from rtwc_tpu_torch.render import list_kernel as LK
+    from rtwc_tpu_torch.heads import device_encode as DE
 
     t0 = time.perf_counter()
-    names = ("hard_render", "soft_render", "soft_shadow", "calibrate", "broad_phase")
+    names = ("hard_render", "soft_render", "soft_shadow", "calibrate", "broad_phase",
+             "ansi_encode")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:  # one nvcc for each source, at once
         libs = dict(zip(names, pool.map(_cuda.build, names)))
     hard_kernel._kernel_fn()
@@ -2774,6 +2953,7 @@ def main() -> int:
         C._fn(fn_name)
     LK._fn("rtwc_tile_lists", 7, LK.ListParams)
     LK._fn("rtwc_entry_tables", 8, LK.EntryParams)
+    DE._fn()
     print(f"phase 1: built {', '.join(os.path.relpath(v, ROOT) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_cuda.build_seconds[k]:.2f} s" for k in libs)
@@ -3136,9 +3316,13 @@ def main() -> int:
         eng = Engine(rcfg, ecfg, scene=scene, presenter=sink, interactive=False, device=dev)
         if force_spawn:
             eng.telemetry.interval = 0.0
+        encoded = telemetry.counters().get("encode.device", 0)
         eng.run(max_frames=n)
         if eng.display is None:
             raise AssertionError("the engine on the card did not take the display graph")
+        encoded = telemetry.counters().get("encode.device", 0) - encoded
+        if encoded != n:
+            raise AssertionError(f"{encoded} of {n} published frames encoded on the card")
         counted[0] += 2 * eng.display.captures
         if len(sink.frames) != n:
             raise AssertionError(f"{rcfg.width}x{rcfg.height}: {len(sink.frames)} frames of {n}")
@@ -3178,6 +3362,8 @@ def main() -> int:
         raise AssertionError(f"K7 launched {launches} times for {counted[0] // 2} captures")
 
     lap("3")
+    p3e = _phase_3e(dev, f"[{card}]")
+    lap("3e")
 
     # -- phase 3b: the train paths, counted -------------------------------------
     def reset_soft():
@@ -3407,8 +3593,9 @@ def main() -> int:
         print(f"phase 5: engine {label}: {fps!r} frames/s, {rps!r} rays/s {tag}")
 
     # per-frame host breakdown: enqueue of the device step (a replay of the
-    # frame's CUDA graph, or the same launches eagerly), wait for the frame's
-    # cells, encode
+    # frame's CUDA graph, or the same launches eagerly, the encode included)
+    # and the download, wait for the frame's stream, the host's part of the
+    # encode (the length's read and the bytes' copy)
     for label, rcfg, scene_fn, graph in (
             ("400x150", RenderConfig(width=400, height=150, mode=RenderMode.RGB_ASCII),
              lambda: default_scene(RenderConfig(), device=dev), True),
@@ -3426,12 +3613,12 @@ def main() -> int:
         prev = None
         for i in range(45):
             t0 = time.perf_counter()
-            cur = _start_download(eng.device_frame(0.016))
+            cur = eng._start_download(eng.device_frame(0.016))
             t1 = time.perf_counter()
             if prev is not None:
-                prev[1].synchronize()
+                prev.event.synchronize()
                 t2 = time.perf_counter()
-                encode_frame(*(c.numpy() for c in prev[0]))
+                eng._frame_bytes(prev)
                 t3 = time.perf_counter()
                 if i >= 5:
                     parts["enqueue"].append(t1 - t0)
@@ -3440,7 +3627,7 @@ def main() -> int:
             prev = cur
         med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
         print(f"phase 5: frame breakdown {label}: host enqueue {med['enqueue']!r} ms, "
-              f"wait for cells {med['wait']!r} ms, encode {med['encode']!r} ms {tag}")
+              f"wait for the stream {med['wait']!r} ms, bytes {med['encode']!r} ms {tag}")
 
     # device busy share over a steady window of engine frames
     from torch.profiler import ProfilerActivity, profile
@@ -3800,7 +3987,7 @@ def main() -> int:
             raise AssertionError(f"a replay of the {label} step launches {got}, an eager step "
                                  f"{per_path[label]}")
     for label, got in (("1920x500 x2", p8["display_replay"]), ("1920x1080", frame_launches)):
-        if got != {"hard_render": 1, "tile_lists": 1}:
+        if got != {"hard_render": 1, "tile_lists": 1, "ansi_encode": 2}:
             raise AssertionError(f"a replay of the {label} display frame launches {got}")
 
     # -- the kernels line: every kernel with its bound ---------------------------

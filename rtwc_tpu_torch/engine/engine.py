@@ -6,33 +6,40 @@ frame it polls input, moves the camera on the host, runs `_render_step`
 the previous frame's encoded bytes to the presenter; once per second it
 publishes FPS and spawns a random sphere.
 
-Keeping frame k+1 in flight while frame k is encoded: JAX gets this from
-async dispatch. Here each frame's cells are copied into pinned host
-buffers with `copy_(non_blocking=True)` and a CUDA event is recorded after
-the copies; `_publish` waits on that frame's event only, so frame k+1's
-kernels, queued before frame k is encoded, keep the card busy meanwhile.
-The scene stays on the device between frames; the camera pose stays on
-the host and reaches the device once per frame as the packed [1, 16]
-vector.
+Where a frame's cells lie on a CUDA device, the frame ends in the encode
+of its ANSI stream on the card (heads/device_encode.py): a copy kernel,
+which reads the stream's length on the card, writes its bytes and the
+length into the next of two pinned host buffers, and a CUDA event is
+recorded after it. Cells on the host (a CPU device) are encoded by the
+host encoder, `encode_frame` (the native C++ loop), after the frame.
+Keeping frame k+1 in flight while frame k is published: JAX gets this
+from async dispatch; here `_publish` waits on frame k's event only, so
+frame k+1's kernels, queued before, keep the card busy meanwhile. The
+scene stays on the device between frames; the camera pose stays on the
+host and reaches the device once per frame as the packed [1, 16] vector.
 
 JAX runs the frame's physics, pack, lists, K7, downsample and cells as one
 jitted, donated step (rtwc_tpu/engine/engine.py:54-62). On a CUDA device
-the kernel renderer's step (`_device_step`) is captured once as a CUDA
-graph over static scene buffers and replayed every frame (`DisplayGraph`):
-the camera vector and dt are copied into device buffers before each
-replay, a spawn writes into the static buffers in place, and a capacity
-doubling or a mode change re-captures. `Engine(graph=False)` queues the
-same launches eagerly; the two give the same cells bit for bit.
+the kernel renderer's step (`_device_step`, the encode included) is
+captured once as a CUDA graph over static scene buffers and replayed
+every frame (`DisplayGraph`): the camera vector and dt are copied into
+device buffers before each replay, a spawn writes into the static buffers
+in place, and a capacity doubling or a mode change re-captures.
+`Engine(graph=False)` queues the same launches eagerly; the two give the
+same cells and bytes bit for bit.
 
 Under a torch profiler a frame is the span `frame`, with `frame.input`,
 `frame.enqueue` (the step and the download's start), `frame.wait` (the
-event), `encode`, `frame.present` and, once a second, `frame.spawn`
-inside it (utils/telemetry.py); each publish and each scene read of a
-spawn adds one to the counter `host_reads`.
+event), `encode` (on the card path the length's read and the bytes'
+copy; for host cells the host encoder), `frame.present` and, once a
+second, `frame.spawn` inside it (utils/telemetry.py); each publish and
+each scene read of a spawn adds one to the counter `host_reads`, and each
+published frame that the card encoded one to `encode.device`.
 """
 from __future__ import annotations
 
 import logging
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +47,7 @@ import torch
 from rtwc_tpu_torch.camera import Camera, add_rot, default_camera, move
 from rtwc_tpu_torch.config import EngineConfig, RenderConfig
 from rtwc_tpu_torch.heads import encode_frame, framebuffer_to_cells
+from rtwc_tpu_torch.heads.device_encode import copy_to_host, encode_cells
 from rtwc_tpu_torch.io import ConsolePresenter, InputHandler
 from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render.hard_kernel import render_frame_kernel, render_frame_packed
@@ -85,6 +93,21 @@ def _pick_renderer(config: RenderConfig):
     raise ValueError(f"renderer must be one of {RENDERERS}, got {config.renderer!r}")
 
 
+class Frame(NamedTuple):
+    """A frame on its device: the cells (kind, color, char) and, where they
+    lie on a CUDA device, their ANSI stream encoded there, (bytes [bound]
+    uint8, length [1] int64); None for cells on the host."""
+
+    cells: tuple
+    stream: tuple | None
+
+
+def _card_stream(cells):
+    """The cells' stream encoded on the card where they lie on a CUDA
+    device; None for host cells, which the host encodes after the frame."""
+    return encode_cells(*cells) if cells[0].device.type == "cuda" else None
+
+
 @torch.no_grad()
 def _render_step(scene: Scene, camera: Camera, dt: float, config: RenderConfig):
     """One device step: physics + render (+ AA downsample) + mode head.
@@ -97,13 +120,15 @@ def _render_step(scene: Scene, camera: Camera, dt: float, config: RenderConfig):
 
 @torch.no_grad()
 def _device_step(scene: Scene, cam: torch.Tensor, dt: torch.Tensor, config: RenderConfig):
-    """_render_step on the kernel renderer from device values alone: the
-    packed camera cam [1, 16] and the time step dt [1] f32 on the scene's
-    device. Nothing reads the host, so it can be captured as a CUDA graph."""
+    """_render_step on the kernel renderer from device values alone, ending
+    in the encode on a CUDA device: the packed camera cam [1, 16] and the
+    time step dt [1] f32 on the scene's device. Returns (scene, Frame).
+    Nothing reads the host, so it can be captured as a CUDA graph."""
     scene = update_scene(scene, dt, config.bob_min_y, config.bob_max_y)
     fb = render_frame_packed(scene, cam, supersampled_config(config))
     fb = downsample_framebuffer(fb, config.supersample)
-    return scene, framebuffer_to_cells(fb, config)
+    cells = framebuffer_to_cells(fb, config)
+    return scene, Frame(cells, _card_stream(cells))
 
 
 def _leaves(scene: Scene):
@@ -114,11 +139,12 @@ def _leaves(scene: Scene):
 class DisplayGraph:
     """`_device_step` as one CUDA graph over static buffers: the scene's
     tensors (the graph writes the physics tick back into them), the camera
-    vector and dt. The first frame of a config is an eager step on a side
-    stream (it fills the heads' cached tables), then the step is captured;
-    every later frame of that config replays it. `replay_launches` holds the
-    kernel launches a replay makes, counted at capture; `captures` counts
-    the captures."""
+    vector and dt; its outputs are the cells and the encoded stream and its
+    length, sized for the mode. The first frame of a config is an eager
+    step on a side stream (it fills the heads' cached tables), then the
+    step is captured; every later frame of that config replays it.
+    `replay_launches` holds the kernel launches a replay makes, counted at
+    capture; `captures` counts the captures."""
 
     def __init__(self, scene: Scene):
         self.scene = scene
@@ -129,7 +155,7 @@ class DisplayGraph:
         self.captures = 0
         self._graph = None
         self._config = None
-        self._cells = None
+        self._frame = None
 
     def load_scene(self, scene: Scene) -> None:
         """Make `scene` the step's scene: copied into the static buffers in
@@ -143,40 +169,57 @@ class DisplayGraph:
         else:
             self.scene, self._graph = scene, None
 
-    def _step(self, config: RenderConfig):
-        scene, cells = _device_step(self.scene, self.cam, self.dt, config)
+    def _step(self, config: RenderConfig) -> Frame:
+        scene, frame = _device_step(self.scene, self.cam, self.dt, config)
         for a, b in zip(_leaves(self.scene), _leaves(scene)):
             if a is not b:
                 a.copy_(b)
-        return cells
+        return frame
 
     @torch.no_grad()
-    def frame(self, cam_host: torch.Tensor, dt: float, config: RenderConfig):
+    def frame(self, cam_host: torch.Tensor, dt: float, config: RenderConfig) -> Frame:
         """One frame: cam_host [1, 16] (the packed camera on the host) and dt
-        into the device buffers, then the step. Returns the cells, buffers
+        into the device buffers, then the step. Returns the Frame, buffers
         the next frame overwrites."""
         self.cam.copy_(cam_host.pin_memory(), non_blocking=True)
         self.dt.fill_(dt)
         if self._graph is not None and config == self._config:
             self._graph.replay()
-            return self._cells
+            return self._frame
         self._graph, self._config = None, config
-        cells, self._graph, self._cells, self.replay_launches = warm_and_capture(
+        frame, self._graph, self._frame, self.replay_launches = warm_and_capture(
             lambda: self._step(config), lambda: self._step(config), self.cam.device)
         self.captures += 1
-        return cells
+        return frame
 
 
-def _start_download(cells):
-    """Start the D2H copy of a frame's cells. Returns (host tensors, event);
-    the event is None when the cells already live on the host."""
-    if cells[0].device.type == "cpu":
-        return cells, None
-    host = tuple(torch.empty(c.shape, dtype=c.dtype, pin_memory=True).copy_(c, non_blocking=True)
-                 for c in cells)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
+class Download(NamedTuple):
+    """A frame on its way to the host: its host cells (cells on the host),
+    or its stream's pinned host copy (bytes, length); the event after the
+    copies (None for host cells)."""
+
+    cells: tuple | None
+    stream: tuple | None
+    event: object
+
+
+class _PinnedPair:
+    """Two pinned host buffers for the stream and its length, used in turn:
+    one for the frame in flight, one for the frame being published. A
+    buffer grows (it is made anew) when a stream's bound outgrows it."""
+
+    def __init__(self):
+        self._bufs = [None, None]
+        self._turn = 0
+
+    def next(self, nbytes: int) -> tuple:
+        self._turn ^= 1
+        buf = self._bufs[self._turn]
+        if buf is None or buf[0].numel() < nbytes:
+            buf = self._bufs[self._turn] = (
+                torch.empty(nbytes, dtype=torch.uint8, pin_memory=True),
+                torch.empty(1, dtype=torch.int64, pin_memory=True))
+        return buf
 
 
 class Engine:
@@ -211,7 +254,8 @@ class Engine:
         self.telemetry = Telemetry(update_interval_s=self.ecfg.fps_update_interval_s)
         self._rng = np.random.default_rng(self.ecfg.seed)
         self._should_quit = False
-        self._pending = None  # (host cells, event) of the in-flight frame
+        self._pending = None  # the in-flight frame's Download
+        self._pinned = _PinnedPair()
         if graph:
             self.display = DisplayGraph(self._scene)
 
@@ -245,7 +289,7 @@ class Engine:
             # Queue this frame's device work and its download, then encode and
             # publish the previous frame while the device runs.
             with span("frame.enqueue"):
-                pending = _start_download(self.device_frame(dt))
+                pending = self._start_download(self.device_frame(dt))
             prev, self._pending = self._pending, pending
             if prev is not None:
                 self._publish(prev)
@@ -269,19 +313,19 @@ class Engine:
             self.camera = add_rot(self.camera, dp, dy, 0.0, self.rcfg.mouse_sensitivity)
         self.camera = move(self.camera, state.keys, dt, self.rcfg.move_speed)
 
-    def device_frame(self, dt: float):
-        """Queue one frame's device step at time step dt; returns its cells
+    def device_frame(self, dt: float) -> Frame:
+        """Queue one frame's device step at time step dt; returns its Frame
         on the device (on the graph path, buffers the next frame overwrites)."""
         dt = float(np.float32(dt))
         if self.display is not None:
             return self.display.frame(P.pack_camera(self.camera), dt, self.rcfg)
         if self.rcfg.renderer == "reference":
             self.scene, cells = _render_step(self.scene, self.camera, dt, self.rcfg)
-            return cells
+            return Frame(cells, _card_stream(cells))
         cam = P.pack_camera(self.camera, self.device)
         dt_t = torch.full((1,), dt, dtype=torch.float32, device=self.device)
-        self.scene, cells = _device_step(self.scene, cam, dt_t, self.rcfg)
-        return cells
+        self.scene, frame = _device_step(self.scene, cam, dt_t, self.rcfg)
+        return frame
 
     @property
     def scene(self) -> Scene:
@@ -308,16 +352,37 @@ class Engine:
                 log.info("scene grown to %d sphere slots", self.scene.spheres.capacity)
             self.scene = spawn_random_sphere(self.scene, self._rng)
 
-    def _publish(self, frame) -> None:
-        """Wait for a frame's download (one host read), encode it and hand
-        it to the presenter."""
-        host, event = frame
+    def _start_download(self, frame: Frame) -> Download:
+        """Start a frame's copy to the host: its stream's bytes and length
+        into the next pinned pair (heads/device_encode.py `copy_to_host`:
+        the copy reads the length on the card), then an event; host cells
+        need no copy."""
+        if frame.stream is None:
+            return Download(frame.cells, None, None)
+        host = self._pinned.next(frame.stream[0].numel())
+        copy_to_host(frame.stream, *host)
+        event = torch.cuda.Event()
+        event.record()
+        return Download(None, host, event)
+
+    def _frame_bytes(self, down: Download) -> bytes:
+        """A downloaded frame's bytes: the stream's first `length` bytes, or
+        the host cells through the host encoder."""
+        if down.stream is None:
+            return encode_frame(*(c.numpy() for c in down.cells))
+        count("encode.device")
+        with span("encode"):
+            host_buf, host_n = down.stream
+            return host_buf.numpy()[:int(host_n.numpy()[0])].tobytes()
+
+    def _publish(self, down: Download) -> None:
+        """Wait for a frame's download (one host read), take its bytes and
+        hand them to the presenter."""
         with span("frame.wait"):
-            if event is not None:
-                event.synchronize()
+            if down.event is not None:
+                down.event.synchronize()
         count("host_reads")
-        kind, color, char = (c.numpy() for c in host)
-        data = encode_frame(kind, color, char)
+        data = self._frame_bytes(down)
         with span("frame.present"):
             self.presenter.set_data_in_back_buffer(data)
 

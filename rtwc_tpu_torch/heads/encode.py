@@ -6,7 +6,8 @@ imports JAX). Same byte contract: an escape only where (kind, colour)
 changes from the previous cell in row-major order, bare glyphs otherwise,
 one '\\n' per row. The native C++ encoder (io/native.py, built from the
 JAX package's ansi_encoder.cpp) is preferred; this NumPy version is the
-fallback and the reference for tests.
+fallback and the reference for tests. These encode cells on the host;
+cells on a CUDA device are encoded there (heads/device_encode.py).
 """
 from __future__ import annotations
 

@@ -527,7 +527,9 @@ def test_engine_device_step_equals_render_step():
             eng._spawn()
             assert eng.scene.spheres.capacity == 2 * scene.spheres.capacity
             scene = eng.scene
-        cells = eng.device_frame(0.05)
+        frame = eng.device_frame(0.05)
+        assert frame.stream is None  # cells on the host: the host encodes them
+        cells = frame.cells
         scene, want = _render_step(scene, eng.camera, 0.05, rcfg)
         assert all(torch.equal(a, b) for a, b in zip(cells, want)), i
         assert torch.equal(eng.scene.spheres.center, scene.spheres.center)
