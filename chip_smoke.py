@@ -2657,7 +2657,8 @@ def _phase_9(tag: str) -> dict:
     scaling entry point spawned as one NCCL rank and under torchrun (exit
     0, one CUDA graph a step, ms a step); `--ranks 2 --dist-backend nccl`,
     refused on one card with initialize_multihost's message, run and held
-    bit-equal on two or more. Returns the launches of each NCCL graph run
+    bit-equal on two or more; `--ranks 4` likewise on four or more, a card
+    a rank. Returns the launches of each NCCL graph run
     by kernel."""
     import torch
 
@@ -2684,9 +2685,10 @@ def _phase_9(tag: str) -> dict:
             "torchrun": ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
                          "-m", "rtwc_tpu_torch.benchmarks.scaling"]}
     cards = torch.cuda.device_count()
-    if cards >= 2:
-        runs["2 ranks"] = ["-m", "rtwc_tpu_torch.benchmarks.scaling", "--ranks", "2",
-                           "--sizes", "2"]
+    for n in (2, 4):
+        if cards >= n:
+            runs[f"{n} ranks"] = ["-m", "rtwc_tpu_torch.benchmarks.scaling", "--ranks", str(n),
+                                  "--sizes", str(n)]
     res["scaling"] = {}
     for label, argv in runs.items():
         cmd = [sys.executable] + argv + ["--dist-backend", "nccl", "--iters", "10"]

@@ -134,6 +134,7 @@ def _worker(args) -> int:
     import torch
 
     from rtwc_tpu_torch.dist import initialize_multihost
+    from rtwc_tpu_torch.dist.multihost import shutdown_multihost
 
     if args.device == "cpu":
         torch.set_num_threads(1)
@@ -142,7 +143,7 @@ def _worker(args) -> int:
     res = run_rank(args, args.device)
     print(f"LOSS {res['losses'][-1]}", flush=True)
     print("RANK " + json.dumps(dict(res, rank=args.rank)), flush=True)
-    torch.distributed.destroy_process_group()
+    shutdown_multihost()
     return 0
 
 
@@ -214,7 +215,7 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from rtwc_tpu_torch.dist import initialize_multihost
-    from rtwc_tpu_torch.dist.multihost import check_card_a_rank
+    from rtwc_tpu_torch.dist.multihost import check_card_a_rank, shutdown_multihost
 
     rays = args.width * args.height
     try:
@@ -227,7 +228,7 @@ def main(argv=None) -> int:
         world, rank = dist.get_world_size(), dist.get_rank()
         recs = [None] * world
         dist.all_gather_object(recs, run_rank(args, device))
-        dist.destroy_process_group()
+        shutdown_multihost()
         if rank != 0:
             return 0
         rows = [_row(world, recs, rays)]

@@ -4,7 +4,7 @@ from rtwc_tpu_torch.dist.mesh import (
     render_frame_sharded,
     make_sharded_train_step,
 )
-from rtwc_tpu_torch.dist.multihost import initialize_multihost
+from rtwc_tpu_torch.dist.multihost import initialize_multihost, shutdown_multihost
 
 __all__ = [
     "TILE_AXIS",
@@ -12,4 +12,5 @@ __all__ = [
     "render_frame_sharded",
     "make_sharded_train_step",
     "initialize_multihost",
+    "shutdown_multihost",
 ]

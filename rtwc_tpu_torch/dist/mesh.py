@@ -55,6 +55,7 @@ from rtwc_tpu_torch.render.soft_kernel import soft_band_mse_loss, soft_band_pack
 from rtwc_tpu_torch.render.softmin import trace_soft
 from rtwc_tpu_torch.render.step_graph import CapturedCall, card_adam
 from rtwc_tpu_torch.scene import Planes, Scene, Spheres, update_scene
+from rtwc_tpu_torch.utils.telemetry import count, span
 
 TILE_AXIS = "tiles"
 # Per-sub-band cap on the plain soft renderer's [rows, W, n_obj, 3] shading
@@ -402,6 +403,12 @@ def make_sharded_train_step(
     step's own leaves (or on the device) and dt is a float or a device
     tensor.
 
+    Telemetry (utils/telemetry.py): under a torch profiler a step is the
+    span `dist.step` on the host, and gloo's eager all-reduce inside it
+    `dist.allreduce`; with a process group every step counts
+    `dist.allreduces` (one) and `dist.allreduce_bytes` (the flat buffer's
+    bytes), from the buffer's size on the host.
+
     optimizer: a function of the named leaf tensors ({"spheres.center": t,
     ...}) to a torch.optim.Optimizer over the leaves it trains (default:
     Adam at lr 1e-2 over every leaf, as optax.adam(1e-2); on a CUDA device
@@ -502,7 +509,10 @@ def make_sharded_train_step(
         return st
 
     def step(params, opt_state: TrainState, target, dt=0.0):
-        st = opt_state
+        with span("dist.step"):
+            return _step(params, opt_state, target, dt)
+
+    def _step(params, st: TrainState, target, dt):
         with torch.no_grad():
             for k, v in _leaves(params).items():
                 if not _same(st.leaves[k], v):
@@ -522,9 +532,13 @@ def make_sharded_train_step(
                 else:
                     st.dt.fill_(float(np.float32(dt)))
         key = (st.target.shape, st.target.data_ptr())
+        if mesh.group is not None:
+            count("dist.allreduces")
+            count("dist.allreduce_bytes", st.flat.numel() * st.flat.element_size())
         st.phases[0](key)
         if len(st.phases) == 2:
-            _all_reduce(st.flat)
+            with span("dist.allreduce"):
+                _all_reduce(st.flat)
             st.phases[1](key)
         if not st.opt_in_graph:
             st.optimizer.step()

@@ -9,6 +9,8 @@ RANK.
 """
 from __future__ import annotations
 
+import datetime
+import gc
 import logging
 import os
 
@@ -34,6 +36,7 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
     backend: str | None = None,
+    timeout: float | None = None,
 ) -> bool:
     """Initialise torch.distributed's default group when this process is
     one of several. Returns False, doing nothing, when no coordinator is
@@ -46,6 +49,12 @@ def initialize_multihost(
     refused, with a ValueError, when this host's ranks (LOCAL_WORLD_SIZE,
     else all of them) outnumber its cards; ranks sharing a card use gloo,
     whose collectives take CUDA tensors through the host.
+
+    timeout: seconds that the join, and later every collective outside a
+    CUDA graph, may wait for the other ranks before it raises (None:
+    torch.distributed's default). With NCCL the rank's card is made the
+    current device before the group is made, so the communicator is
+    bound to it.
     """
     if dist.is_initialized():
         return True
@@ -62,7 +71,28 @@ def initialize_multihost(
         torch.cuda.set_device(int(env.get("LOCAL_RANK", rank % cards)))
     # env:// joins the store torchrun's agent may already host at MASTER_PORT
     init = "env://" if coordinator_address is None else f"tcp://{coordinator_address}"
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=float(timeout))}
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank, **kw)
     log.info("multihost: rank %d/%d, backend %s", dist.get_rank(), dist.get_world_size(),
              dist.get_backend())
     return True
+
+
+def shutdown_multihost() -> None:
+    """Leave torch.distributed's default group, after the CUDA graphs that
+    captured its collectives are gone. A step or frame that is no longer
+    referenced sits in a reference cycle with its graph until the cyclic
+    collector runs, and under NCCL a live graph that captured a collective
+    can keep the group's shutdown waiting. So: render_frame_sharded's
+    cached frame graphs dropped, a collection, the device waited for, then
+    destroy_process_group. Every rank calls it at about the same time
+    (NCCL pairs the ranks' shutdowns). Does nothing without a group."""
+    if not dist.is_initialized():
+        return
+    from rtwc_tpu_torch.dist import mesh
+
+    mesh._frame_graph.cache_clear()
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()

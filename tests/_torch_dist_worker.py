@@ -10,6 +10,11 @@ the all-reduce count and sizes, and the whole frame that
 render_frame_sharded gathers from the ranks' bands (K7's plain version)
 to out.npz.
 
+With <layout> "tick" it takes one SGD step of the animated shadowed
+step (the physics tick of DT inside the step) on random_scene(6) under a
+torch profiler, and saves the loss, the gradients, the parameters, the
+target, the program's span names and its dist.* counters' change.
+
 With <layout> ("split" or "one") it sets the layout of the step and the
 frame instead (dist.mesh._collective_in_graph, which picks "one" for NCCL
 on a CUDA device; here the collectives run eagerly through gloo) and
@@ -25,6 +30,50 @@ import torch
 import torch.distributed as dist
 
 LR = 2.0 ** 16
+DT = 1.0 / 60.0
+TICK_SHIFT = (0.7, -0.4, 0.3)
+
+
+def tick_case():
+    """The animated case's config, start scene, camera and target (the soft
+    render of the start with its centres shifted by TICK_SHIFT, ticked)."""
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.config import RenderConfig
+    from rtwc_tpu_torch.render import render_frame_soft
+    from rtwc_tpu_torch.scene import random_scene, update_scene
+
+    cfg = RenderConfig(width=64, height=32, max_spheres=6, max_planes=4,
+                       soft_miss_penalty=300.0, soft_mask_k=10.0, shadows=True)
+    scene, cam = random_scene(6, max_spheres=6, max_planes=4, seed=0, spread=12.0), \
+        default_camera()
+    true = scene.replace(spheres=scene.spheres.replace(
+        center=scene.spheres.center + torch.tensor(TICK_SHIFT)))
+    target = render_frame_soft(update_scene(true, DT, cfg.bob_min_y, cfg.bob_max_y), cam, cfg,
+                               tau=0.5).rgb.detach()
+    return cfg, scene, cam, target
+
+
+def _tick_run(out):
+    from rtwc_tpu_torch.dist import make_mesh, make_sharded_train_step
+    from rtwc_tpu_torch.dist.mesh import _leaves
+    from rtwc_tpu_torch.utils import telemetry
+
+    cfg, scene, cam, target = tick_case()
+    step = make_sharded_train_step(
+        cfg, make_mesh(), tau=0.5, backend="pallas", animate=True,
+        optimizer=lambda leaves: torch.optim.SGD(list(leaves.values()), lr=LR))
+    params = (scene, cam)
+    state = step.init(params)
+    before = telemetry.counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        new, _, loss = step(params, state, target, DT)
+    after = telemetry.counters()
+    old_l, new_l = _leaves(params), _leaves(new)
+    np.savez(out, loss=loss.numpy(), target=target.numpy(),
+             spans=np.asarray(sorted({n for n, _, _ in telemetry.recorded()["spans"]})),
+             **{f"count.{k}": after[k] - before.get(k, 0) for k in after if k.startswith("dist.")},
+             **{f"grad.{k}": ((old_l[k] - new_l[k]) / LR).numpy() for k in old_l},
+             **{f"param.{k}": v.numpy() for k, v in new_l.items()})
 
 
 def _layout_run(layout, cfg, scene, cam, target, backend, sizes, out):
@@ -86,6 +135,10 @@ def main() -> int:
         return all_reduce(tensor, *args, **kwargs)
 
     dist.all_reduce = counted
+    if layout == "tick":
+        _tick_run(out)
+        dist.destroy_process_group()
+        return 0
     if layout is not None:
         _layout_run(layout, cfg, scene, cam, target, backend, sizes, out)
         dist.destroy_process_group()
