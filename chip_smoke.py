@@ -6,8 +6,8 @@
 Phases (each prints its lines; any failure raises and exits non-zero):
   0  card name and power limit (nvidia-smi), torch and CUDA versions
   1  build csrc/hard_render.cu, csrc/soft_render.cu, csrc/soft_shadow.cu,
-     csrc/calibrate.cu, csrc/broad_phase.cu and csrc/ansi_encode.cu with
-     nvcc for sm_90a, one nvcc each, all at once;
+     csrc/calibrate.cu, csrc/broad_phase.cu, csrc/ansi_encode.cu and
+     csrc/cell_heads.cu with nvcc for sm_90a, one nvcc each, all at once;
      print build times and each kernel's ptxas registers and spills
   2  the K7 kernel against its plain torch version on the card, on the
      same packed tables and broad-phase lists: planes bit-equal
@@ -61,6 +61,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      engines at 1920x500 x2 publishing the same bytes, the C++ encoder's
      on the same cells, through spawns and mode switches that re-capture;
      the kernel's device time beside its bound and the plain version's
+  3h the heads kernel (csrc/cell_heads.cu): its cells against the plain
+     version's (the engine's torch heads) on the same K7 planes, 1920x500
+     x2 with shadows, 400x150 x1, 401x151 x3 and 320x100 x4, all five
+     modes: kind, colour and char equal; graph and eager engines at 1920x500 x2 through mode switches:
+     the same cells and bytes, one `heads.device` a published frame, one
+     launch a replay; the kernel's device time beside its bound and the
+     plain version's, in bit_pixel and rgb_pixel
   3b the train paths, counted: an in-process fit whose K1 / K2 launches
      must equal its steps; `python -m rtwc_tpu_torch.examples.inverse_render`
      in process at 1920x1080 with 20 spheres (generic path: K1, K2, the
@@ -2400,7 +2407,7 @@ def _phase_8(dev, tag):
         if i in (20, 35):  # a capacity doubling, then a spawn into the grown scene
             for e in engines:
                 e._spawn()
-        (cells_g, (buf_g, n_g)), (cells_e, (buf_e, n_e)) = [e.device_frame(0.016)
+        (cells_g, (buf_g, n_g)), (cells_e, (buf_e, n_e)) = [e.device_frame(0.016)[:2]
                                                             for e in engines]
         n = int(n_e)
         if not (all(torch.equal(a, b) for a, b in zip(cells_g, cells_e))
@@ -2896,6 +2903,109 @@ def _phase_3e(dev, tag: str) -> dict:
     return out
 
 
+def _phase_3h(dev, tag: str) -> dict:
+    """Phase 3h: the heads kernel (csrc/cell_heads.cu). Its cells against
+    the plain version's (the engine's torch heads) on the same K7 planes of
+    random_scene(100) with shadows, in all five modes at 1920x500 x2,
+    400x150 x1, 401x151 x3 and 320x100 x4 (the general path): kind, colour
+    and char equal (the cells whose colour differs counted); a graph and an
+    eager engine at 1920x500 x2 through mode switches: the same cells and
+    bytes, one `heads.device` a published frame, one launch a replay; the
+    kernel's device time (profiler records, and a CUDA graph of 20 calls)
+    beside its bound and the plain version's (a CUDA graph of 20 chains),
+    in bit_pixel and rgb_pixel."""
+    import torch
+
+    from rtwc_tpu_torch.camera import default_camera
+    from rtwc_tpu_torch.config import EngineConfig, RenderConfig, RenderMode
+    from rtwc_tpu_torch.engine import Engine
+    from rtwc_tpu_torch.heads import device_heads as DH
+    from rtwc_tpu_torch.io import FramebufferSink
+    from rtwc_tpu_torch.render import hard_kernel as HK
+    from rtwc_tpu_torch.render import pack as P
+    from rtwc_tpu_torch.render.reference import supersampled_config
+    from rtwc_tpu_torch.scene import random_scene
+    from rtwc_tpu_torch.utils import telemetry
+
+    modes = (RenderMode.BIT_ASCII, RenderMode.BIT_PIXEL, RenderMode.RGB_ASCII,
+             RenderMode.RGB_PIXEL, RenderMode.RGB_NORMALS)
+    scene = random_scene(100, seed=0, device=dev)
+    cam = P.pack_camera(default_camera(), dev)
+    out = {"color_diffs": {}}
+    planes = {}
+    for w, h, ss in ((1920, 500, 2), (400, 150, 1), (401, 151, 3), (320, 100, 4)):
+        cfg = RenderConfig(width=w, height=h, supersample=ss, shadows=True)
+        planes[(w, h, ss)] = HK.render_planes_packed(scene, cam, supersampled_config(cfg))
+        for mode in modes:
+            cfg = cfg.replace(mode=mode)
+            got = DH.cells_from_planes(planes[(w, h, ss)], cfg)
+            want = DH.cells_from_planes_plain(planes[(w, h, ss)], cfg)
+            torch.cuda.synchronize()
+            diff = got[1] != want[1]
+            n = int((diff.any(-1) if diff.dim() == 3 else diff).sum())
+            label = f"{mode.value} {w}x{h} x{ss}"
+            out["color_diffs"][label] = n
+            kind_off = int((got[0] != want[0]).sum())
+            char_off = int((got[2] != want[2]).sum())
+            print(f"phase 3h: {label}: kind {kind_off}, char {char_off} and colour {n} of "
+                  f"{w * h} cells differ from the plain version's")
+            if kind_off or char_off or n:
+                raise AssertionError(f"{label}: the heads kernel's cells differ from the plain "
+                                     f"version's: kind {kind_off}, char {char_off}, colour {n}")
+
+    hi = RenderConfig(width=1920, height=500, mode=RenderMode.BIT_PIXEL, supersample=2,
+                      shadows=True)
+    no_spawn = EngineConfig(spawn=False, show_fps=False, seed=1)
+    sinks = [FramebufferSink(keep_all=True) for _ in range(2)]
+    engines = [Engine(hi, no_spawn, scene=random_scene(100, seed=0), presenter=sink,
+                      interactive=False, device=dev, graph=graph)
+               for sink, graph in zip(sinks, (True, False))]
+    switches = {5: RenderMode.RGB_PIXEL, 10: RenderMode.BIT_ASCII, 15: RenderMode.RGB_ASCII,
+                20: RenderMode.RGB_NORMALS, 25: RenderMode.BIT_PIXEL}
+    before = telemetry.counters().get("heads.device", 0)
+    n_frames = 30
+    for i in range(n_frames):
+        for e in engines:
+            if i in switches:
+                e.rcfg = e.rcfg.replace(mode=switches[i])
+        frames = [e.device_frame(0.016) for e in engines]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(frames[0].cells, frames[1].cells))
+        for e, f in zip(engines, frames):
+            e._publish(e._start_download(f))
+        if not (same and sinks[0].frames[-1] == sinks[1].frames[-1]):
+            raise AssertionError(f"engine frame {i} ({engines[0].rcfg.mode.value}): the graph's "
+                                 f"cells or bytes differ from the eager engine's")
+    counted = telemetry.counters().get("heads.device", 0) - before
+    disp = engines[0].display
+    if counted != 2 * n_frames or disp.replay_launches.get("cell_heads") != 1:
+        raise AssertionError(f"heads.device {counted} over {n_frames} frames of two engines, a "
+                             f"replay launches {disp.replay_launches}")
+    print(f"phase 3h: {n_frames} frames of two engines at 1920x500 x2 shadows (graph, eager) "
+          f"through 5 mode switches: cells and bytes equal; heads.device {counted}; "
+          f"{disp.captures} captures; a replay launches {disp.replay_launches}")
+
+    for mode in (RenderMode.BIT_PIXEL, RenderMode.RGB_PIXEL):
+        cfg = hi.replace(mode=mode)
+        pl = planes[(1920, 500, 2)]
+        cells = DH.cells_from_planes(pl, cfg)
+        device_ms = _kernel_device_ms(lambda: DH.cells_from_planes(pl, cfg), name="cell_heads")
+        graph_ms, runs = _graph_ms(lambda: DH.cells_from_planes(pl, cfg))
+        plain_ms, plain_runs = _graph_ms(lambda: DH.cells_from_planes_plain(pl, cfg))
+        read = 4 * 3840 * 1000 * 4  # r, g, b, depth of the 3840x1000 subpixels
+        nbytes = read + sum(c.numel() * c.element_size() for c in cells)
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        out[mode.value] = {"device_ms": device_ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bytes": nbytes}
+        print(f"phase 3h: heads {mode.value} 1920x500 x2: device {device_ms!r} ms (profiler), "
+              f"graph {graph_ms!r} ms a call (runs {runs}); bound {bound_ms!r} ms (bytes: "
+              f"{nbytes / 1e6:.2f} MB, four planes read once and the cells written once; "
+              f"{f'{100 * bound_ms / device_ms:.1f} %' if device_ms else 'not measured'} of "
+              f"it); the plain version {plain_ms!r} ms a "
+              f"call as a CUDA graph (runs {plain_runs}) {tag}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2944,10 +3054,11 @@ def main() -> int:
 
     from rtwc_tpu_torch.render import list_kernel as LK
     from rtwc_tpu_torch.heads import device_encode as DE
+    from rtwc_tpu_torch.heads import device_heads as DH
 
     t0 = time.perf_counter()
     names = ("hard_render", "soft_render", "soft_shadow", "calibrate", "broad_phase",
-             "ansi_encode")
+             "ansi_encode", "cell_heads")
     with ThreadPoolExecutor(max_workers=len(names)) as pool:  # one nvcc for each source, at once
         libs = dict(zip(names, pool.map(_cuda.build, names)))
     hard_kernel._kernel_fn()
@@ -2956,6 +3067,7 @@ def main() -> int:
     LK._fn("rtwc_tile_lists", 7, LK.ListParams)
     LK._fn("rtwc_entry_tables", 8, LK.EntryParams)
     DE._fn()
+    DH._fn()
     print(f"phase 1: built {', '.join(os.path.relpath(v, ROOT) for v in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {_cuda.build_seconds[k]:.2f} s" for k in libs)
@@ -3366,6 +3478,8 @@ def main() -> int:
     lap("3")
     p3e = _phase_3e(dev, f"[{card}]")
     lap("3e")
+    p3h = _phase_3h(dev, f"[{card}]")
+    lap("3h")
 
     # -- phase 3b: the train paths, counted -------------------------------------
     def reset_soft():
@@ -3989,7 +4103,7 @@ def main() -> int:
             raise AssertionError(f"a replay of the {label} step launches {got}, an eager step "
                                  f"{per_path[label]}")
     for label, got in (("1920x500 x2", p8["display_replay"]), ("1920x1080", frame_launches)):
-        if got != {"hard_render": 1, "tile_lists": 1, "ansi_encode": 2}:
+        if got != {"hard_render": 1, "tile_lists": 1, "ansi_encode": 2, "cell_heads": 1}:
             raise AssertionError(f"a replay of the {label} display frame launches {got}")
 
     # -- the kernels line: every kernel with its bound ---------------------------

@@ -20,7 +20,10 @@ host and reaches the device once per frame as the packed [1, 16] vector.
 
 JAX runs the frame's physics, pack, lists, K7, downsample and cells as one
 jitted, donated step (rtwc_tpu/engine/engine.py:54-62). On a CUDA device
-the kernel renderer's step (`_device_step`, the encode included) is
+the kernel renderer's step goes from K7's planes to the cells in one
+kernel (heads/device_heads.py: the box filter and the mode's head); on
+the CPU it keeps `downsample_framebuffer` and `framebuffer_to_cells`.
+The kernel renderer's step (`_device_step`, the encode included) is
 captured once as a CUDA graph over static scene buffers and replayed
 every frame (`DisplayGraph`): the camera vector and dt are copied into
 device buffers before each replay, a spawn writes into the static buffers
@@ -33,8 +36,9 @@ Under a torch profiler a frame is the span `frame`, with `frame.input`,
 event), `encode` (on the card path the length's read and the bytes'
 copy; for host cells the host encoder), `frame.present` and, once a
 second, `frame.spawn` inside it (utils/telemetry.py); each publish and
-each scene read of a spawn adds one to the counter `host_reads`, and each
-published frame that the card encoded one to `encode.device`.
+each scene read of a spawn adds one to the counter `host_reads`, each
+published frame that the card encoded one to `encode.device`, and each
+published frame whose cells the heads kernel made one to `heads.device`.
 """
 from __future__ import annotations
 
@@ -48,9 +52,14 @@ from rtwc_tpu_torch.camera import Camera, add_rot, default_camera, move
 from rtwc_tpu_torch.config import EngineConfig, RenderConfig
 from rtwc_tpu_torch.heads import encode_frame, framebuffer_to_cells
 from rtwc_tpu_torch.heads.device_encode import copy_to_host, encode_cells
+from rtwc_tpu_torch.heads.device_heads import cells_from_planes
 from rtwc_tpu_torch.io import ConsolePresenter, InputHandler
 from rtwc_tpu_torch.render import pack as P
-from rtwc_tpu_torch.render.hard_kernel import render_frame_kernel, render_frame_packed
+from rtwc_tpu_torch.render.hard_kernel import (
+    render_frame_kernel,
+    render_frame_packed,
+    render_planes_packed,
+)
 from rtwc_tpu_torch.render.step_graph import warm_and_capture
 from rtwc_tpu_torch.render.reference import (
     downsample_framebuffer,
@@ -96,10 +105,12 @@ def _pick_renderer(config: RenderConfig):
 class Frame(NamedTuple):
     """A frame on its device: the cells (kind, color, char) and, where they
     lie on a CUDA device, their ANSI stream encoded there, (bytes [bound]
-    uint8, length [1] int64); None for cells on the host."""
+    uint8, length [1] int64); None for cells on the host. heads_device:
+    the heads kernel made the cells."""
 
     cells: tuple
     stream: tuple | None
+    heads_device: bool = False
 
 
 def _card_stream(cells):
@@ -123,8 +134,14 @@ def _device_step(scene: Scene, cam: torch.Tensor, dt: torch.Tensor, config: Rend
     """_render_step on the kernel renderer from device values alone, ending
     in the encode on a CUDA device: the packed camera cam [1, 16] and the
     time step dt [1] f32 on the scene's device. Returns (scene, Frame).
-    Nothing reads the host, so it can be captured as a CUDA graph."""
+    Nothing reads the host, so it can be captured as a CUDA graph. On a
+    CUDA device the heads kernel turns K7's planes into the cells; on the
+    CPU the downsample and the mode's head run as torch ops."""
     scene = update_scene(scene, dt, config.bob_min_y, config.bob_max_y)
+    if scene.device.type == "cuda":
+        planes = render_planes_packed(scene, cam, supersampled_config(config))
+        cells = cells_from_planes(planes, config)
+        return scene, Frame(cells, _card_stream(cells), heads_device=True)
     fb = render_frame_packed(scene, cam, supersampled_config(config))
     fb = downsample_framebuffer(fb, config.supersample)
     cells = framebuffer_to_cells(fb, config)
@@ -196,11 +213,12 @@ class DisplayGraph:
 class Download(NamedTuple):
     """A frame on its way to the host: its host cells (cells on the host),
     or its stream's pinned host copy (bytes, length); the event after the
-    copies (None for host cells)."""
+    copies (None for host cells); the Frame's heads_device."""
 
     cells: tuple | None
     stream: tuple | None
     event: object
+    heads_device: bool = False
 
 
 class _PinnedPair:
@@ -358,16 +376,18 @@ class Engine:
         the copy reads the length on the card), then an event; host cells
         need no copy."""
         if frame.stream is None:
-            return Download(frame.cells, None, None)
+            return Download(frame.cells, None, None, frame.heads_device)
         host = self._pinned.next(frame.stream[0].numel())
         copy_to_host(frame.stream, *host)
         event = torch.cuda.Event()
         event.record()
-        return Download(None, host, event)
+        return Download(None, host, event, frame.heads_device)
 
     def _frame_bytes(self, down: Download) -> bytes:
         """A downloaded frame's bytes: the stream's first `length` bytes, or
         the host cells through the host encoder."""
+        if down.heads_device:
+            count("heads.device")
         if down.stream is None:
             return encode_frame(*(c.numpy() for c in down.cells))
         count("encode.device")

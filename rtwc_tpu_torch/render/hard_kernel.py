@@ -456,13 +456,21 @@ def render_frame_kernel(scene, camera: Camera, config: RenderConfig,
     return render_frame_packed(scene, P.pack_camera(camera, scene.device), config, bh, bw)
 
 
-def render_frame_packed(scene, cam: torch.Tensor, config: RenderConfig,
-                        bh: int = 16, bw: int = 16) -> Framebuffer:
-    """render_frame_kernel from the packed camera cam [1, 16] on the scene's
-    device: no host value is read, so the display step can be replayed as a
-    CUDA graph (engine/engine.py)."""
+def render_planes_packed(scene, cam: torch.Tensor, config: RenderConfig,
+                         bh: int = 16, bw: int = 16) -> torch.Tensor:
+    """Pack, broad phase and K7 from the packed camera cam [1, 16] on the
+    scene's device: the padded [8, Hp, Wp] plane stack. No host value is
+    read, so the display step can be replayed as a CUDA graph
+    (engine/engine.py)."""
     sph, pl, counts = P.pack_scene(scene)
     lists = tile_lists(sph, cam, config, bh, bw)
-    out = hard_render_packed(sph, pl, counts.reshape(1, 2), cam, lists,
-                             config=config, bh=bh, bw=bw)
-    return planes_to_framebuffer(out, config, config.height)
+    return hard_render_packed(sph, pl, counts.reshape(1, 2), cam, lists,
+                              config=config, bh=bh, bw=bw)
+
+
+def render_frame_packed(scene, cam: torch.Tensor, config: RenderConfig,
+                        bh: int = 16, bw: int = 16) -> Framebuffer:
+    """render_frame_kernel from the packed camera cam [1, 16]:
+    `render_planes_packed` and the framebuffer."""
+    return planes_to_framebuffer(render_planes_packed(scene, cam, config, bh, bw),
+                                 config, config.height)

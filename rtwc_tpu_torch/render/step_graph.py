@@ -53,6 +53,7 @@ from typing import Callable, Hashable
 import torch
 
 from rtwc_tpu_torch.heads import device_encode as DE
+from rtwc_tpu_torch.heads import device_heads as DH
 from rtwc_tpu_torch.render import hard_kernel as HK
 from rtwc_tpu_torch.render import list_kernel as LK
 from rtwc_tpu_torch.render import soft_core as SC
@@ -61,7 +62,8 @@ from rtwc_tpu_torch.utils.telemetry import add_source, count, span
 
 def launch_counts() -> dict:
     """Every kernel launch counter of the port, by kernel name."""
-    return {**SC.LAUNCHES, "hard_render": HK.LAUNCHES, **LK.LAUNCHES, **DE.LAUNCHES}
+    return {**SC.LAUNCHES, "hard_render": HK.LAUNCHES, **LK.LAUNCHES, **DE.LAUNCHES,
+            "cell_heads": DH.LAUNCHES}
 
 
 add_source(lambda: {f"launches.{k}": v for k, v in launch_counts().items()})
@@ -73,6 +75,7 @@ def reset_launch_counts() -> None:
     for key in LK.LAUNCHES:
         LK.LAUNCHES[key] = 0
     HK.LAUNCHES = 0
+    DH.LAUNCHES = 0
     for key in DE.LAUNCHES:
         DE.LAUNCHES[key] = 0
 
