@@ -81,7 +81,7 @@
 // (32400 tiles) the tests are 6.5e6 (tile, sphere) cone tests and 5.2e7
 // (tile, ball, sphere) occluder tests, some 1.1 GFLOP in broad_phase.py's
 // arithmetic (16 us at 67 TFLOP/s). PERF.md section 6 has the split of the
-// time by stage (utils/list_times.py --split) that chose this design, and
+// time by stage (the LIST_CUT variants below) that chose this design, and
 // its times.
 
 #include <cuda_fp16.h>
@@ -132,8 +132,8 @@ constexpr int ENTRY_MAX_BLOCKS = 1024;
 
 }  // namespace
 
-// Timing cuts (rtwc_tpu_torch/utils/list_times.py --split builds variants
-// with -D): LIST_CUT = k stops each tile of tile_lists_kernel after stage k
+// Timing cuts (a variant built with -D times the kernel cut short):
+// LIST_CUT = k stops each tile of tile_lists_kernel after stage k
 // (0 the block's prologue alone, 1 the cone, 2 the view test, 3 the sorted
 // row, 4 the plane bounds, 5 the balls, 6 the occluder test, 7 the index
 // row: the whole kernel);

@@ -53,7 +53,8 @@ from rtwc_tpu_torch.render.reference import Framebuffer, shade, trace_hard
 from rtwc_tpu_torch.render.soft_core import SO_B, SO_R, _packed
 from rtwc_tpu_torch.render.soft_kernel import soft_band_mse_loss, soft_band_packed
 from rtwc_tpu_torch.render.softmin import trace_soft
-from rtwc_tpu_torch.render.step_graph import CapturedCall, card_adam
+from rtwc_tpu_torch.render.step_graph import (CapturedCall, StaticScene, card_adam, same_tensor,
+                                              use_graph)
 from rtwc_tpu_torch.scene import Planes, Scene, Spheres, update_scene
 from rtwc_tpu_torch.utils.telemetry import count, span
 
@@ -158,30 +159,10 @@ def _render_bands(scene: Scene, camera: Camera, config: RenderConfig, mesh: Mesh
     return Framebuffer(**{f: torch.cat([getattr(b, f) for b in parts], 0) for f in _FB_FIELDS})
 
 
-def _scene_leaves(scene: Scene) -> list:
-    return [getattr(group, f.name) for group in (scene.spheres, scene.planes)
-            for f in dataclasses.fields(group)]
-
-
-def _own(scene: Scene, device: torch.device) -> Scene:
-    """A copy of scene on device in tensors of its own."""
-    def node(group):
-        return group.replace(**{f.name: getattr(group, f.name).detach().to(device, copy=True)
-                                for f in dataclasses.fields(group)})
-    return Scene(spheres=node(scene.spheres), planes=node(scene.planes))
-
-
-def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether b is a itself or a view of a's whole storage (a step's
-    returned leaves, passed back in)."""
-    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
-                      and a.stride() == b.stride() and a.dtype == b.dtype
-                      and a.device == b.device)
-
-
 class _FrameGraph:
     """render_frame_sharded's "pallas" frame as one CUDA graph over static
-    buffers: the scene's leaves and the packed camera [1, 16]. Each call
+    buffers: the scene's leaves and the packed camera [1, 16] (a
+    StaticScene of its own copies). Each call
     copies the caller's scene and camera into them (a spawn's new capacity
     replaces them, and the next call captures again), then replays
     _k7_bands and, where `group`'s all-gather can be captured
@@ -197,29 +178,19 @@ class _FrameGraph:
         self.rows = _check_divisible(config.height, size)
         self.group = group
         self.gathers = _collective_in_graph(group, torch.device(device))
-        self.scene: Scene | None = None
-        self.cam = torch.zeros((1, P.CAM_LEN), dtype=torch.float32, device=device)
+        self.inputs = StaticScene(device, own=True)
         self.call = CapturedCall(self._frame, device, graph=graph)
 
     def _frame(self) -> Framebuffer:
-        fb = _k7_bands(self.scene, self.cam, self.config, self.bands, self.rows)
+        fb = _k7_bands(self.inputs.scene, self.inputs.cam, self.config, self.bands, self.rows)
         return _gather_rows(fb, self.group) if self.gathers else fb
 
     @torch.no_grad()
     def __call__(self, scene: Scene, camera: Camera) -> Framebuffer:
-        new = _scene_leaves(scene)
-        if self.scene is None or any(a.shape != b.shape or a.dtype != b.dtype
-                                     for a, b in zip(_scene_leaves(self.scene), new)):
-            self.scene = _own(scene, self.cam.device)
-        else:
-            for a, b in zip(_scene_leaves(self.scene), new):
-                if not _same(a, b):
-                    a.copy_(b)
-        cam = P.pack_camera(camera)
-        if self.cam.is_cuda and cam.device.type == "cpu":
-            cam = cam.pin_memory()
-        self.cam.copy_(cam, non_blocking=True)
-        return self.call(tuple((t.shape, t.data_ptr()) for t in _scene_leaves(self.scene)))
+        if self.inputs.load(scene):
+            self.call.reset()
+        self.inputs.upload_camera(P.pack_camera(camera))
+        return self.call()
 
 
 @functools.lru_cache(maxsize=32)
@@ -278,11 +249,8 @@ def render_frame_sharded(scene: Scene, camera: Camera, config: RenderConfig, mes
     different frames still pair their gathers."""
     rows = _check_divisible(config.height, mesh.size)
     backend = _backend(backend, scene.device)
-    use_graph = backend == "pallas" and scene.device.type == "cuda" if graph is None else graph
-    if use_graph:
-        if backend != "pallas" or scene.device.type != "cuda":
-            raise ValueError("a graph-replayed sharded frame needs the pallas backend and a "
-                             f"CUDA scene, not {backend!r} on {scene.device}")
+    if use_graph(graph, backend == "pallas" and scene.device.type == "cuda",
+                 "the pallas backend and a CUDA scene"):
         fg = _frame_graph(config, mesh.size, mesh.bands(), scene.device, mesh.group)
         fb = fg(scene, camera)
         if fg.gathers:
@@ -515,14 +483,14 @@ def make_sharded_train_step(
     def _step(params, st: TrainState, target, dt):
         with torch.no_grad():
             for k, v in _leaves(params).items():
-                if not _same(st.leaves[k], v):
+                if not same_tensor(st.leaves[k], v):
                     st.leaves[k].copy_(v)
             if st.target is None or st.target.shape != target.shape:
                 st.target = torch.empty(target.shape, dtype=torch.float32,
                                         device=st.flat.device)
                 st.target_src = None
             src = st.target_src
-            if not (_same(st.target, target)
+            if not (same_tensor(st.target, target)
                     or (src and src[0] is target and src[1] == target._version)):
                 st.target.copy_(target)
                 st.target_src = (target, target._version)

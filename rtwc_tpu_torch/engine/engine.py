@@ -42,6 +42,7 @@ published frame whose cells the heads kernel made one to `heads.device`.
 """
 from __future__ import annotations
 
+import functools
 import logging
 from typing import NamedTuple
 
@@ -60,7 +61,7 @@ from rtwc_tpu_torch.render.hard_kernel import (
     render_frame_packed,
     render_planes_packed,
 )
-from rtwc_tpu_torch.render.step_graph import warm_and_capture
+from rtwc_tpu_torch.render.step_graph import CapturedCall, StaticScene, use_graph
 from rtwc_tpu_torch.render.reference import (
     downsample_framebuffer,
     render_frame,
@@ -148,49 +149,41 @@ def _device_step(scene: Scene, cam: torch.Tensor, dt: torch.Tensor, config: Rend
     return scene, Frame(cells, _card_stream(cells))
 
 
-def _leaves(scene: Scene):
-    return [getattr(group, name) for group in (scene.spheres, scene.planes)
-            for name in group.__dataclass_fields__]
-
-
 class DisplayGraph:
-    """`_device_step` as one CUDA graph over static buffers: the scene's
-    tensors (the graph writes the physics tick back into them), the camera
-    vector and dt; its outputs are the cells and the encoded stream and its
-    length, sized for the mode. The first frame of a config is an eager
-    step on a side stream (it fills the heads' cached tables), then the
-    step is captured; every later frame of that config replays it.
-    `replay_launches` holds the kernel launches a replay makes, counted at
-    capture; `captures` counts the captures."""
+    """`_device_step` as one CUDA graph (a CapturedCall) over static
+    buffers: the scene's tensors and the packed camera (a StaticScene; the
+    graph writes the physics tick back into the scene's) and dt; its
+    outputs are the cells and the encoded stream and its length, sized for
+    the mode. The first frame of a config is an eager step on a side stream
+    (it fills the heads' cached tables), then the step is captured; every
+    later frame of that config replays it, and a scene that replaces the
+    buffers makes the next frame capture again. `replay_launches` holds the
+    kernel launches a replay makes, counted at capture; `captures` counts
+    the captures."""
 
     def __init__(self, scene: Scene):
-        self.scene = scene
-        dev = scene.device
-        self.cam = torch.zeros((1, P.CAM_LEN), dtype=torch.float32, device=dev)
-        self.dt = torch.zeros(1, dtype=torch.float32, device=dev)
-        self.replay_launches: dict | None = None
-        self.captures = 0
-        self._graph = None
-        self._config = None
-        self._frame = None
+        self.inputs = StaticScene(scene.device, scene)
+        self.dt = torch.zeros(1, dtype=torch.float32, device=scene.device)
+        self.call = CapturedCall(None, scene.device, graph=True)
+
+    @property
+    def captures(self) -> int:
+        return self.call.captures
+
+    @property
+    def replay_launches(self) -> dict | None:
+        return self.call.replay_launches
 
     def load_scene(self, scene: Scene) -> None:
         """Make `scene` the step's scene: copied into the static buffers in
         place when its shapes match them, else it replaces them and the next
         frame re-captures."""
-        old, new = _leaves(self.scene), _leaves(scene)
-        if all(a.shape == b.shape for a, b in zip(old, new)):
-            for a, b in zip(old, new):
-                if a is not b:
-                    a.copy_(b)
-        else:
-            self.scene, self._graph = scene, None
+        if self.inputs.load(scene):
+            self.call.reset()
 
     def _step(self, config: RenderConfig) -> Frame:
-        scene, frame = _device_step(self.scene, self.cam, self.dt, config)
-        for a, b in zip(_leaves(self.scene), _leaves(scene)):
-            if a is not b:
-                a.copy_(b)
+        scene, frame = _device_step(self.inputs.scene, self.inputs.cam, self.dt, config)
+        self.inputs.write(scene)
         return frame
 
     @torch.no_grad()
@@ -198,16 +191,12 @@ class DisplayGraph:
         """One frame: cam_host [1, 16] (the packed camera on the host) and dt
         into the device buffers, then the step. Returns the Frame, buffers
         the next frame overwrites."""
-        self.cam.copy_(cam_host.pin_memory(), non_blocking=True)
+        self.inputs.upload_camera(cam_host)
         self.dt.fill_(dt)
-        if self._graph is not None and config == self._config:
-            self._graph.replay()
-            return self._frame
-        self._graph, self._config = None, config
-        frame, self._graph, self._frame, self.replay_launches = warm_and_capture(
-            lambda: self._step(config), lambda: self._step(config), self.cam.device)
-        self.captures += 1
-        return frame
+        if self.call.replays(config):
+            return self.call.replay()
+        step = functools.partial(self._step, config)
+        return self.call.capture(config, step, step)
 
 
 class Download(NamedTuple):
@@ -253,11 +242,8 @@ class Engine:
         self.device = resolve_device(device)
         self.rcfg = render_config or RenderConfig()
         _pick_renderer(self.rcfg)
-        kernel = self.rcfg.renderer in ("auto", "kernel")
-        if graph is None:
-            graph = kernel and self.device.type == "cuda"
-        if graph and not (kernel and self.device.type == "cuda"):
-            raise ValueError("the display graph needs a CUDA device and the kernel renderer")
+        graph = use_graph(graph, self.rcfg.renderer in ("auto", "kernel")
+                          and self.device.type == "cuda", "a CUDA device and the kernel renderer")
         self.ecfg = engine_config or EngineConfig()
         self.display = None
         self.scene = (scene.to(self.device) if scene is not None
@@ -348,7 +334,7 @@ class Engine:
     @property
     def scene(self) -> Scene:
         """The engine's scene; on the display graph, its static buffers."""
-        return self._scene if self.display is None else self.display.scene
+        return self._scene if self.display is None else self.display.inputs.scene
 
     @scene.setter
     def scene(self, scene: Scene) -> None:

@@ -373,16 +373,16 @@ def test_sharded_frame_graph_buffers_on_the_cpu():
               for k, s in ((10, 3), (6, 4))]
     scenes.append(TS.grow_scene(scenes[0], max_spheres=32))
     for i, scene in enumerate(scenes):
-        before = fg.scene
+        before = fg.inputs.scene
         fb = fg(scene, cam)
         single = render_frame_kernel(scene, cam, cfg)
         for name in ("rgb", "normal", "depth", "shading", "hit", "coverage", "alpha"):
             assert torch.equal(getattr(fb, name), getattr(single, name)), (i, name)
-        assert fg.scene is not scene
+        assert fg.inputs.scene is not scene
         if i == 1:
-            assert fg.scene is before  # copied in place
+            assert fg.inputs.scene is before  # copied in place
         if i == 2:
-            assert fg.scene is not before  # a new capacity: new buffers
+            assert fg.inputs.scene is not before  # a new capacity: new buffers
     with pytest.raises(ValueError):
         M._frame_graph(cfg, mesh.size, mesh.bands(), torch.device("cpu"))
     with pytest.raises(ValueError):

@@ -9,6 +9,7 @@ import os
 import re
 import statistics
 
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -53,26 +54,54 @@ def _engine(spawn_every_frame=True):
     return eng
 
 
+class _Stream:
+    """A CUDA stream stood in for on the CPU."""
+
+    def __init__(self, *a):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+@contextlib.contextmanager
+def _cuda_standins(make_graph, capturing=contextlib.nullcontext):
+    """torch.cuda's streams and graph calls stood in for on the CPU, so that
+    warm_and_capture runs its bookkeeping there: make_graph() is the
+    CUDAGraph, capturing() the context of a capture."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+        mp.setattr(torch.cuda, "Stream", _Stream)
+        mp.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+        mp.setattr(torch.cuda, "CUDAGraph", make_graph)
+        mp.setattr(torch.cuda, "graph", lambda g: capturing())
+        yield
+
+
 class _Graph:
     """A captured step's graph stood in for on the CPU: a replay runs the
     loss and its backward into the parameter's .grad."""
 
-    def __init__(self, p):
-        self.p = p
+    def __init__(self, p, log=None):
+        self.p, self.log = p, log
 
     def replay(self):
+        if self.log is not None:
+            self.log.append("replay")
         self.p.grad = None
         (self.p * self.p).sum().backward()
 
 
 def _step():
-    """A CapturedStep past its capture: each call replays (the stand-in
-    graph) and then steps torch's default Adam eagerly."""
+    """A CapturedStep past its capture (made on the stand-ins): each call
+    replays the stand-in graph and then steps torch's default Adam
+    eagerly."""
     p = torch.nn.Parameter(torch.tensor([1.0, 2.0]))
     opt = torch.optim.Adam([p], lr=0.1)
     step = SG.CapturedStep(lambda: (p * p).sum(), opt, graph=False)
-    step.graph, step._graph, step._loss = True, _Graph(p), torch.zeros(())
-    step._key = step.capture_key(None)
+    step.graph = True
+    with _cuda_standins(lambda: _Graph(p)):
+        step()
     return step
 
 
@@ -157,12 +186,17 @@ def test_a_frame_and_a_step_emit_their_ranges_nested():
 def test_the_programs_record_is_on_the_profilers_clock():
     """Each recorded span encloses its profiler range, within a millisecond
     at either end and by under 0.2 ms at the median: one clock for the
-    program's record and the trace."""
+    program's record and the trace. A warm frame and step are profiled
+    first: a process's first profiled trial runs slowest."""
     eng = _engine()
     eng.run_frame()
+    step = _step()
+    with profile(activities=[ProfilerActivity.CPU]):
+        eng.run_frame()
+        step()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         eng.run_frame()
-        _step()()
+        step()
     r = _ranges(prof)
     rec = T.recorded()["spans"][-sum(len(v) for v in r.values()):]
     assert sorted(n for n, _, _ in rec) == sorted(n for n, v in r.items() for _ in v)
@@ -206,38 +240,72 @@ def test_counters_hold_the_launch_counts():
         assert snap[f"launches.{k}"] == v
 
 
-def test_a_capture_is_counted_and_spanned(monkeypatch):
+def test_a_capture_is_counted_and_spanned():
     """warm_and_capture's bookkeeping with the CUDA stream and graph calls
     stood in for: one capture, one `graph.capture` span around warm and
     capture."""
-    class Stream:
-        def __init__(self, *a):
-            pass
-
-        def wait_stream(self, other):
-            pass
-
-    class Graph:
-        def __enter__(self):
-            calls.append("graph")
-
-        def __exit__(self, *exc):
-            return False
-
     calls = []
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
-    monkeypatch.setattr(torch.cuda, "Stream", Stream)
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
-    monkeypatch.setattr(torch.cuda, "graph", lambda g: Graph())
+
+    def capturing():
+        calls.append("graph")
+        return contextlib.nullcontext()
+
     c0 = T.counters().get("graph.captures", 0)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with _cuda_standins(lambda: "graph", capturing), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
         out = SG.warm_and_capture(lambda: calls.append("warm") or 1,
                                   lambda: calls.append("capture") or 2, torch.device("cpu"))
     assert out[0] == 1 and out[2] == 2 and out[3] == {}
     assert calls == ["warm", "graph", "capture"]
     assert T.counters()["graph.captures"] == c0 + 1
     assert list(_ranges(prof)) == ["graph.capture"]
+
+
+@pytest.mark.parametrize("case", ["same key", "new key", "reset", "step"])
+def test_one_capture_and_replay_mechanism(case):
+    """CapturedCall on the stand-ins: a call with the key of the capture
+    replays it, a new key or a call after reset() captures again; a
+    CapturedStep over it opens `step.replay` and `step.opt` around a
+    replay only, and `graph.capture` (counting `graph.captures`) around a
+    capture only."""
+    log = []
+    p = torch.nn.Parameter(torch.tensor([1.0, 2.0]))
+    with _cuda_standins(lambda: _Graph(p, log)):
+        if case == "step":
+            step = SG.CapturedStep(lambda: (p * p).sum(), torch.optim.Adam([p], lr=0.1),
+                                   graph=False)
+            step.graph = True
+            for want in ("capture", "replay", "replay"):
+                c0 = T.counters().get("graph.captures", 0)
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    loss = step()
+                spans = sorted(_ranges(prof))
+                if want == "capture":
+                    assert spans == ["graph.capture"] and log == []
+                    assert T.counters()["graph.captures"] == c0 + 1
+                else:
+                    assert spans == ["step.opt", "step.replay"] and log[-1] == "replay"
+                    assert T.counters()["graph.captures"] == c0
+                assert float(loss) == 5.0 if want == "capture" else loss.shape == ()
+            assert step.captures == 1 and log == ["replay", "replay"]
+            return
+        runs = []
+        call = SG.CapturedCall(lambda: runs.append("fn") or len(runs), "cuda", graph=True)
+        # a capture returns the warm call's result, a replay the captured one's
+        assert call(1) == 1 and runs == ["fn", "fn"] and call.captures == 1
+        assert call.replays(1) and call(1) == 2 and log == ["replay"]
+        if case == "new key":
+            assert not call.replays(2)
+            assert call(2) == 3 and call.replays(2) and not call.replays(1)
+        elif case == "reset":
+            call.reset()
+            assert not call.replays(1)
+            assert call(1) == 3 and call.replays(1)
+        if case == "same key":
+            assert call(1) == 2 and call.captures == 1 and log == ["replay", "replay"]
+        else:
+            assert runs == ["fn"] * 4 and call.captures == 2 and log == ["replay"]
+        assert call.replay_launches == {}
 
 
 def test_profiler_trace_writes_the_trace_and_the_counters(tmp_path):
