@@ -1504,6 +1504,54 @@ def _k5_barriers(shl, gates, ns: int) -> dict:
             "slab_mean": slab.mean().item(), "slab_max": slab.max().item()}
 
 
+# K6 as one kernel, before its split by tile class (PERF.md section 6): profiler
+# means, a CUDA graph of 20 calls (headline); 4K/200
+K6_UNSPLIT_MS = {"headline": "0.2809-0.2814", "graph": "0.2846-0.2886", "4k200": "1.500-1.501"}
+
+
+def _k6_split(SH, libs, k6_ms, k6_graph_ms, k6_4k_ms, mse_h, hl, r4k, spec_hl):
+    """Phase 5b's K6 lines: its device time beside the figures before its
+    split, each variant's registers, spills, shared memory and blocks an
+    SM (by registers, by shared memory, by threads), each class's share of
+    the tiles at the headline and at 4K/200, and the tile counters over one
+    call against the classes the lists give."""
+    print(f"phase 5b: K6 (the classes and both variants) bench headline: {k6_ms!r} ms device a "
+          f"call, {k6_graph_ms!r} ms a call of a CUDA graph of 20 (before the split "
+          f"{K6_UNSPLIT_MS['headline']}, graph {K6_UNSPLIT_MS['graph']}); 3840x2160 "
+          f"random_scene(200): {k6_4k_ms!r} ms (before {K6_UNSPLIT_MS['4k200']})")
+    log = libs["soft_shadow"][:-3] + ".log"
+    with open(log) as f:
+        lines = f.read().splitlines()
+    for flag, variant in (("ILb0E", "full"), ("ILb1E", "plane-only")):
+        at = next(i for i, line in enumerate(lines)
+                  if "Compiling entry function" in line and "soft_sh_mse_kernel" + flag in line)
+        spill = next(line for line in lines[at:] if "spill" in line).strip()
+        used = next(line for line in lines[at:] if "registers" in line)
+        regs = int(used.split("Used")[1].split("registers")[0])
+        static = int(used.split("bytes smem")[0].split(",")[-1])
+        by_regs = 65536 // (-(-regs * 32 // 256) * 256 * 8)
+        for label, (lists, shl, pl, sph) in (("bench headline", hl), ("4K/200", r4k)):
+            smem = SH.k6_shared_bytes(sph.shape[1], pl.shape[1], lists.shape[2],
+                                      variant == "plane-only")
+            by_smem = (228 * 1024) // (smem + static + 1024)
+            print(f"phase 5b: K6 {variant} variant at {label}: {regs} registers, {spill}; "
+                  f"{smem} + {static} B of shared memory a block; blocks an SM by registers "
+                  f"{by_regs}, by shared memory {by_smem}, by threads 8")
+    for label, (lists, shl, _, _) in (("bench headline", hl), ("4K/200", r4k)):
+        po, full = SH.tile_classes(lists, shl)
+        print(f"phase 5b: K6 tile classes at {label}: {po.numel()} plane-only, {full.numel()} "
+              f"full, plane-only share {po.numel() / lists.shape[0]!r}")
+    before = SH.tile_counts()
+    SH.soft_sh_mse(*mse_h, spec=spec_hl)
+    after = SH.tile_counts()
+    got = tuple(after[k] - before[k] for k in ("k6.tiles_plane_only", "k6.tiles_full"))
+    want = tuple(x.numel() for x in SH.tile_classes(hl[0], hl[1]))
+    if got != want:
+        raise AssertionError(f"phase 5b: K6's tile counters advanced by {got}, the lists give "
+                             f"{want}")
+    print(f"phase 5b: K6 tile counters over one headline call {got}, as the lists give")
+
+
 def _max_sm_clock_mhz() -> float:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                           capture_output=True, text=True, timeout=60, check=True)
@@ -3886,7 +3934,7 @@ def main() -> int:
                      lambda: SH.soft_sh_stats_plain(*fwd4, spec=spec_hl)),
         "K5": ("soft_sh_bwd_kernel", lambda: SH.soft_sh_bwd(*bwd_h, spec=spec_hl),
                lambda: SH.soft_sh_bwd_plain(*bwd_h, spec=spec_hl)),
-        "K6": ("soft_sh_mse_kernel", lambda: SH.soft_sh_mse(*mse_h, spec=spec_hl),
+        "K6": ("soft_sh_mse", lambda: SH.soft_sh_mse(*mse_h, spec=spec_hl),
                lambda: SH.soft_sh_mse_plain(*mse_h, spec=spec_hl)),
         "reduce sh": ("soft_grad_reduce",
                       lambda: SK.soft_grad_reduce(parts_h[0], pidx_h, parts_h[2], parts_h[3], 20,
@@ -3899,7 +3947,7 @@ def main() -> int:
     for key, (kname, kfn, pfn) in sh_calls.items():
         k_ms = _time_ms(kfn)
         p_ms = _time_ms(pfn, reps=1, warm=0)  # the plain versions are timed once
-        d_ms = _kernel_device_ms(kfn, name=kname, per_call=key == "reduce sh")
+        d_ms = _kernel_device_ms(kfn, name=kname, per_call=key in ("reduce sh", "K6"))
         soft_timing[key] = (k_ms, p_ms, d_ms)
         graph_timing[key] = _graph_ms(kfn)[0]
         print(f"phase 5b: {key} ({kname}) bench headline 1920x1080 random_scene(20) shadows tau "
@@ -3967,7 +4015,7 @@ def main() -> int:
     k6_4k = _kernel_device_ms(lambda: SH.soft_sh_mse(
         sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
         torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k), reps=5,
-        name="soft_sh_mse_kernel")
+        name="soft_sh_mse", per_call=True)
     # the reduction at 4K/200 on K6's partials of that step
     parts_4 = SH.soft_sh_mse(sph_4, pl_4, cam_4, lists_4, shl_4, offsets_4, sh_offsets_4,
                              torch.zeros((3,) + spec_4k.extent, device=dev), spec=spec_4k)
@@ -4005,6 +4053,8 @@ def main() -> int:
           f"{int(cnt_4[:, 0].max())}); list entries {pidx_4.shape[0]}, shadow entries "
           f"{pshidx_4.shape[0]}; the reduction of K6's partials {soft_timing['reduce 4k']!r} ms "
           f"(a call, plain, device) {tag}")
+    _k6_split(SH, libs, soft_timing["K6"][2], graph_timing["K6"], k6_4k, mse_h,
+              (lists_h, shl_h, pl_h, sph_h), (lists_4, shl_4, pl_4, sph_4), spec_hl)
     for label, (shl_b, gates_b, ns_b) in (("bench headline", (shl_h, gates_h, sph_h.shape[1])),
                                           ("3840x2160 random_scene(200)",
                                            (shl_4, gates_4, sph_4.shape[1]))):

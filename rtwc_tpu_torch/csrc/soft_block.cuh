@@ -167,30 +167,33 @@ __device__ __forceinline__ void accumulate(const SoftParams& p, const ObjOut& v,
 // or gate_row[ns + k] (planes) unless gate_row is null. visit(g, col, sn)
 // gets every object taken: its shading-free geometry, its colour and its
 // shading normal; it may move *m. The list and its spheres come from
-// `list`, staged by stage_lists.
-template <typename Visit>
+// `list`, staged by stage_lists. SPHERES false compiles the list's loop out,
+// for a tile whose list is empty (K6's plane-only variant).
+template <bool SPHERES = true, typename Visit>
 __device__ __forceinline__ void forward_sweep(const SoftParams& p, const float* __restrict__ cam,
                                               const StagedList& list, const float* s_pl,
                                               int* gate_row, Vec3 d, Vec3 o, const float* m,
                                               Visit&& visit) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_list = list.n();
-  for (int kk = 0; kk < n_list; ++kk) {
-    const int k = list.index(kk);
-    const Sphere sp = list.sphere(kk);
-    if (p.cull) {
-      float t2, dss;
-      const float lb = sphere_lb_ex(p, sp, d, o, &t2, &dss);
-      const int rel = __syncthreads_or((-lb * p.inv_tau - *m) > CULL_LOG_EPS);
-      if (gate_row && tid == 0) gate_row[k] = rel ? 1 : 0;
-      if (rel) {
-        const Geo g = sphere_geo_post(p, sp, t2, dss, d, o);
+  if constexpr (SPHERES) {
+    const int n_list = list.n();
+    for (int kk = 0; kk < n_list; ++kk) {
+      const int k = list.index(kk);
+      const Sphere sp = list.sphere(kk);
+      if (p.cull) {
+        float t2, dss;
+        const float lb = sphere_lb_ex(p, sp, d, o, &t2, &dss);
+        const int rel = __syncthreads_or((-lb * p.inv_tau - *m) > CULL_LOG_EPS);
+        if (gate_row && tid == 0) gate_row[k] = rel ? 1 : 0;
+        if (rel) {
+          const Geo g = sphere_geo_post(p, sp, t2, dss, d, o);
+          visit(g, sp.col, g.n);
+        }
+      } else {
+        if (gate_row && tid == 0) gate_row[k] = 1;
+        const Geo g = sphere_geo(p, sp, d, o);
         visit(g, sp.col, g.n);
       }
-    } else {
-      if (gate_row && tid == 0) gate_row[k] = 1;
-      const Geo g = sphere_geo(p, sp, d, o);
-      visit(g, sp.col, g.n);
     }
   }
   const int n_pl = (int)__ldg(cam + C_NPL);
@@ -353,8 +356,9 @@ struct Stash {
 // the camera's (and K3's loss, NTFB = 13) through block_tf_rows; m, 1/s, S,
 // the output cotangents, the ray cotangents (seeded by the caller) and the
 // loss stay in the stash `st`, so the registers hold the ray, vis and one
-// object's adjoint.
-template <int NTFB, bool SHADOWED>
+// object's adjoint. SPHERES false compiles the list's loop out, as
+// forward_sweep's.
+template <int NTFB, bool SHADOWED, bool SPHERES = true>
 __device__ void backward_sweep_slab(const SoftParams& p, const float* __restrict__ cam,
                                     const float* __restrict__ sph, const float* s_pl,
                                     const int* __restrict__ lst, const int* gate_row, int tile,
@@ -362,20 +366,22 @@ __device__ void backward_sweep_slab(const SoftParams& p, const float* __restrict
                                     Reduce* sm, Slab* sb, float* __restrict__ pvals,
                                     float* __restrict__ ppl, float* __restrict__ ptf) {
   int used = 0;  // slab slots filled
-  const int n_list = __ldg(lst);
-  for (int kk = 0; kk < n_list; ++kk) {
-    const int k = __ldg(lst + 1 + kk);
-    if (p.cull && gate_row[k] != 1) continue;  // block-uniform
-    const Sphere sp = load_sphere(sph, p.ns, k);
-    const ObjOut v = sphere_f(p, sp, d, o, vis, SHADOWED);
-    float gv[7];
-    for (int i = 0; i < 7; ++i) gv[i] = st.get(ST_GV + i);
-    const ObjOut ct = cotangents(p, v, st.get(ST_M), st.get(ST_INV_S), gv, st.get(ST_S));
-    float g[7];
-    Vec3 cd, co;
-    sphere_f_vjp(p, sp, d, o, ct, g, &cd, &co, vis, SHADOWED);
-    st.add_ray_cotangents(cd, co);
-    slab_put<7>(g, sb, used, pvals + (size_t)(offset + kk) * 8, false);
+  if constexpr (SPHERES) {
+    const int n_list = __ldg(lst);
+    for (int kk = 0; kk < n_list; ++kk) {
+      const int k = __ldg(lst + 1 + kk);
+      if (p.cull && gate_row[k] != 1) continue;  // block-uniform
+      const Sphere sp = load_sphere(sph, p.ns, k);
+      const ObjOut v = sphere_f(p, sp, d, o, vis, SHADOWED);
+      float gv[7];
+      for (int i = 0; i < 7; ++i) gv[i] = st.get(ST_GV + i);
+      const ObjOut ct = cotangents(p, v, st.get(ST_M), st.get(ST_INV_S), gv, st.get(ST_S));
+      float g[7];
+      Vec3 cd, co;
+      sphere_f_vjp(p, sp, d, o, ct, g, &cd, &co, vis, SHADOWED);
+      st.add_ray_cotangents(cd, co);
+      slab_put<7>(g, sb, used, pvals + (size_t)(offset + kk) * 8, false);
+    }
   }
   const int n_pl = (int)__ldg(cam + C_NPL);
   for (int k = 0; k < n_pl; ++k) {
@@ -421,10 +427,16 @@ __device__ __forceinline__ void stage_planes(const SoftParams& p, const float* p
   __syncthreads();
 }
 
-__device__ __forceinline__ Ray block_ray(const SoftParams& p, const float* cam) {
-  const float rowf = __ldg(cam + C_ROW0) + (float)(blockIdx.y * p.bh) + (float)threadIdx.y;
-  const float colf = (float)(blockIdx.x * p.bw) + (float)threadIdx.x;
+// The thread's camera ray in tile (ty, tx) of the grid; block_ray: in the
+// block's own tile.
+__device__ __forceinline__ Ray tile_ray(const SoftParams& p, const float* cam, int ty, int tx) {
+  const float rowf = __ldg(cam + C_ROW0) + (float)(ty * p.bh) + (float)threadIdx.y;
+  const float colf = (float)(tx * p.bw) + (float)threadIdx.x;
   return raygen(p, cam, rowf, colf);
+}
+
+__device__ __forceinline__ Ray block_ray(const SoftParams& p, const float* cam) {
+  return tile_ray(p, cam, blockIdx.y, blockIdx.x);
 }
 
 // Sets the device and, where the dynamic shared memory `smem` and the

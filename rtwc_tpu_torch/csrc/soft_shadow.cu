@@ -60,7 +60,10 @@
 // - what a sweep only re-reads (m, 1/s, S, the output and ray cotangents,
 //   the camera sum's inputs) waits in a per-thread shared-memory stash, and
 //   K6's clamp cache lives in shared memory, so that K5 and K6 fit the
-//   register budget of K5_MIN_BLOCKS / K6_MIN_BLOCKS blocks an SM.
+//   register budget of K5_MIN_BLOCKS / K6_MIN_BLOCKS blocks an SM;
+// - K6 runs the tiles that list no sphere, two thirds of the headline's, in
+//   a variant built without the sphere sweeps, beside the full kernel (K6's
+//   tile classes, below).
 // K4 (and K4-stats), whose bound is its 56 B a pixel of stores:
 // - the TPU kernels read the tile's lists from SMEM by scalar prefetch; a
 //   K4 (and a K6) block copies its list row, its shadow list row and the
@@ -86,10 +89,15 @@ using namespace soft;
 namespace {
 
 constexpr int NC = 8;  // clamp-correction cache slots per pixel
-// Blocks an SM that K5 and K6 are built for: 2, at most 65536 / (256 x 2) =
-// 128 registers a thread, the most blocks at which neither spills (K5 uses
-// 112, K6 128). At 3 (80 registers) and 4 (64) both spill to local memory.
-constexpr int K5_MIN_BLOCKS = 2, K6_MIN_BLOCKS = 2;
+// Blocks an SM that K5 and K6's full kernel are built for. K5: 2, at most
+// 65536 / (256 x 2) = 128 registers a thread, the most blocks at which it
+// does not spill (112 registers; at 3, 80, and at 4, 64, it spills). K6's
+// full kernel, which since its split by tile class runs only tiles that list
+// a sphere: 3, 80 registers and 128 B of spill stores. On an H100, with the
+// plane-only variant at 4, K6 took 0.2548 / 0.2679 / 0.2556 ms at 3 / 2 / 4
+// (4: 64 registers, 296 B spilled) at the bench headline, 1.315 / 1.465 /
+// 1.295 ms at 4K / 200 (a CUDA graph of 20 calls; PERF.md section 6).
+constexpr int K5_MIN_BLOCKS = 2, K6_MIN_BLOCKS = 3;
 
 // What the shadowed forward leaves for the blend, the outputs and the
 // backward, per pixel.
@@ -165,7 +173,9 @@ __device__ __forceinline__ void shade_accumulate(const SoftParams& p, const Geo&
 // K4's forward (also K6's): gate0 / gate1 get the block's main-sweep and
 // shadow-sweep decisions (thread 0 writes them). The list rows and their
 // spheres come from `lst` and `shl`, staged by stage_lists. The clamp cache
-// is on s_cache.
+// is on s_cache. SPHERES false (K6's plane-only variant) compiles out the
+// sweeps over both lists, which are empty in its tiles.
+template <bool SPHERES = true>
 __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
                            const StagedList& lst, const StagedList& shl, const float* s_pl,
                            int* gate0, int* gate1, float* s_ccol, float* s_cache, Vec3 d,
@@ -176,10 +186,11 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
   float acc[10] = {p.far, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   SharedCache cache(s_cache);
   int count = 0;
-  forward_sweep(p, cam, lst, s_pl, gate0, d, o, &m,
-                [&](const Geo& g, const float* col, Vec3 sn) {
-                  fused_accumulate(p, g, col, sn, d, &m, &s, acc, &count, &cache, s_ccol);
-                });
+  forward_sweep<SPHERES>(p, cam, lst, s_pl, gate0, d, o, &m,
+                         [&](const Geo& g, const float* col, Vec3 sn) {
+                           fused_accumulate(p, g, col, sn, d, &m, &s, acc, &count, &cache,
+                                            s_ccol);
+                         });
   const float inv_s = 1.0f / s;
   const float depth = acc[0] * inv_s;
 
@@ -208,7 +219,7 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
       ++napp;
     }
   }
-  const int n_sh = shl.n();
+  const int n_sh = SPHERES ? shl.n() : 0;
   for (int jj = 0; jj < n_sh; ++jj) {
     const int k = shl.index(jj);
     const Sphere sp = shl.sphere(jj);
@@ -258,10 +269,10 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
     }
   } else {  // more culled-in objects than slots: the exact re-walk, gated on the final m
     float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    forward_sweep(p, cam, lst, s_pl, nullptr, d, o, &m,
-                  [&](const Geo& g, const float* col, Vec3 sn) {
-                    shade_accumulate(p, g, col, sn, d, m, inv_s, vis, out);
-                  });
+    forward_sweep<SPHERES>(p, cam, lst, s_pl, nullptr, d, o, &m,
+                           [&](const Geo& g, const float* col, Vec3 sn) {
+                             shade_accumulate(p, g, col, sn, d, m, inv_s, vis, out);
+                           });
     for (int c = 0; c < 3; ++c) {
       f->rgb[c] = out[c];
       f->dv[c] = out[3 + c];
@@ -287,7 +298,8 @@ __device__ void sh_forward(const SoftParams& p, const float* __restrict__ cam,
 // cotangent and one occluder. The per-object partials of both sweeps go
 // through the slab `sb`; the shadow sweep flushes before the main sweep, so
 // a plane row holds the shadow total before the main sweep's is added.
-template <int NTFB>
+// SPHERES false compiles out both lists' sweeps, as sh_forward's.
+template <int NTFB, bool SPHERES = true>
 __device__ void sh_backward(const SoftParams& p, const float* __restrict__ cam,
                             const float* __restrict__ sph, const float* s_pl,
                             const int* __restrict__ lst, const int* __restrict__ shl,
@@ -301,7 +313,7 @@ __device__ void sh_backward(const SoftParams& p, const float* __restrict__ cam,
   const float ct_vis = g_vis * st.get(ST_VIS);  // d vis / d f_j = vis / f_j
   Vec3 ctp = {0.0f, 0.0f, 0.0f};
   int used = 0;  // slab slots filled
-  const int n_sh = __ldg(shl);
+  const int n_sh = SPHERES ? __ldg(shl) : 0;
   for (int jj = 0; jj < n_sh; ++jj) {
     const int k = __ldg(shl + 1 + jj);
     if (p.cull && gate1[k] != 1) continue;  // block-uniform
@@ -343,8 +355,8 @@ __device__ void sh_backward(const SoftParams& p, const float* __restrict__ cam,
   st.put(ST_GO, ctp.x);
   st.put(ST_GO + 1, ctp.y);
   st.put(ST_GO + 2, ctp.z);
-  backward_sweep_slab<NTFB, true>(p, cam, sph, s_pl, lst, gate0, tile, offset, d, o,
-                                  st.get(ST_VIS), st, sm, sb, pvals, ppl, ptf);
+  backward_sweep_slab<NTFB, true, SPHERES>(p, cam, sph, s_pl, lst, gate0, tile, offset, d, o,
+                                           st.get(ST_VIS), st, sm, sb, pvals, ppl, ptf);
 }
 
 __device__ __forceinline__ int tile_index(const SoftParams& p) {
@@ -461,44 +473,107 @@ soft_sh_bwd_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
                   pvals, psh, ppl, ptf);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS, K6_MIN_BLOCKS)
-soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
-                   const float* __restrict__ pl_g, const int* __restrict__ lists,
-                   const int* __restrict__ shlists, const int* __restrict__ offsets,
-                   const int* __restrict__ sh_offsets, const float* __restrict__ tgt,
-                   float* __restrict__ pvals, float* __restrict__ psh, float* __restrict__ ppl,
-                   float* __restrict__ ptf) {
-  // [12, NP] planes, [NC, 3] cache colours, 2 (NS + NP) gate ints, the list
-  // rows and their staged spheres (StagedList, as K4's), then the clamp
-  // cache [NC, 3, threads], whose space the stash [ST_FIELDS, threads] takes
-  // once the forward is done
-  extern __shared__ float s_pl[];
-  __shared__ Reduce sm;
-  __shared__ Slab sb;
-  float* s_ccol = s_pl + PL_ROWS * p.np;
-  int* s_gate = reinterpret_cast<int*>(s_ccol + 3 * NC);
-  int* s_lst = s_gate + 2 * (p.ns + p.np);
-  float* s_sph = reinterpret_cast<float*>(s_lst + 2 * p.list_stride);
-  const int L = p.list_stride - 1;
-  float* s_cache = s_sph + 2 * STAGED * L;
+// K6's tile classes. A tile whose view list and shadow list are both empty
+// (67 % of the bench headline's 8160 tiles: sky, and ground that no sphere
+// shades) runs no sphere work: its forward, shadow sweep and backward see the
+// planes alone. The full kernel is built for the worst tile, K6_MIN_BLOCKS
+// blocks an SM; such tiles run a variant with both lists' sweeps and their
+// staged rows compiled out (k6_tile<false>), built for K6_LEAN_MIN_BLOCKS.
+// Each tile's arithmetic, and so every partial row it writes, is the same in
+// either variant: in the full kernel a plane-only tile's list loops run zero
+// times. The split reads nothing back to the host, so the step stays one CUDA
+// graph: the entry zeroes the header of a work buffer the wrapper allocates,
+// soft_sh_mse_classify writes each class's tiles and counts there, and each
+// variant runs as many blocks as fit the card at once, each of which stages
+// the planes once and claims its class's tiles one at a time from a counter
+// in the buffer (the next claim's atomicAdd is in flight while the block
+// works on its tile), so that a slow tile holds back one block, not a share
+// of the tiles. Measured at the bench headline (PERF.md section 6), a call
+// of a CUDA graph: a grid of one block a tile for each variant, each block
+// leaving the other class's tiles, 0.307 ms; these blocks 0.280 with the
+// variants in turn and 0.255 at once (rtwc_soft_sh_mse); a one-block
+// classification alone 0.026 ms, where 32 blocks take 0.0026. At exit a
+// block adds the tiles it ran to tiles_run[class] (the counters
+// k6.tiles_plane_only, k6.tiles_full of render/shadow_kernel.py).
+constexpr int K6_WORK_HEADER = 4;  // the classes' tile counts, then their claim counters
+constexpr int CLASSIFY_THREADS = 256;
+// Blocks an SM the plane-only variant is built for: 4, 64 registers and
+// 132 B of spill stores. K6 took 0.2590 / 0.2548 / 0.2627 ms at 3 / 4 / 5
+// at the headline, 1.334 / 1.315 / 1.310 at 4K / 200; the plane-only tiles
+// alone, in the full kernel at 2 / 3 / 4, 0.168 / 0.150 / 0.152: their
+// sweeps' arithmetic bounds them, not latency.
+constexpr int K6_LEAN_MIN_BLOCKS = 4;
+
+// The classes, one tile a thread: each block puts its plane-only tiles at
+// work + K6_WORK_HEADER and its others at work + K6_WORK_HEADER + n_tiles,
+// each in tile order, at places it takes with one atomicAdd a class on the
+// counts work[0], work[1] (zero at launch). The order of the blocks' runs is
+// the order of their atomics; no sum depends on it.
+__global__ void __launch_bounds__(CLASSIFY_THREADS)
+soft_sh_mse_classify(const int* __restrict__ lists, const int* __restrict__ shlists, int n_tiles,
+                     int stride, int* __restrict__ work) {
+  constexpr int NW = CLASSIFY_THREADS / 32;
+  __shared__ int s_warp[2][NW];
+  __shared__ int s_base[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = blockIdx.x * CLASSIFY_THREADS + tid;
+  bool po = false;
+  if (t < n_tiles)
+    po = (__ldg(lists + (size_t)t * stride) | __ldg(shlists + (size_t)t * stride)) == 0;
+  const bool full = t < n_tiles && !po;
+  const unsigned b_po = __ballot_sync(FULL, po), b_full = __ballot_sync(FULL, full);
+  const unsigned below = (1u << lane) - 1u;
+  if (lane == 0) {
+    s_warp[0][warp] = __popc(b_po);
+    s_warp[1][warp] = __popc(b_full);
+  }
+  __syncthreads();
+  if (tid < 2) {  // each class's warps in order, then the block's places
+    int sum = 0;
+    for (int w = 0; w < NW; ++w) {
+      const int n = s_warp[tid][w];
+      s_warp[tid][w] = sum;
+      sum += n;
+    }
+    s_base[tid] = atomicAdd(work + tid, sum);
+  }
+  __syncthreads();
+  int* order = work + K6_WORK_HEADER;
+  if (po) order[s_base[0] + s_warp[0][warp] + __popc(b_po & below)] = t;
+  if (full) order[n_tiles + s_base[1] + s_warp[1][warp] + __popc(b_full & below)] = t;
+}
+
+// One tile of K6: K4's forward, the masked MSE and its cotangents, K5's
+// sweeps at loss-cotangent 1. SPHERES false: the plane-only variant, which
+// stages no list and sweeps no sphere. The caller staged the planes.
+template <bool SPHERES>
+__device__ __forceinline__ void k6_tile(
+    const SoftParams& p, const float* __restrict__ cam, const float* __restrict__ sph,
+    const int* __restrict__ lists, const int* __restrict__ shlists,
+    const int* __restrict__ offsets, const int* __restrict__ sh_offsets,
+    const float* __restrict__ tgt, float* __restrict__ pvals, float* __restrict__ psh,
+    float* __restrict__ ppl, float* __restrict__ ptf, int tile, const float* s_pl,
+    float* s_ccol, int* s_gate, int* s_lst, float* s_sph, float* s_cache, Reduce* sm,
+    Slab* sb) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int e = tid; e < 2 * (p.ns + p.np); e += blockDim.x * blockDim.y) s_gate[e] = 0;
-  const int tile = tile_index(p);
   const int* lst = lists + (size_t)tile * p.list_stride;
   const int* shl = shlists + (size_t)tile * p.list_stride;
-  stage_lists<true>(p, sph, lst, shl, s_lst, s_sph);
-  stage_planes(p, pl_g, s_pl);  // its barrier publishes the lists too
-  const Ray r = block_ray(p, cam);
+  if constexpr (SPHERES) stage_lists<true>(p, sph, lst, shl, s_lst, s_sph);
+  __syncthreads();  // the zeroed gates and the staged lists
+  const int gx = p.wp / p.bw, ty = tile / gx, tx = tile - ty * gx;
+  const Ray r = tile_ray(p, cam, ty, tx);
   const Vec3 o = {__ldg(cam + C_POSX), __ldg(cam + C_POSY), __ldg(cam + C_POSZ)};
+  const int L = p.list_stride - 1;
   ShFwd f;
   // sh_forward ends with a __syncthreads after its last gate write
-  sh_forward(p, cam, StagedList{s_lst, s_sph, L},
-             StagedList{s_lst + p.list_stride, s_sph + STAGED * L, L}, s_pl, s_gate,
-             s_gate + p.ns + p.np, s_ccol, s_cache, r.d, o, &f);
+  sh_forward<SPHERES>(p, cam, StagedList{s_lst, s_sph, L},
+                      StagedList{s_lst + p.list_stride, s_sph + STAGED * L, L}, s_pl, s_gate,
+                      s_gate + p.ns + p.np, s_ccol, s_cache, r.d, o, &f);
   const Stash st(s_cache);
   const Vec3 d = stash_ray(r, st);
   const size_t plane = (size_t)p.hp * p.wp;
-  const int row = blockIdx.y * p.bh + threadIdx.y, col = blockIdx.x * p.bw + threadIdx.x;
+  const int row = ty * p.bh + threadIdx.y, col = tx * p.bw + threadIdx.x;
   const size_t pix = (size_t)row * p.wp + col;
   const float mask = (row < p.loss_h && col < p.loss_w) ? 1.0f : 0.0f;
   float diff[3], g_rgb[3];
@@ -524,9 +599,94 @@ soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __r
   st.put(ST_LOSS, loss_px);
   st.put(ST_VIS, f.vis);
   st.put(ST_DEPTH, f.depth);
-  sh_backward<13>(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, tile,
-                  __ldg(offsets + tile), __ldg(sh_offsets + tile), d, o, g_vis, st, &sm, &sb,
-                  pvals, psh, ppl, ptf);
+  sh_backward<13, SPHERES>(p, cam, sph, s_pl, lst, shl, s_gate, s_gate + p.ns + p.np, tile,
+                           SPHERES ? __ldg(offsets + tile) : 0,
+                           SPHERES ? __ldg(sh_offsets + tile) : 0, d, o, g_vis, st, sm, sb,
+                           pvals, psh, ppl, ptf);
+}
+
+// K6, one variant a tile class: PLANE_ONLY takes the plane-only tiles at
+// K6_LEAN_MIN_BLOCKS blocks an SM, the full kernel the others at
+// K6_MIN_BLOCKS. Each block stages the planes once, then claims its class's
+// tiles (soft_sh_mse_classify's) until none is left.
+template <bool PLANE_ONLY>
+__global__ void __launch_bounds__(MAX_THREADS, PLANE_ONLY ? K6_LEAN_MIN_BLOCKS : K6_MIN_BLOCKS)
+soft_sh_mse_kernel(SoftParams p, const float* __restrict__ cam, const float* __restrict__ sph,
+                   const float* __restrict__ pl_g, const int* __restrict__ lists,
+                   const int* __restrict__ shlists, const int* __restrict__ offsets,
+                   const int* __restrict__ sh_offsets, const float* __restrict__ tgt,
+                   float* __restrict__ pvals, float* __restrict__ psh, float* __restrict__ ppl,
+                   float* __restrict__ ptf, int* __restrict__ work,
+                   unsigned long long* __restrict__ tiles_run) {
+  // k6_smem's layout: [12, NP] planes, [NC, 3] cache colours, 2 (NS + NP)
+  // gate ints, the list rows and their staged spheres (StagedList, as K4's;
+  // the full kernel only), then the clamp cache [NC, 3, threads], whose space
+  // the stash [ST_FIELDS, threads] takes once the forward is done
+  extern __shared__ float s_pl[];
+  __shared__ Reduce sm;
+  __shared__ Slab sb;
+  __shared__ int s_claim;
+  constexpr int cls = PLANE_ONLY ? 0 : 1;
+  float* s_ccol = s_pl + PL_ROWS * p.np;
+  int* s_gate = reinterpret_cast<int*>(s_ccol + 3 * NC);
+  int* s_lst = s_gate + 2 * (p.ns + p.np);
+  float* s_sph = reinterpret_cast<float*>(s_lst + (PLANE_ONLY ? 0 : 2 * p.list_stride));
+  float* s_cache = s_sph + (PLANE_ONLY ? 0 : 2 * STAGED * (p.list_stride - 1));
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_tiles = (p.wp / p.bw) * (p.hp / p.bh);
+  const int n = work[cls];
+  const int* order = work + K6_WORK_HEADER + cls * n_tiles;
+  int* claim = work + 2 + cls;
+  stage_planes(p, pl_g, s_pl);  // once a block: every tile reads the same planes
+  int next = tid == 0 ? atomicAdd(claim, 1) : 0;
+  int ran = 0;
+  for (;;) {
+    if (tid == 0) s_claim = next;
+    __syncthreads();  // also: the last tile's reads of shared memory are done
+    const int i = s_claim;
+    if (i >= n) break;
+    if (tid == 0) next = atomicAdd(claim, 1);  // in flight while this tile runs
+    k6_tile<!PLANE_ONLY>(p, cam, sph, lists, shlists, offsets, sh_offsets, tgt, pvals, psh, ppl,
+                         ptf, __ldg(order + i), s_pl, s_ccol, s_gate, s_lst, s_sph, s_cache, &sm,
+                         &sb);
+    ++ran;
+  }
+  if (tid == 0 && ran > 0) atomicAdd(tiles_run + cls, (unsigned long long)ran);
+}
+
+// K6's dynamic shared memory (the kernel's layout); the plane-only variant
+// stages no list.
+inline size_t k6_smem(const SoftParams& p, bool plane_only) {
+  const size_t lists = plane_only ? 0
+                                  : sizeof(int) * 2 * (size_t)p.list_stride +
+                                        sizeof(float) * 2 * STAGED * (size_t)(p.list_stride - 1);
+  return sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC) +
+         sizeof(int) * 2 * (size_t)(p.ns + p.np) + lists +
+         sizeof(float) * (3 * NC > ST_FIELDS ? 3 * NC : ST_FIELDS) * MAX_THREADS;
+}
+
+// One class's launch: as many blocks as fit the card at once, at most one a
+// tile.
+template <bool PLANE_ONLY>
+int launch_k6(const SoftParams& p, int n_tiles, cudaStream_t stream, const float* cam,
+              const float* sph, const float* pl, const int* lists, const int* shlists,
+              const int* offsets, const int* sh_offsets, const float* tgt, float* pvals,
+              float* psh, float* ppl, float* ptf, int* work, unsigned long long* tiles_run) {
+  const size_t smem = k6_smem(p, PLANE_ONLY);
+  if (int rc = prepare(soft_sh_mse_kernel<PLANE_ONLY>, p, smem,
+                       sizeof(Reduce) + sizeof(Slab) + sizeof(int)))
+    return rc;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, soft_sh_mse_kernel<PLANE_ONLY>, p.bw * p.bh, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, p.device);
+  if (err != cudaSuccess) return (int)err;
+  soft_sh_mse_kernel<PLANE_ONLY><<<max(1, min(n_tiles, per_sm * sms)), dim3(p.bw, p.bh), smem,
+                                   stream>>>(p, cam, sph, pl, lists, shlists, offsets,
+                                             sh_offsets, tgt, pvals, psh, ppl, ptf, work,
+                                             tiles_run);
+  return (int)cudaGetLastError();
 }
 
 // C entries for ctypes, as in soft_render.cu: device pointers of contiguous
@@ -566,18 +726,52 @@ extern "C" int rtwc_soft_sh_bwd(const float* cam, const float* sph, const float*
   return (int)cudaGetLastError();
 }
 
+// The side stream and the two events of K6's fork, one set a device, made by
+// the device's first call.
+struct K6Fork {
+  cudaStream_t side = nullptr;
+  cudaEvent_t go = nullptr, done = nullptr;
+};
+static K6Fork k6_forks[64];
+
+// K6: the classes, then the full kernel on the tiles that list a sphere on
+// the caller's stream and the plane-only variant on the rest on a side
+// stream, joined before the entry returns. The two run at once (a capture
+// holds them as two branches of the graph), so the plane-only blocks fill
+// the SMs that the full kernel's last tiles leave, and the step waits at one
+// kernel's end, not at two in turn (PERF.md section 6). `work`
+// holds K6_WORK_HEADER + 2 n_tiles ints (the entry zeroes the header; the
+// classes' launch writes the rest); tiles_run [2] counts the tiles each
+// variant ran, summed over calls.
 extern "C" int rtwc_soft_sh_mse(const float* cam, const float* sph, const float* pl,
                                 const int* lists, const int* shlists, const int* offsets,
                                 const int* sh_offsets, const float* tgt, float* pvals, float* psh,
-                                float* ppl, float* ptf, const SoftParams* params, void* stream) {
+                                float* ppl, float* ptf, int* work, unsigned long long* tiles_run,
+                                const SoftParams* params, void* stream) {
   const SoftParams p = *params;
-  const size_t smem = sizeof(float) * (PL_ROWS * (size_t)p.np + 3 * NC) +
-                      sizeof(int) * 2 * (size_t)(p.ns + p.np + p.list_stride) +
-                      sizeof(float) * 2 * STAGED * (size_t)(p.list_stride - 1) +
-                      sizeof(float) * (3 * NC > ST_FIELDS ? 3 * NC : ST_FIELDS) * MAX_THREADS;
-  if (int rc = prepare(soft_sh_mse_kernel, p, smem, sizeof(Reduce) + sizeof(Slab))) return rc;
-  soft_sh_mse_kernel<<<dim3(p.wp / p.bw, p.hp / p.bh), dim3(p.bw, p.bh), smem,
-                       (cudaStream_t)stream>>>(p, cam, sph, pl, lists, shlists, offsets,
-                                               sh_offsets, tgt, pvals, psh, ppl, ptf);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n_tiles = (p.wp / p.bw) * (p.hp / p.bh);
+  if (p.device < 0 || p.device >= 64) return (int)cudaErrorInvalidDevice;
+  K6Fork& f = k6_forks[p.device];
+  cudaError_t err = cudaSetDevice(p.device);
+  if (err == cudaSuccess && !f.side) {
+    err = cudaStreamCreateWithFlags(&f.side, cudaStreamNonBlocking);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&f.go, cudaEventDisableTiming);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&f.done, cudaEventDisableTiming);
+  }
+  if (err == cudaSuccess) err = cudaMemsetAsync(work, 0, sizeof(int) * K6_WORK_HEADER, s);
+  if (err != cudaSuccess) return (int)err;
+  soft_sh_mse_classify<<<(n_tiles + CLASSIFY_THREADS - 1) / CLASSIFY_THREADS, CLASSIFY_THREADS, 0,
+                         s>>>(lists, shlists, n_tiles, p.list_stride, work);
+  if ((err = cudaGetLastError()) == cudaSuccess) err = cudaEventRecord(f.go, s);
+  if (err == cudaSuccess) err = cudaStreamWaitEvent(f.side, f.go, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (int rc = launch_k6<false>(p, n_tiles, s, cam, sph, pl, lists, shlists, offsets, sh_offsets,
+                                tgt, pvals, psh, ppl, ptf, work, tiles_run))
+    return rc;
+  if (int rc = launch_k6<true>(p, n_tiles, f.side, cam, sph, pl, lists, shlists, offsets,
+                               sh_offsets, tgt, pvals, psh, ppl, ptf, work, tiles_run))
+    return rc;
+  if ((err = cudaEventRecord(f.done, f.side)) != cudaSuccess) return (int)err;
+  return (int)cudaStreamWaitEvent(s, f.done, 0);
 }

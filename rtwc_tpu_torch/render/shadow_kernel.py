@@ -21,6 +21,18 @@ rows and their spheres' parameters there at block start
 (`fwd_shared_bytes`), where JAX's kernels read the lists from SMEM by
 scalar prefetch; the values and their order are the plain version's.
 
+K6 splits its tiles in two classes (`tile_classes`): a tile whose view list
+and shadow list are both empty is plane-only, and runs a variant of the
+kernel with the sphere sweeps compiled out at higher occupancy; the others
+run the full kernel. Each tile's partial rows are the same in either (the
+plain version has one path), and the split is made on the card, into a
+work buffer of `K6_WORK_HEADER + 2 T` ints the wrapper allocates. The
+tiles each class ran are counted, as the telemetry counters
+`k6.tiles_plane_only` and `k6.tiles_full`: on the card in one int64 [2]
+buffer a device, which only `tile_counts()` (a source of
+`utils/telemetry.counters()`) reads, never a step; for CPU tensors from
+`tile_classes` on the host.
+
 K5 and K6 write K2's partials plus a compact [E_sh, 4] table of shadow
 occluder gradients keyed by shadow-list slot (`sh_offsets[tile] + slot`),
 which `soft_grad_reduce` adds to the sphere rows; plane rows carry the
@@ -45,6 +57,7 @@ from rtwc_tpu_torch.render import pack as P
 from rtwc_tpu_torch.render import soft_core as C
 from rtwc_tpu_torch.render import soft_objects as O
 from rtwc_tpu_torch.render.list_kernel import build_tile_lists
+from rtwc_tpu_torch.utils.telemetry import add_source
 
 (SO_VIS, SO_DVR, SO_DVG, SO_DVB) = range(10, 14)
 N_PLANES_SH = 14
@@ -52,6 +65,13 @@ NC = 8                       # clamp-correction cache slots (csrc/soft_shadow.cu
 SLAB = 32                    # slab slots of the backward sweeps (csrc/soft_block.cuh SLAB_SLOTS)
 STAGED = 7                   # parameters of a staged sphere (csrc/soft_block.cuh STAGED)
 VIS_EARLY_OUT = O.f32(1e-7)  # the all-dark early-out threshold (pallas_soft.py:995)
+ST_FIELDS = 27               # floats a thread of the stash (csrc/soft_block.cuh StashField)
+K6_WORK_HEADER = 4           # K6's work buffer: the classes' counts and claim counters
+
+# Tiles K6 ran by class, (plane-only, full): plain runs' on the host, and one
+# int64 [2] buffer a card that K6's blocks add to.
+_HOST_TILES = [0, 0]
+_CARD_TILES: dict[torch.device, torch.Tensor] = {}
 
 
 def fwd_shared_bytes(n_planes: int, list_stride: int) -> int:
@@ -62,11 +82,58 @@ def fwd_shared_bytes(n_planes: int, list_stride: int) -> int:
                 + 3 * NC * C.MAX_THREADS)
 
 
+def k6_shared_bytes(n_spheres: int, n_planes: int, list_stride: int, plane_only: bool) -> int:
+    """Dynamic shared memory a K6 block takes (csrc/soft_shadow.cu
+    `k6_smem`): the plane table, the cache colours, both gate rows, the list
+    rows with their staged spheres (not in the plane-only variant), and the
+    clamp cache, whose space the backward's stash takes after the forward."""
+    lists = 0 if plane_only else 2 * list_stride + 2 * STAGED * (list_stride - 1)
+    return 4 * (P.PL_ROWS * n_planes + 3 * NC + 2 * (n_spheres + n_planes) + lists
+                + max(3 * NC, ST_FIELDS) * C.MAX_THREADS)
+
+
 def build_lists(sph, pl, cam, spec: C.SoftSpec, cull: bool):
     """(view lists, shadow lists), both [T, 1, NS+1] i32, from one cone
     computation."""
     return build_tile_lists(sph, pl, cam, spec.config, spec.tau, spec.bh, spec.bw, spec.grid,
                             True, disable=not cull)
+
+
+def tile_classes(lists, shl):
+    """K6's tile classes (csrc/soft_shadow.cu `soft_sh_mse_classify`):
+    (plane-only tiles, the other tiles), int32 indices in tile order (the
+    kernel's order differs between runs of 256 tiles; no sum depends on
+    it). A tile is plane-only when its view list and its shadow list are
+    both empty."""
+    tiles = torch.arange(lists.shape[0], dtype=torch.int32, device=lists.device)
+    po = (lists[:, 0, 0] == 0) & (shl[:, 0, 0] == 0)
+    return tiles[po], tiles[~po]
+
+
+def tile_counts() -> dict:
+    """The tiles K6 ran in each class, over the process: the host's count
+    and every card's buffer (read after a synchronise of its card)."""
+    po, full = _HOST_TILES
+    for dev, buf in _CARD_TILES.items():
+        torch.cuda.synchronize(dev)
+        a, b = buf.tolist()
+        po, full = po + a, full + b
+    return {"k6.tiles_plane_only": po, "k6.tiles_full": full}
+
+
+add_source(tile_counts)
+
+
+def _card_tiles(dev: torch.device) -> torch.Tensor:
+    """The card's tile counters, made by the first call on it, which must
+    not be a capture (a capture would zero them at each replay)."""
+    buf = _CARD_TILES.get(dev)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K6's tile counters are made by an eager call: call soft_sh_mse "
+                               "once on this card before capturing it")
+        buf = _CARD_TILES[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return buf
 
 
 def _check(spec, sph, pl, cam, lists, shl, **extra):
@@ -438,12 +505,17 @@ def soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, *, spec: C.S
     if tuple(tgt.shape) != (3, Hp, Wp):
         raise ValueError(f"target must be [3, {Hp}, {Wp}], got {tuple(tgt.shape)}")
     if sph.device.type == "cpu":
+        po, full = tile_classes(lists, shl)
+        _HOST_TILES[0] += po.numel()
+        _HOST_TILES[1] += full.numel()
         return soft_sh_mse_plain(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec)
     parts = _partials(spec, sph, pl, lists, shl, pvals, psh)
     prm = C._params(spec, sph, pl, lists)
     prm.cull = int(spec.cull)
+    work = torch.empty(K6_WORK_HEADER + 2 * lists.shape[0], dtype=torch.int32, device=sph.device)
     C._launch("rtwc_soft_sh_mse", "soft_sh_mse",
-               (cam, sph, pl, lists, shl, offsets, sh_offsets, tgt) + parts, prm, sph)
+               (cam, sph, pl, lists, shl, offsets, sh_offsets, tgt) + parts
+               + (work, _card_tiles(sph.device)), prm, sph)
     return parts
 
 

@@ -138,7 +138,7 @@ def reduce_params(ns: int, npl: int, n: int, n_sh: int, n_tiles: int, ntf: int, 
 _ENTRIES = {"rtwc_soft_fwd": ("soft_render", 6), "rtwc_soft_bwd": ("soft_render", 11),
             "rtwc_soft_mse": ("soft_render", 9), "rtwc_soft_grad_reduce": ("soft_render", 12),
             "rtwc_soft_sh_fwd": ("soft_shadow", 8), "rtwc_soft_sh_bwd": ("soft_shadow", 14),
-            "rtwc_soft_sh_mse": ("soft_shadow", 12)}
+            "rtwc_soft_sh_mse": ("soft_shadow", 14)}
 
 
 def _fn(name: str):

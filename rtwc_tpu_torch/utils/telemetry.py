@@ -20,10 +20,11 @@ CUDA graph capture.
 
 Counters. `count(name, n)` adds to the program's one registry of counts;
 `counters()` snapshots it together with the kernel modules' launch
-counters (registered as sources, `add_source`: they keep their own
-`LAUNCHES` names). While a profiler records, each count is also kept in
-`recorded()` as (name, t_ns, n), so a reader of a traced window counts
-what fell inside it. `profiler_trace` writes the counters' change over
+counters and K6's tile counts (registered as sources, `add_source`: they
+keep their own names; K6's are read from the card, so `counters()` is
+never called inside a step). While a profiler records, each count is
+also kept in `recorded()` as (name, t_ns, n), so a reader of a traced
+window counts what fell inside it. `profiler_trace` writes the counters' change over
 its region to counters.json beside the trace.
 """
 from __future__ import annotations
@@ -84,9 +85,11 @@ def count(name: str, n: int = 1) -> None:
 
 def add_source(source: Callable[[], dict]) -> None:
     """Register a function returning counters kept elsewhere, read by every
-    `counters()`. Its one user is render/step_graph.py, for the kernel
-    modules' `LAUNCHES` dicts: utils imports nothing of render, so render
-    registers them here rather than `counters()` reading them itself."""
+    `counters()`. Its users are render/step_graph.py, for the kernel
+    modules' `LAUNCHES` dicts, and render/shadow_kernel.py, for K6's tiles
+    by class (a read of a card's buffer): utils imports nothing of render,
+    so render registers them here rather than `counters()` reading them
+    itself."""
     _SOURCES.append(source)
 
 

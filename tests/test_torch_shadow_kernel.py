@@ -46,6 +46,7 @@ from rtwc_tpu_torch.render import shadow_kernel as SH
 from rtwc_tpu_torch.render import soft_kernel as SK
 from rtwc_tpu_torch.render import softmin as TSM
 from rtwc_tpu_torch.render.softmin import render_frame_soft as t_soft
+from rtwc_tpu_torch.utils import telemetry
 from test_torch_soft_kernel import _slab_crowd, rel_err
 from test_torch_softmin import (CFG, LEAVES, TAU, assert_close_tree, camera64, fb_arrays,
                                 jax_camera, jax_scene, loss_of, scene64)
@@ -611,6 +612,120 @@ def test_k6_equals_k4_plus_k5_tables():
             x, y = x[:, :12], y[:, :12]
         assert rel_err(x.numpy(), y.numpy()) < 2e-5 or y.abs().max() == 0, name
     assert a[1].abs().max() > 0  # the occluder's partials are there
+
+
+# -- K6's tile classes --------------------------------------------------------------------
+
+def _k6_lists(name):
+    """(spec, sph, pl, cam, lists, shl) of `fit_1080p_s20.shadowed_mse`'s
+    scene at its constants (the bench headline), or of the slab crowd at
+    320x96, where some tiles list no sphere."""
+    if name == "headline":
+        cfg = RenderConfig(width=1920, height=1080, max_spheres=20, max_planes=4, shadows=True,
+                           soft_miss_penalty=300.0, soft_mask_k=10.0)
+        ts, tc = TS.random_scene(20, max_spheres=20, max_planes=4, seed=0), TC.default_camera()
+    else:
+        cfg = CFG_SH.replace(width=320, height=96, max_spheres=48)
+        ts, tc = _port(_slab_crowd(), jax_camera())
+    spec = SK.SoftSpec(cfg, TAU)
+    sph, pl, cam = SK._packed(ts, tc)
+    return (spec, sph, pl, cam) + SH.build_lists(sph, pl, cam, spec, True)
+
+
+@pytest.mark.parametrize("name", ["headline", "slab crowd"])
+def test_k6_tile_classes_cover_every_tile_once(name):
+    """K6's split (`tile_classes`, the kernels' rule): the plane-only class
+    is the tiles whose view list and shadow list are both empty, in tile
+    order; the other class is the rest, in tile order; every tile is in one
+    class once. At the headline two thirds of the tiles are plane-only
+    (PERF.md section 6)."""
+    *_, lists, shl = _k6_lists(name)
+    T = lists.shape[0]
+    po, full = SH.tile_classes(lists, shl)
+    mask = (lists[:, 0, 0] == 0) & (shl[:, 0, 0] == 0)
+    assert torch.equal(po.long(), torch.nonzero(mask).flatten())
+    assert torch.equal(full.long(), torch.nonzero(~mask).flatten())
+    assert torch.equal(torch.sort(torch.cat([po, full])).values, torch.arange(T, dtype=torch.int32))
+    assert po.numel() > 0 and full.numel() > 0
+    if name == "headline":
+        assert (T, po.numel()) == (8160, 5497)
+
+
+def test_k6_wrapper_counts_its_tiles_by_class():
+    """A plain K6 call adds its classes' sizes to the counters
+    `k6.tiles_plane_only` and `k6.tiles_full` of telemetry.counters()."""
+    spec, sph, pl, cam, lists, shl = _k6_lists("slab crowd")
+    offsets, _, sh_offsets, _, _ = SK.entry_tables(lists, shl)
+    tgt = torch.zeros((3,) + spec.extent)
+    before = telemetry.counters()
+    SH.soft_sh_mse(sph, pl, cam, lists, shl, offsets, sh_offsets, tgt, spec=spec)
+    after = telemetry.counters()
+    mask = (lists[:, 0, 0] == 0) & (shl[:, 0, 0] == 0)
+    n_po = int(mask.sum())
+    assert after["k6.tiles_plane_only"] - before["k6.tiles_plane_only"] == n_po
+    assert after["k6.tiles_full"] - before["k6.tiles_full"] == lists.shape[0] - n_po
+
+
+def _enum_values(body: str) -> dict:
+    """A C enum's body as {name: value}."""
+    out, nxt = {}, 0
+    for item in (x.strip() for x in re.sub(r"//[^\n]*", "", body).split(",")):
+        if not item:
+            continue
+        name, _, expr = (x.strip() for x in item.partition("="))
+        nxt = eval(expr, {}, dict(out)) if expr else nxt
+        out[name] = nxt
+        nxt += 1
+    return out
+
+
+def test_k6_split_matches_the_cuda_source():
+    """K6's work buffer header and C entry's pointer count mirror
+    csrc/soft_shadow.cu; `k6_shared_bytes` equals `k6_smem` (evaluated from
+    its source, the stash's size from soft_block.cuh's StashField); the
+    plane-only variant is built for K6_LEAN_MIN_BLOCKS blocks an SM, at
+    least 4 and more than the full kernel's K6_MIN_BLOCKS, and that many of
+    its blocks fit an SM's 228 KB of shared memory at the headline and at
+    4K / 200, each with its static shared memory and the 1 KB the runtime
+    keeps a block."""
+    src = os.path.join(os.path.dirname(SK.__file__), "..", "csrc")
+    with open(os.path.join(src, "soft_shadow.cu")) as f:
+        shadow = f.read()
+    with open(os.path.join(src, "soft_block.cuh")) as f:
+        block = f.read()
+    stash = _enum_values(re.search(r"enum StashField \{(.*?)\};", block, re.S).group(1))
+    assert stash["ST_FIELDS"] == SH.ST_FIELDS
+    assert re.search(r"constexpr int K6_WORK_HEADER = (\d+);", shadow).group(1) == str(
+        SH.K6_WORK_HEADER)
+    entry = re.search(r'extern "C" int rtwc_soft_sh_mse\((.*?)\)', shadow, re.S).group(1)
+    pointers = [a for a in entry.split(",")
+                if "*" in a and "SoftParams" not in a and "stream" not in a]
+    assert len(pointers) == SK.C._ENTRIES["rtwc_soft_sh_mse"][1]
+    body = re.search(r"inline size_t k6_smem\(const SoftParams& p, bool plane_only\) \{(.*?)\n\}",
+                     shadow, re.S).group(1)
+    lists = re.search(r"const size_t lists = plane_only \? 0\s*:(.*?);", body, re.S).group(1)
+    total = re.search(r"return (.*?);", body, re.S).group(1)
+
+    def ev(expr, env):
+        expr = re.sub(r"sizeof\((?:float|int)\)", "4", expr).replace("(size_t)", "")
+        expr = re.sub(r"\(([^()?]*)\?([^():]*):([^()]*)\)", r"((\2) if (\1) else (\3))",
+                      expr.replace("p.", ""))
+        return eval(" ".join(expr.split()), {}, env)
+
+    full_blocks = int(re.search(r"K6_MIN_BLOCKS = (\d+);", shadow).group(1))
+    lean_blocks = int(re.search(r"constexpr int K6_LEAN_MIN_BLOCKS = (\d+);", shadow).group(1))
+    assert lean_blocks >= 4 and lean_blocks > full_blocks
+    static = 4 * (8 * 13 * 2) + 4 * (32 * 8 * 11) + 8 * 32 + 4 * 32 + 4  # Reduce, Slab, the claim
+    for ns, n_planes, stride in ((20, 4, 21), (200, 4, 201), (1, 1, 2), (48, 2, 49)):
+        for plane_only in (False, True):
+            env = dict(ns=ns, np=n_planes, list_stride=stride, PL_ROWS=SK.P.PL_ROWS, NC=SH.NC,
+                       STAGED=SH.STAGED, MAX_THREADS=SK.C.MAX_THREADS, ST_FIELDS=SH.ST_FIELDS,
+                       plane_only=plane_only)
+            env["lists"] = 0 if plane_only else ev(lists, env)
+            got = SH.k6_shared_bytes(ns, n_planes, stride, plane_only)
+            assert ev(total, env) == got, (ns, n_planes, stride, plane_only)
+            if plane_only and ns in (20, 200):
+                assert lean_blocks * (got + static + 1024) <= 228 * 1024
 
 
 def test_reduction_adds_shadow_entries():
